@@ -7,10 +7,13 @@
   (``label\\tprob`` per row, ``%g``).
 - ``task=serve`` — the online scoring server over ``model_in``
   (serve/__init__.py run_serve).
+- ``task=train`` (the default) — the sgd learner (learners/sgd.py): FM
+  on the hashed store, saving ``<model_out>_part-0`` (with the optimizer
+  state when ``has_aux=1``).
 
 ``device=cuda`` (the default) runs on the card and raises when there is
-none; ``device=cpu`` runs on the CPU. The other tasks (train, dump,
-convert, online) are not ported yet and raise.
+none; ``device=cpu`` runs on the CPU. The other tasks (dump, convert,
+online) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -122,7 +125,7 @@ def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m difacto_tpu_torch [config_file] "
-              "task=pred|serve key1=val1 ...", file=sys.stderr)
+              "task=train|pred|serve key1=val1 ...", file=sys.stderr)
         return 1
     param, remain = DifactoParam.init_allow_unknown(parse_cli_args(argv))
     if param.task == "pred":
@@ -133,10 +136,19 @@ def main(argv: Optional[list] = None) -> int:
     elif param.task == "serve":
         from .serve import run_serve
         warn_unknown(run_serve(remain, device=param.device))
+    elif param.task == "train":
+        if param.learner != "sgd":
+            raise NotImplementedError(
+                f"learner={param.learner!r} is not ported; the port trains "
+                "with learner=sgd (ROADMAP.md, Queue 1)")
+        from .learners.sgd import SGDLearner
+        learner = SGDLearner(device=param.device)
+        warn_unknown(learner.init(remain))
+        learner.run()
     else:
         raise NotImplementedError(
-            f"task={param.task} is not ported yet: this slice ports "
-            "task=pred and task=serve (ROADMAP.md, Queue 1)")
+            f"task={param.task} is not ported yet: the port runs "
+            "task=train, task=pred and task=serve (ROADMAP.md, Queue 1)")
     return 0
 
 

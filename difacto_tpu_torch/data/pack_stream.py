@@ -1,15 +1,24 @@
-"""Sticky shape caps (counterpart of difacto_tpu/data/pack_stream.py,
-``ShapeSchedule`` only).
+"""Host batch preparation for the hashed store (counterpart of
+difacto_tpu/data/pack_stream.py, the thread-transport half).
 
-Every batch pads each dimension to the largest bucket seen so far for its
-key, so a steady stream of batches reuses one set of padded shapes (and,
-on the card, one set of allocator blocks) instead of re-bucketing per
-batch. Caps only grow; thread-safe.
+- :class:`ShapeSchedule`: every batch pads each dimension to the largest
+  bucket seen so far for its key, so a steady stream of batches reuses one
+  set of padded shapes (and, on the card, one set of allocator blocks).
+  Caps only grow; thread-safe.
+- :func:`prepare_hashed`: hash the raw ids, ONE ``np.unique`` (with counts
+  on epoch 0) collapses localization, slot mapping and collision dedup,
+  the slot vector is padded with ascending out-of-bounds lanes, and
+  :func:`pack_payload` packs the panel layout for near-uniform rows, COO
+  otherwise — the JAX package's buffers byte for byte.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
+from typing import NamedTuple, Optional
+
+import numpy as np
 
 
 class ShapeSchedule:
@@ -33,3 +42,65 @@ class ShapeSchedule:
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self._caps)
+
+
+class Payload(NamedTuple):
+    """A packed batch: ``layout`` "panel" or "coo", the two host buffers,
+    and the statics to unpack them. ``d2`` is the panel width or the COO
+    nnz cap; ``row_cap`` (COO only) the widest row's cap."""
+    layout: str
+    i32: np.ndarray
+    f32: np.ndarray
+    binary: bool
+    b_cap: int
+    d2: int
+    u_cap: int
+    row_cap: int = 0
+
+
+def pack_payload(shapes: ShapeSchedule, cblk, n_lanes: int,
+                 padded: np.ndarray, b_cap: int, dim_min: int, job: str,
+                 counts: Optional[np.ndarray] = None) -> Payload:
+    """Panel layout when rows are near-uniform, COO otherwise; caps from
+    the sticky schedule keyed by ``job``. ``padded`` is the OOB-padded
+    slot vector (its length is u_cap); ``cblk.index`` already addresses
+    its lanes."""
+    from ..ops.batch import max_row_nnz, pack_batch, pack_panel, panel_width
+    u_cap = len(padded)
+    width = panel_width(cblk, b_cap)
+    if width is not None:
+        width = shapes.cap(job + ".w", width, exact=True)
+        i32, f32, binary = pack_panel(cblk, n_lanes, padded, b_cap, width,
+                                      u_cap, counts=counts)
+        return Payload("panel", i32, f32, binary, b_cap, width, u_cap)
+    nnz_cap = shapes.cap(job + ".nnz", cblk.nnz, dim_min)
+    row_cap = shapes.cap(job + ".row", max_row_nnz(cblk))
+    i32, f32, binary = pack_batch(cblk, n_lanes, padded, b_cap, nnz_cap,
+                                  u_cap, counts=counts)
+    return Payload("coo", i32, f32, binary, b_cap, nnz_cap, u_cap, row_cap)
+
+
+def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,
+                   want_counts: bool, fill_counts: bool, dim_min: int,
+                   job: str, b_cap: Optional[int] = None) -> Payload:
+    """Pack one raw-id block for the hashed store. ``want_counts`` keeps
+    the counts section for the whole run; ``fill_counts`` (epoch 0)
+    fills it with each lane's occurrence count, later epochs ship
+    zeros."""
+    from ..base import reverse_bytes
+    from ..store.local import hash_slots, pad_slots_oob
+    tok = hash_slots(reverse_bytes(blk.index), hash_capacity)
+    if fill_counts:
+        slots, inverse, counts = np.unique(tok, return_inverse=True,
+                                           return_counts=True)
+        counts = counts.astype(np.float32)
+    else:
+        slots, inverse = np.unique(tok, return_inverse=True)
+        counts = np.zeros(0, np.float32) if want_counts else None
+    cblk = dataclasses.replace(blk, index=inverse.astype(np.uint32))
+    n_uniq = len(slots)
+    u_cap = shapes.cap(job + ".u", n_uniq)
+    b_cap = b_cap or shapes.cap(job + ".b", blk.size, dim_min)
+    padded = pad_slots_oob(slots.astype(np.int32), u_cap, hash_capacity)
+    return pack_payload(shapes, cblk, n_uniq, padded, b_cap, dim_min, job,
+                        counts=counts)

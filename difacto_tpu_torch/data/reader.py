@@ -1,17 +1,20 @@
-"""Text reader (counterpart of difacto_tpu/data/reader.py, one part).
+"""Sharded text reader (counterpart of difacto_tpu/data/reader.py).
 
-The serving slice reads its ``task=pred`` input as one part: a file, a
-directory (all regular files inside, sorted) or a glob, on local disk,
-yielded as RowBlocks of whole-line chunks of ``chunk_bytes`` — the same
-chunking the JAX package's single-part reader applies, so the pred loop
-cuts the same ``batch_size`` windows in both packages.
+A uri is a file, a directory (all regular files inside, sorted) or a
+glob, on local disk. Part ``part_idx`` of ``num_parts`` is a byte range
+of the files' concatenation, the JAX package's (and dmlc InputSplit's)
+contract: the total span is cut evenly, a part starts at the first line
+start at or after its begin offset and ends with the line that straddles
+its end, so every line belongs to exactly one part. Records come as
+RowBlocks of whole-line chunks of ``chunk_bytes``, the JAX reader's
+chunking, so both packages cut the same batches.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Iterator, List
+from typing import Iterator, List, Tuple
 
 from .parsers import get_parser
 from .rowblock import RowBlock
@@ -37,32 +40,61 @@ def expand_uri(uri: str) -> List[str]:
     return files
 
 
-def _iter_text_chunks(path: str, chunk_bytes: int) -> Iterator[bytes]:
-    """Whole-line chunks of ``path``: a chunk that stops mid-line is
-    finished with the rest of that line."""
+def _byte_ranges(files: List[str], sizes: List[int], part_idx: int,
+                 num_parts: int) -> List[Tuple[str, int, int]]:
+    """This part's global byte range [begin, end) cut across the files."""
+    total = sum(sizes)
+    begin = total * part_idx // num_parts
+    end = total * (part_idx + 1) // num_parts
+    out, base = [], 0
+    for f, sz in zip(files, sizes):
+        lo, hi = max(begin, base), min(end, base + sz)
+        if lo < hi:
+            out.append((f, lo - base, hi - base))
+        base += sz
+    return out
+
+
+def _iter_text_chunks(path: str, begin: int, end: int,
+                      chunk_bytes: int) -> Iterator[bytes]:
+    """Whole-line chunks covering [begin, end) of ``path``: the line that
+    straddles ``begin`` belongs to the previous part, the one that
+    straddles ``end`` to this one."""
     with open(path, "rb") as f:
-        while True:
-            data = f.read(chunk_bytes)
+        pos = begin
+        if begin > 0:
+            f.seek(begin - 1)
+            pos = begin - 1 + len(f.readline())
+        while pos < end:
+            data = f.read(max(min(chunk_bytes, end - pos), 1))
             if not data:
-                return
+                break
             if not data.endswith(b"\n"):
                 data += f.readline()
             yield data
+            pos += len(data)
 
 
 class Reader:
     def __init__(self, uri: str, data_format: str = "libsvm",
+                 part_idx: int = 0, num_parts: int = 1,
                  chunk_bytes: int = 1 << 26):
+        if not 0 <= part_idx < num_parts:
+            raise ValueError(f"part_idx {part_idx} out of range of "
+                             f"{num_parts}")
         self.data_format = data_format.lower()
+        self.part_idx, self.num_parts = part_idx, num_parts
         self.chunk_bytes = chunk_bytes
         self.files = expand_uri(uri)
         if not self.files:
             raise FileNotFoundError(f"empty data uri: {uri!r}")
+        self._sizes = [os.path.getsize(f) for f in self.files]
 
     def __iter__(self) -> Iterator[RowBlock]:
         parse = get_parser(self.data_format)
-        for path in self.files:
-            for chunk in _iter_text_chunks(path, self.chunk_bytes):
+        for path, b, e in _byte_ranges(self.files, self._sizes,
+                                       self.part_idx, self.num_parts):
+            for chunk in _iter_text_chunks(path, b, e, self.chunk_bytes):
                 blk = parse(chunk)
                 if blk.size:
                     yield blk

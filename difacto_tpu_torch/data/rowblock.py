@@ -57,6 +57,14 @@ class RowBlock:
         counts = np.diff(self.offset)
         return np.repeat(np.arange(self.size, dtype=np.int32), counts)
 
+    def drop_binary_values(self) -> "RowBlock":
+        """If every value == 1, drop the value array
+        (batch_reader.cc:71-73)."""
+        if self.value is not None and (self.value == 1).all():
+            return RowBlock(self.offset, self.label, self.index, None,
+                            self.weight)
+        return self
+
     @staticmethod
     def concat(blocks: List["RowBlock"]) -> "RowBlock":
         if not blocks:
@@ -88,3 +96,38 @@ def empty_block() -> RowBlock:
         label=np.zeros(0, dtype=REAL_DTYPE),
         index=np.zeros(0, dtype=FEAID_DTYPE),
     )
+
+
+class RowBlockBuilder:
+    """Incremental builder (dmlc::data::RowBlockContainer::Push)."""
+
+    def __init__(self) -> None:
+        self._rows: List[RowBlock] = []
+
+    def push_rows(self, blk: RowBlock, rows: np.ndarray) -> None:
+        """Push a subset/permutation of ``blk``'s rows, in that order."""
+        if len(rows) == 0:
+            return
+        counts = np.diff(blk.offset)[rows]
+        starts = np.asarray(blk.offset[rows], dtype=np.int64)
+        off = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(counts, out=off[1:])
+        nnz_idx = (np.repeat(starts - off[:-1], counts)
+                   + np.arange(int(off[-1]), dtype=np.int64))
+        self._rows.append(RowBlock(
+            offset=off,
+            label=blk.label[rows],
+            index=blk.index[nnz_idx],
+            value=None if blk.value is None else blk.value[nnz_idx],
+            weight=None if blk.weight is None else blk.weight[rows],
+        ))
+
+    @property
+    def num_rows(self) -> int:
+        return sum(b.size for b in self._rows)
+
+    def build(self) -> RowBlock:
+        return RowBlock.concat(self._rows)
+
+    def clear(self) -> None:
+        self._rows.clear()

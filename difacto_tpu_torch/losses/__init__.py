@@ -7,16 +7,35 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from . import metrics
-from .fm import FMParams, fm_predict, fm_predict_xv, logit_objv
+from ..ops.batch import PanelBatch
+from .fm import (FMParams, fm_grad, fm_grad_panel, fm_predict,
+                 fm_predict_panel, fm_predict_panel_xv, fm_predict_xv,
+                 logit_objv)
 
 
 @dataclass(frozen=True)
 class LossSpec:
+    """Loss dispatch on the batch layout: PanelBatch takes the panel
+    forward/backward, DeviceBatch the COO ones."""
     name: str
     V_dim: int
 
     def predict(self, params: FMParams, batch):
+        if isinstance(batch, PanelBatch):
+            return fm_predict_panel(params, batch)
         return fm_predict(params, batch)
+
+    def predict_xv(self, params: FMParams, batch):
+        """(pred, XV or None): the forward and its X·V, which calc_grad
+        reuses so the train step gathers the token rows once."""
+        if isinstance(batch, PanelBatch):
+            return fm_predict_panel_xv(params, batch)
+        return fm_predict_xv(params, batch)
+
+    def calc_grad(self, params: FMParams, batch, pred, xv=None):
+        if isinstance(batch, PanelBatch):
+            return fm_grad_panel(params, batch, pred, xv)
+        return fm_grad(params, batch, pred, xv)
 
     def evaluate(self, pred, batch):
         return logit_objv(pred, batch)
@@ -31,5 +50,6 @@ def create(name: str, V_dim: int = 0) -> LossSpec:
     raise ValueError(f"unknown loss type: {name!r}")
 
 
-__all__ = ["FMParams", "fm_predict", "fm_predict_xv", "logit_objv",
-           "LossSpec", "create", "metrics"]
+__all__ = ["FMParams", "fm_predict", "fm_predict_xv", "fm_grad",
+           "fm_predict_panel", "fm_predict_panel_xv", "fm_grad_panel",
+           "logit_objv", "LossSpec", "create", "metrics"]

@@ -1,5 +1,5 @@
-"""Factorization-machine and logistic losses, the forward half
-(counterpart of difacto_tpu/losses/fm.py).
+"""Factorization-machine and logistic losses (counterpart of
+difacto_tpu/losses/fm.py).
 
 The loss receives the batch's already-gathered parameter rows — w[U] and
 V[U, k] for the batch's U distinct features — plus an activation mask
@@ -8,10 +8,25 @@ V[U, k] for the batch's U distinct features — plus an activation mask
 Forward (the reference's fm_loss.h:43,67-119):
     pred = X w + 0.5 * sum((X V)^2 - (X.X)(V.V), axis=1), clamped to ±20
 
-Sums run in a fixed per-row order (ops/segment.py) so a row's score does
-not depend on the device or on the other rows of its batch; they differ
-from the JAX package's summation order, so the two agree within a float32
-tolerance, not bit for bit. Logistic loss is the V_dim=0 case (V=None).
+Backward (fm_loss.h:124-126,148-203), with p = -y / (1 + exp(y pred)) * rw:
+    gw = X' p
+    gV = X' diag(p) X V - diag((X.X)' p) V        (masked by v_mask)
+
+Two batch layouts: COO (:class:`~..ops.batch.DeviceBatch`) and the
+fixed-width panel (:class:`~..ops.batch.PanelBatch`). Every sum has a
+fixed order, so a step gives the same bits on every run (no atomics):
+
+- the COO forward sums each row left to right over its own entries
+  (ops/segment.py), so a row's score does not depend on the other rows of
+  its batch;
+- the panel forward sums each row's F columns in column order, JAX's
+  column loop (``fm.py:144-158``);
+- both backwards sum each slot lane's contributions in ascending entry
+  order (ops/segment.lane_sum), XLA's CPU scatter-add order.
+
+The row reductions over the k embedding columns take their own order, and
+``exp`` is torch's, so the port agrees with the JAX package within a
+float32 tolerance. Logistic loss is the V_dim=0 case (V=None).
 """
 
 from __future__ import annotations
@@ -20,8 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops.batch import DeviceBatch
-from ..ops.segment import row_sum, segment_sum, spmv
+from ..ops.batch import DeviceBatch, PanelBatch
+from ..ops.segment import lane_sum, row_sum, segment_sum, spmv, spmv_t
 
 PRED_CLAMP = 20.0
 
@@ -63,7 +78,123 @@ def fm_predict(params: FMParams, batch: DeviceBatch) -> torch.Tensor:
     return fm_predict_xv(params, batch)[0]
 
 
-def logit_objv(pred: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
+def _vmask(params: FMParams) -> torch.Tensor:
+    return torch.ones_like(params.w) if params.v_mask is None \
+        else params.v_mask
+
+
+def _p_vector(pred: torch.Tensor, batch) -> torch.Tensor:
+    """p = -y/(1+exp(y*pred)) * row_weight, zeroed on padding rows."""
+    y = torch.where(batch.labels > 0, 1.0, -1.0)
+    p = -y / (1.0 + torch.exp(y * pred))
+    return p * batch.rweight * batch.row_mask
+
+
+def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
+            xv: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """COO backward -> (gw[U], gV[U, k] or None). The three transposed
+    products share one lane sum over [x p XV | x p | x^2 p]; ``xv`` is the
+    forward's X·V (None recomputes it)."""
+    U = params.w.shape[0]
+    vals, rows, cols = batch.vals, batch.rows, batch.cols
+    p = _p_vector(pred, batch)
+    if params.V is None or params.V.shape[1] == 0:
+        return spmv_t(vals, rows, cols, p, U), None
+    k = params.V.shape[1]
+    vm = _vmask(params)
+    Vm = params.V * vm[:, None]
+    XV = xv if xv is not None else segment_sum(
+        vals[:, None] * Vm[cols], rows, batch.batch_cap, batch.row_cap)
+    pr = p[rows]
+    red = lane_sum(torch.cat([vals[:, None] * (p[:, None] * XV)[rows],
+                              (vals * pr)[:, None],
+                              (vals ** 2 * pr)[:, None]], dim=1), cols, U)
+    t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
+    gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
+    return gw, gV
+
+
+def fm_predict_panel_xv(params: FMParams, pb: PanelBatch
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Panel forward: one gather of combined [w | V] rows (V's container
+    dtype, as in JAX: bf16 rows gather w as bf16 too) and, per row, the
+    F columns summed in column order into f32 — JAX's column loop, as one
+    sequential segment sum. Returns (pred, XV)."""
+    B, F = pb.idx.shape
+    if params.V is None or params.V.shape[1] == 0:
+        wc = params.w[pb.idx]
+        if pb.vals is not None:
+            wc = wc * pb.vals
+        return torch.clamp(_columns_in_order(wc[:, :, None])[:, 0],
+                           -PRED_CLAMP, PRED_CLAMP), None
+    dt = params.V.dtype
+    k = params.V.shape[1]
+    Vm = params.V * _vmask(params).to(dt)[:, None]
+    wv = torch.cat([params.w.to(dt)[:, None], Vm], dim=1)
+    tok = wv[pb.idx]                                   # [B, F, 1+k]
+    wc, t = tok[:, :, :1].to(torch.float32), tok[:, :, 1:]
+    if pb.vals is not None:
+        wc = wc * pb.vals[:, :, None]
+        t = t * pb.vals[:, :, None].to(dt)
+    t = t.to(torch.float32)
+    sums = _columns_in_order(torch.cat([wc, t, t * t], dim=2))
+    XV, XXVV = sums[:, 1:1 + k], sums[:, 1 + k:]
+    pred = sums[:, 0] + 0.5 * torch.sum(XV * XV - XXVV, dim=1)
+    return torch.clamp(pred, -PRED_CLAMP, PRED_CLAMP), XV
+
+
+def _columns_in_order(cells: torch.Tensor) -> torch.Tensor:
+    """[B, F, m] -> [B, m]: 0 + cells[:, 0] + cells[:, 1] + ... ."""
+    B, F, m = cells.shape
+    lengths = torch.full((B,), F, dtype=torch.int64, device=cells.device)
+    return torch.segment_reduce(cells.reshape(B * F, m), "sum",
+                                lengths=lengths, axis=0, unsafe=True)
+
+
+def fm_predict_panel(params: FMParams, pb: PanelBatch) -> torch.Tensor:
+    return fm_predict_panel_xv(params, pb)[0]
+
+
+def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
+                  xv: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Panel backward: each cell contributes broadcasts of its row's
+    (p XV | p | p) times (x | x | x^2), rounded to V's container dtype as
+    in JAX, and ONE lane sum in ascending cell order gives (t1 | gw |
+    xxp)."""
+    U = params.w.shape[0]
+    B, F = pb.idx.shape
+    p = _p_vector(pred, pb)
+    flat_idx = pb.idx.reshape(B * F)
+    if params.V is None or params.V.shape[1] == 0:
+        cell = p[:, None].expand(B, F)
+        if pb.vals is not None:
+            cell = cell * pb.vals
+        return lane_sum(cell.reshape(B * F, 1), flat_idx, U)[:, 0], None
+    k = params.V.shape[1]
+    vm = _vmask(params)
+    Vm = params.V * vm.to(params.V.dtype)[:, None]
+    if xv is None:
+        t = Vm[pb.idx]
+        if pb.vals is not None:
+            t = t * pb.vals[:, :, None].to(t.dtype)
+        xv = torch.sum(t.to(torch.float32), dim=1)
+    Vm = Vm.to(torch.float32)
+    rowq = torch.cat([p[:, None] * xv, p[:, None], p[:, None]], dim=1)
+    contrib = rowq[:, None, :].expand(B, F, k + 2)
+    if pb.vals is not None:
+        v3 = pb.vals[:, :, None]
+        contrib = contrib * torch.cat([v3.expand(B, F, k + 1), v3 * v3],
+                                      dim=2)
+    contrib = contrib.to(params.V.dtype).to(torch.float32)
+    red = lane_sum(contrib.reshape(B * F, k + 2), flat_idx, U)
+    t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
+    gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
+    return gw, gV
+
+
+def logit_objv(pred: torch.Tensor, batch) -> torch.Tensor:
     """sum log(1 + exp(-y*pred)) over real rows, not averaged
     (include/difacto/loss.h:57-66)."""
     y = torch.where(batch.labels > 0, 1.0, -1.0)

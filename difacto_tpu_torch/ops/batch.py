@@ -1,24 +1,26 @@
-"""Device batch representation: padded COO segments (counterpart of
-difacto_tpu/ops/batch.py, the COO layout the predict executor uses).
+"""Device batch representations (counterpart of difacto_tpu/ops/batch.py).
 
-A localized row block becomes TWO host buffers (:func:`pack_batch`,
-byte-for-byte the JAX package's layout) and, on the device, a
-:class:`DeviceBatch` of fixed-cap tensors (:func:`unpack_batch`):
+A localized row block becomes TWO host buffers, byte for byte the JAX
+package's layouts, and on the device a batch of fixed-cap tensors:
 
-- ``rows[NNZ]`` int32 row of each nonzero, ascending (pad: last real row),
+- COO (:func:`pack_batch` / :func:`unpack_batch` -> :class:`DeviceBatch`):
+  ``rows[NNZ]`` int32 row of each nonzero, ascending (pad: last real row),
   ``cols[NNZ]`` int32 position in the slot vector (pad: 0), ``vals[NNZ]``
-  float32 (zero on padding);
-- ``labels/rweight/row_mask [B]`` per-row arrays.
+  float32 (zero on padding), ``labels/rweight/row_mask [B]``;
+- panel (:func:`pack_panel` / :func:`unpack_panel` -> :class:`PanelBatch`):
+  a [B, F] matrix of slot-vector positions for near-uniform rows (Criteo's
+  39 fields), pad cells position 0 with value 0.
 
-Caps come from :func:`bucket` rungs, so a stream of batches reuses a few
-shapes. ``row_cap`` (the widest row's nonzeros, capped on the host) is a
-static of the batch that the deterministic segment sums need
-(ops/segment.py). The panel layout waits for the training slice.
+Training buffers carry a counts section (the epoch-0 feature counts of
+the slot vector's lanes) at the tail of the f32 buffer. Caps come from
+:func:`bucket` rungs, so a stream of batches reuses a few shapes.
+``row_cap`` (the widest row's nonzeros, capped on the host) is a static
+of a COO batch that the deterministic segment sums need (ops/segment.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +45,26 @@ class DeviceBatch(NamedTuple):
         return self.labels.shape[0]
 
 
+class PanelBatch(NamedTuple):
+    """Fixed-width row panel: idx[B, F] positions into the slot vector,
+    vals[B, F] or None (binary rows with no pad cells)."""
+    idx: torch.Tensor              # int32[B, F] (pad cells: 0)
+    vals: Optional[torch.Tensor]   # f32[B, F] (pad cells: 0) or None
+    labels: torch.Tensor           # f32[B]
+    rweight: torch.Tensor          # f32[B]
+    row_mask: torch.Tensor         # f32[B] 1 for real rows
+    num_rows: torch.Tensor         # i32[]
+    num_uniq: torch.Tensor         # i32[]
+
+    @property
+    def batch_cap(self) -> int:
+        return self.labels.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+
 def bucket(n: int, minimum: int = 8) -> int:
     """Round up to the next rung of {m*2^j, 1.5*m*2^j} (>= minimum)."""
     b = minimum
@@ -57,13 +79,113 @@ def max_row_nnz(blk: RowBlock) -> int:
     return int(np.diff(blk.offset).max()) if blk.size else 0
 
 
+def panel_width(blk: RowBlock, batch_cap: int) -> Optional[int]:
+    """Fixed panel width for this block, or None when the COO layout is
+    denser: panel when B * F_max stays within 1.5x the COO nnz pad."""
+    counts = np.diff(blk.offset)
+    if len(counts) == 0:
+        return None
+    fmax = int(counts.max())
+    if fmax == 0:
+        return None
+    if batch_cap * fmax <= 1.5 * bucket(blk.nnz):
+        return fmax
+    return None
+
+
+def _panel_arrays(blk: RowBlock, batch_cap: int, width: int):
+    """Host panel arrays: (idx[B,F], vals[B,F] or None, labels, rweight,
+    row_mask). A uniform full block keeps binary rows binary; anything
+    else gets explicit values, zero on pad cells."""
+    b = blk.size
+    counts = np.diff(blk.offset).astype(np.int64)
+    if counts.size and counts.max() > width:
+        raise ValueError(f"row nnz {counts.max()} exceeds panel width "
+                         f"{width}")
+    uniform = counts.size and (counts == width).all()
+    if uniform and b == batch_cap:
+        idx = blk.index.reshape(b, width).astype(np.int32)
+        vals = (None if blk.value is None
+                else blk.value.reshape(b, width).astype(REAL_DTYPE))
+    else:
+        idx = np.zeros((batch_cap, width), dtype=np.int32)
+        vals = np.zeros((batch_cap, width), dtype=REAL_DTYPE)
+        starts = np.asarray(blk.offset[:-1], dtype=np.int64)
+        cell = (np.arange(blk.nnz, dtype=np.int64)
+                - np.repeat(starts - blk.offset[0], counts))
+        rows_coo = np.repeat(np.arange(b, dtype=np.int64), counts)
+        idx[rows_coo, cell] = blk.index.astype(np.int32)
+        vals[rows_coo, cell] = blk.values_or_ones()
+    labels = np.zeros(batch_cap, dtype=REAL_DTYPE)
+    labels[:b] = blk.label
+    rweight = np.zeros(batch_cap, dtype=REAL_DTYPE)
+    rweight[:b] = blk.weight if blk.weight is not None else 1.0
+    row_mask = np.zeros(batch_cap, dtype=REAL_DTYPE)
+    row_mask[:b] = 1.0
+    return idx, vals, labels, rweight, row_mask
+
+
+def pack_panel(blk: RowBlock, num_uniq: int, slots: np.ndarray,
+               batch_cap: int, width: int, u_cap: int,
+               counts: Optional[np.ndarray] = None):
+    """Panel twin of :func:`pack_batch`:
+    i32 = [idx(B*F) | slots(u_cap) | b, num_uniq];
+    f32 = [vals(B*F)? | labels(B) | rweight(B) | row_mask(B) | counts(u)?]."""
+    if len(slots) != u_cap:
+        raise ValueError(f"slots must arrive pre-padded to u_cap={u_cap}")
+    idx, vals, labels, rweight, row_mask = _panel_arrays(blk, batch_cap,
+                                                         width)
+    binary = vals is None
+    cells = batch_cap * width
+    i32 = np.empty(cells + u_cap + 2, dtype=np.int32)
+    i32[:cells] = idx.reshape(-1)
+    i32[cells:cells + u_cap] = slots
+    i32[cells + u_cap:] = (blk.size, num_uniq)
+    vals_n = 0 if binary else cells
+    nf32 = vals_n + 3 * batch_cap + (u_cap if counts is not None else 0)
+    f32 = np.zeros(max(nf32, 1), dtype=REAL_DTYPE)
+    o = 0
+    if not binary:
+        f32[:cells] = vals.reshape(-1)
+        o = cells
+    for a in (labels, rweight, row_mask):
+        f32[o:o + batch_cap] = a
+        o += batch_cap
+    if counts is not None:
+        f32[o:o + len(counts)] = counts
+    return i32, f32, binary
+
+
+def unpack_panel(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
+                 width: int, u_cap: int, has_counts: bool = False,
+                 binary: bool = False):
+    """Inverse of :func:`pack_panel` on device tensors ->
+    (PanelBatch, slots, counts or None)."""
+    cells = batch_cap * width
+    idx = i32[:cells].view(batch_cap, width)
+    slots = i32[cells:cells + u_cap]
+    meta = i32[cells + u_cap:]
+    o, vals = 0, None
+    if not binary:
+        vals = f32[:cells].view(batch_cap, width)
+        o = cells
+    labels = f32[o:o + batch_cap]
+    rweight = f32[o + batch_cap:o + 2 * batch_cap]
+    row_mask = f32[o + 2 * batch_cap:o + 3 * batch_cap]
+    o += 3 * batch_cap
+    counts = f32[o:o + u_cap] if has_counts else None
+    pb = PanelBatch(idx=idx, vals=vals, labels=labels, rweight=rweight,
+                    row_mask=row_mask, num_rows=meta[0], num_uniq=meta[1])
+    return pb, slots, counts
+
+
 def pack_batch(blk: RowBlock, num_uniq: int, slots: np.ndarray,
-               batch_cap: int, nnz_cap: int, u_cap: int):
+               batch_cap: int, nnz_cap: int, u_cap: int,
+               counts: Optional[np.ndarray] = None):
     """Pack a localized block + OOB-padded slot vector into
     i32 = [rows(nnz) | cols(nnz) | slots(u) | b, num_uniq, nnz] and
-    f32 = [vals(nnz)? | labels(B) | rweight(B) | row_mask(B)] — the JAX
-    package's layout without its training-only counts section. Binary
-    blocks omit the vals section."""
+    f32 = [vals(nnz)? | labels(B) | rweight(B) | row_mask(B) | counts(u)?]
+    — the JAX package's layout. Binary blocks omit the vals section."""
     b, nnz = blk.size, blk.nnz
     if b > batch_cap or nnz > nnz_cap:
         raise ValueError("batch exceeds caps")
@@ -80,7 +202,8 @@ def pack_batch(blk: RowBlock, num_uniq: int, slots: np.ndarray,
     i32[2 * nnz_cap + u_cap:] = (b, num_uniq, nnz)
 
     vals_n = 0 if binary else nnz_cap
-    f32 = np.zeros(max(vals_n + 3 * batch_cap, 1), dtype=REAL_DTYPE)
+    nf32 = vals_n + 3 * batch_cap + (u_cap if counts is not None else 0)
+    f32 = np.zeros(max(nf32, 1), dtype=REAL_DTYPE)
     o = 0
     if not binary:
         f32[:nnz] = blk.value
@@ -90,14 +213,17 @@ def pack_batch(blk: RowBlock, num_uniq: int, slots: np.ndarray,
     f32[o:o + b] = blk.weight if blk.weight is not None else 1.0
     o += batch_cap
     f32[o:o + b] = 1.0
+    o += batch_cap
+    if counts is not None:
+        f32[o:o + len(counts)] = counts
     return i32, f32, binary
 
 
 def unpack_batch(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
                  nnz_cap: int, u_cap: int, row_cap: int,
-                 binary: bool = False):
+                 binary: bool = False, has_counts: bool = False):
     """Inverse of :func:`pack_batch` on device tensors ->
-    (DeviceBatch, slots)."""
+    (DeviceBatch, slots, counts or None)."""
     rows = i32[:nnz_cap]
     cols = i32[nnz_cap:2 * nnz_cap]
     slots = i32[2 * nnz_cap:2 * nnz_cap + u_cap]
@@ -115,7 +241,9 @@ def unpack_batch(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
     rweight = f32[o:o + batch_cap]
     o += batch_cap
     row_mask = f32[o:o + batch_cap]
+    o += batch_cap
+    counts = f32[o:o + u_cap] if has_counts else None
     batch = DeviceBatch(rows=rows, cols=cols, vals=vals, labels=labels,
                         rweight=rweight, row_mask=row_mask,
                         num_rows=meta[0], num_uniq=meta[1], row_cap=row_cap)
-    return batch, slots
+    return batch, slots, counts

@@ -4,7 +4,9 @@ plain C interface, loaded with ``ctypes``.
 A kernel source under ``ops/csrc/`` is compiled for ``sm_90a`` at its
 first use, into ``difacto_tpu_torch/_build/`` (ignored by git). A library
 is named by the content hash of its source and flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing here runs at import
+rebuilds and an unchanged one is reused. Each library has its own lock,
+so threads that ask for different kernels build them at the same time.
+Nothing here runs at import
 time: the CPU-only test environment has no ``nvcc`` and imports every
 module.
 """
@@ -25,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                 # guards _locks
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -55,6 +58,8 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if it is not on
     disk yet."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _libs:
             out = library_path(name)
             if not out.exists():

@@ -1,13 +1,24 @@
-"""Fused-row table ops (counterpart of difacto_tpu/ops/fused.py, the
-serving half).
+"""Fused-row table ops (counterpart of difacto_tpu/ops/fused.py).
 
 - :func:`gather_rows` — ONE gather of the batch's sorted-unique slot rows
-  of the fused table, the pull of every predict. On a CUDA table it
+  of the fused table, the pull of every step. On a CUDA table it
   launches the hand-written kernel ``csrc/gather_rows.cu`` (the port of
   the TPU kernel ``_pallas_gather``, difacto_tpu/ops/fused.py:254); on a
-  CPU table it runs the plain version :func:`gather_rows_ref`. There is
-  no fallback between the two: a CUDA table that the kernel cannot take
-  raises.
+  CPU table it runs the plain version :func:`gather_rows_ref`.
+- :func:`fm_update_rows` — the push of every train step: the per-row
+  FTRL/AdaGrad epilogue and ONE scatter of the new rows into the table,
+  in place. The kernel reads the epilogue's :class:`Epilogue` spec; the
+  plain version calls the epilogue it is given
+  (``updaters.sgd_updater.row_epilogue`` with its param bound, as the
+  JAX package passes it), so this layer does not import the updater.
+  :func:`scatter_rows`
+  is the same write with the epilogue off (the epoch-0 count push). On a
+  CUDA table both launch ``csrc/scatter_epilogue.cu`` (the port of the
+  TPU kernel ``_scatter_epilogue``, difacto_tpu/ops/fused.py:337); on a
+  CPU table they run :func:`fm_update_rows_ref` / :func:`scatter_rows_ref`.
+
+There is no fallback between kernel and plain version: a CUDA table that
+a kernel cannot take raises.
 - :func:`quant_half` / :func:`dequant_half` — the per-row symmetric
   int8/fp8 quantization of the embedding halves (fp8 codes are
   ``torch.float8_e4m3fn`` bit patterns viewed as int8), bit-exact with
@@ -21,6 +32,7 @@ configs load, and selects nothing here: the device of the table decides.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -37,8 +49,10 @@ def quant_half(x: torch.Tensor, kind: str):
     half-to-even and clip to [-127, 127], fp8 codes cast to float8_e4m3fn
     and are viewed as int8."""
     amax = x.abs().amax(dim=1)
-    scale = torch.where(amax > 0, amax / _Q_MAX[kind],
-                        torch.ones_like(amax))
+    # divide by a tensor on x's device: CUDA divides by a Python scalar as
+    # a multiply by its reciprocal, which is not the IEEE quotient
+    qmax = torch.full_like(amax, _Q_MAX[kind])
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
     y = x / scale[:, None]
     if kind == "int8":
         codes = torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
@@ -134,3 +148,172 @@ def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor
 
 
 gather_rows_cuda.launches = 0
+
+
+# -------------------------------------------------------- scatter (push)
+class Epilogue(NamedTuple):
+    """What the scatter kernel's epilogue reads: the row layout (k, h,
+    off), the container (``slot_dtype`` fp32 | bf16 | int8 | fp8; fp32
+    with ``V_dtype=bfloat16`` is the bf16 container) and the eight
+    hyperparameters, rounded to f32 as JAX rounds its weak-typed Python
+    floats."""
+    k: int
+    h: int
+    off: int
+    kind: str
+    hyper: tuple
+
+
+def _in_bounds(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    s = slots.to(torch.int64)
+    return (s >= 0) & (s < table.shape[0])
+
+
+def scatter_rows_ref(table: torch.Tensor, slots: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the scatter: ``index_copy_`` of the rows whose slot
+    is in bounds, in place; out-of-bounds pad lanes are dropped (the
+    ``mode=drop`` contract). Copies move bits, never values."""
+    ok = _in_bounds(table, slots)
+    table.index_copy_(0, slots.to(torch.int64)[ok], rows[ok])
+    return table
+
+
+def fm_update_rows_ref(table: torch.Tensor, slots: torch.Tensor,
+                       rows: torch.Tensor, gw: torch.Tensor,
+                       gV: torch.Tensor, vmask: torch.Tensor,
+                       epilogue: Callable) -> torch.Tensor:
+    """Plain version of the fused push:
+    ``scatter_rows_ref(table, slots, epilogue(rows, gw, gV, vmask))``."""
+    return scatter_rows_ref(table, slots, epilogue(rows, gw, gV, vmask))
+
+
+def scatter_rows(table: torch.Tensor, slots: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """Write ``rows`` at ``slots`` in place (pad lanes dropped): the kernel
+    with its epilogue off for a table on the card, the plain version for a
+    table on the CPU."""
+    if table.device.type == "cuda":
+        return scatter_rows_cuda(table, slots, rows)
+    if table.device.type == "cpu":
+        return scatter_rows_ref(table, slots, rows)
+    raise ValueError(f"scatter_rows: unsupported device {table.device}")
+
+
+def fm_update_rows(table: torch.Tensor, slots: torch.Tensor,
+                   rows: torch.Tensor, gw: torch.Tensor, gV: torch.Tensor,
+                   vmask: torch.Tensor, epi: Epilogue, epilogue: Callable
+                   ) -> torch.Tensor:
+    """The fused push, in place: the kernel, which computes the epilogue
+    that ``epi`` describes, for a table on the card; the plain version,
+    which calls ``epilogue``, for a table on the CPU."""
+    if table.device.type == "cuda":
+        return fm_update_rows_cuda(table, slots, rows, gw, gV, vmask, epi)
+    if table.device.type == "cpu":
+        return fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
+                                  epilogue)
+    raise ValueError(f"fm_update_rows: unsupported device {table.device}")
+
+
+_CONTAINER = {"fp32": 0, "bf16": 1, "int8": 2, "fp8": 3}
+
+
+def _scatter_fn():
+    lib = build.library("scatter_epilogue")
+    fn = lib.difacto_scatter_epilogue
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_scatter(name: str, table: torch.Tensor, slots: torch.Tensor,
+                   rows: torch.Tensor, extras=()) -> int:
+    """What the scatter kernel assumes, checked; returns the row bytes."""
+    dev = table.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (slots, rows, *extras)):
+        raise ValueError(f"{name}: table on {dev}, slots on {slots.device}, "
+                         f"rows on {rows.device}; all must be on one CUDA "
+                         "device")
+    if table.dim() != 2 or slots.dim() != 1 or rows.dim() != 2 \
+            or rows.shape != (slots.shape[0], table.shape[1]):
+        raise ValueError(f"{name}: want a [C, W] table, 1-D slots [u] and "
+                         f"[u, W] rows, got {tuple(table.shape)}, "
+                         f"{tuple(slots.shape)} and {tuple(rows.shape)}")
+    if slots.dtype != torch.int32:
+        raise TypeError(f"{name}: slots must be int32, got {slots.dtype}")
+    if rows.dtype != table.dtype:
+        raise TypeError(f"{name}: rows are {rows.dtype}, the table "
+                        f"{table.dtype}")
+    if not all(t.is_contiguous() for t in (table, slots, rows, *extras)):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    row_bytes = table.shape[1] * table.element_size()
+    if row_bytes % 16 or table.data_ptr() % 16 or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows of {row_bytes} bytes at addresses "
+                         f"{table.data_ptr():#x}/{rows.data_ptr():#x}; the "
+                         "kernel moves 16-byte vectors (row bytes and base "
+                         "addresses must be multiples of 16)")
+    return row_bytes
+
+
+def _launch_scatter(table, slots, rows, row_bytes, gw=None, gV=None,
+                    vmask=None, epi=None) -> None:
+    u = slots.shape[0]
+    if u == 0:
+        return
+    hyper = (ctypes.c_float * 8)(*(epi.hyper if epi else (0.0,) * 8))
+    k, h, off = (epi.k, epi.h, epi.off) if epi else (0, 0, 0)
+    rc = _scatter_fn()(
+        table.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+        gw.data_ptr() if epi else None, gV.data_ptr() if epi else None,
+        vmask.data_ptr() if epi else None, table.shape[0], u, row_bytes,
+        k, h, off, _CONTAINER[epi.kind] if epi else 0, 1 if epi else 0,
+        ctypes.cast(hyper, ctypes.c_void_p),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_epilogue kernel launch failed: CUDA "
+                           f"error {rc}")
+
+
+def scatter_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
+                      rows: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/scatter_epilogue.cu`` with the epilogue off on the
+    current stream, in place; never synchronises.
+    ``scatter_rows_cuda.launches`` counts launches."""
+    row_bytes = _check_scatter("scatter_rows_cuda", table, slots, rows)
+    _launch_scatter(table, slots, rows, row_bytes)
+    scatter_rows_cuda.launches += 1
+    return table
+
+
+def fm_update_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
+                        rows: torch.Tensor, gw: torch.Tensor,
+                        gV: torch.Tensor, vmask: torch.Tensor,
+                        epi: Epilogue) -> torch.Tensor:
+    """Launch ``csrc/scatter_epilogue.cu`` with the epilogue on: the
+    per-row FTRL/AdaGrad update of ``rows`` written in place at ``slots``.
+    ``fm_update_rows_cuda.launches`` counts launches."""
+    u = slots.shape[0]
+    for name, t, shape in (("gw", gw, (u,)), ("vmask", vmask, (u,)),
+                           ("gV", gV, (u, epi.k))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise TypeError(f"fm_update_rows_cuda: {name} must be f32 "
+                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    row_bytes = _check_scatter("fm_update_rows_cuda", table, slots, rows,
+                               (gw, gV, vmask))
+    esize = table.element_size()
+    if epi.off * esize != row_bytes - 32 or epi.k > epi.h \
+            or epi.kind not in _CONTAINER \
+            or esize != {"fp32": 4, "bf16": 2, "int8": 1, "fp8": 1}[epi.kind]:
+        raise ValueError(f"fm_update_rows_cuda: layout {epi[:4]} does not "
+                         f"fit a {table.dtype} table of {row_bytes}-byte "
+                         "rows")
+    _launch_scatter(table, slots, rows, row_bytes, gw, gV, vmask, epi)
+    fm_update_rows_cuda.launches += 1
+    return table
+
+
+scatter_rows_cuda.launches = 0
+fm_update_rows_cuda.launches = 0

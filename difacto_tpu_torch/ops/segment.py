@@ -1,8 +1,8 @@
 """Sparse products as deterministic segment sums (counterpart of
-difacto_tpu/ops/segment.py, the forward half).
+difacto_tpu/ops/segment.py).
 
-- ``spmv``  <- SpMV::Times (src/common/spmv.h:16-203)
-- ``spmm``  <- SpMM::Times (src/common/spmm.h:19-181)
+- ``spmv`` / ``spmv_t``  <- SpMV::Times / TransTimes (src/common/spmv.h)
+- ``spmm`` / ``spmm_t``  <- SpMM::Times / TransTimes (src/common/spmm.h)
 
 The JAX package reduces with ``jax.ops.segment_sum``. On the card the
 obvious torch counterpart, ``index_add_``, sums with atomics in an order
@@ -18,6 +18,15 @@ the device, the thread schedule or which other rows share the batch.
 ``row_cap`` (>= the widest row's real entries) is a host-side static of
 the batch; the padding entries behind the last real row carry value 0
 and fall past it or add zeros.
+
+The transposed products (the backward) sum per COLUMN, where runs are
+long and skewed (a common feature appears in most rows of a batch), so a
+grid would be mostly padding. :func:`lane_sum` sorts the entries by lane
+with a stable sort and sums each lane's run left to right in ascending
+entry order, starting from 0, with ``torch.segment_reduce`` over 2-D data
+(a sequential loop per output element on the CPU and on the card, no
+atomics). That is the order XLA's CPU scatter-add takes, so on the CPU
+the sums come out bit-identical to ``jax.ops.segment_sum``.
 """
 
 from __future__ import annotations
@@ -62,3 +71,28 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     for j in range(1, x.shape[-1]):
         out = out + x[..., j]
     return out
+
+
+def lane_sum(data: torch.Tensor, lanes: torch.Tensor,
+             num_lanes: int) -> torch.Tensor:
+    """out[u] = 0 + data[i0] + data[i1] + ... over the entries i0 < i1 <
+    ... with ``lanes == u`` (data [n, m] -> [num_lanes, m]). Lanes must be
+    >= 0 (a negative lane would sort first and shift every segment);
+    lanes >= num_lanes are dropped."""
+    order = torch.argsort(lanes, stable=True)
+    sl = lanes[order]
+    bounds = torch.searchsorted(
+        sl, torch.arange(num_lanes + 1, dtype=sl.dtype, device=sl.device))
+    return torch.segment_reduce(data[order], "sum",
+                                lengths=bounds[1:] - bounds[:-1],
+                                axis=0, unsafe=True)
+
+
+def spmv_t(vals, rows, cols, p, num_cols: int):
+    """y[c] = sum_k vals[k] * p[rows[k]] — the transpose product."""
+    return lane_sum((vals * p[rows])[:, None], cols, num_cols)[:, 0]
+
+
+def spmm_t(vals, rows, cols, P, num_cols: int):
+    """Y[c, :] = sum_k vals[k] * P[rows[k], :]."""
+    return lane_sum(vals[:, None] * P[rows], cols, num_cols)

@@ -90,7 +90,7 @@ class PredictExecutor:
         with self._mu:
             self._buckets[key] = self._buckets.get(key, 0) + 1
             self._dispatches += 1
-        batch, slots_t = unpack_batch(
+        batch, slots_t, _ = unpack_batch(
             torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
             b_cap, nnz_cap, u_cap, row_cap, binary=binary)
         pred, objv, auc = self._step(store.state, batch, slots_t)

@@ -1,16 +1,63 @@
-"""The predict step (counterpart of difacto_tpu/step.py make_predict_fn).
+"""The train, eval and predict steps (counterpart of difacto_tpu/step.py).
 
-Gather [w, V] rows from the slot table (the CUDA gather kernel on the
-card), FM forward, objective and exact AUC. ``task=pred`` and
-``task=serve`` run this same function through serve/executor.py, which is
-what makes their scores bit-identical for the same rows. The train step
-comes with the training slice.
+A train step is the JAX package's fused dataflow written out as torch
+ops: ONE gather of the batch's fused rows (the CUDA gather kernel on the
+card), FM forward, objective, training AUC, backward, and the
+FTRL/AdaGrad push of those same gathered rows through the CUDA scatter
+kernel, in place on the table. The gather is never repeated: the rows go
+from the pull to the push. On the card the next step's gather is queued
+after this step's push on the same stream.
+
+``task=pred`` and ``task=serve`` run :func:`make_predict_fn` through
+serve/executor.py, which is what makes their scores bit-identical for the
+same rows.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .losses import FMParams, LossSpec
-from .losses.metrics import auc_times_n
+from .losses.metrics import auc_times_n, auc_times_n_binned
+
+
+def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
+    """(forward, train_step, eval_step) over (state, batch, slots).
+    ``train_auc`` picks the training metric: "binned" (histogram),
+    "exact" (sort), "none". Validation always takes the exact AUC."""
+
+    def pull(state, slots):
+        rows = fns.pull_rows(state, slots)
+        w, V, vmask = fns.rows_to_params(state, rows)
+        return FMParams(w=w, V=V, v_mask=vmask), rows
+
+    def forward(state, batch, slots):
+        params, _ = pull(state, slots)
+        pred = loss.predict(params, batch)
+        objv = loss.evaluate(pred, batch)
+        auc = auc_times_n(batch.labels, pred, batch.row_mask)
+        return params, pred, objv, auc
+
+    def train_step(state, batch, slots):
+        params, rows = pull(state, slots)
+        pred, xv = loss.predict_xv(params, batch)
+        objv = loss.evaluate(pred, batch)
+        if train_auc == "binned":
+            auc = auc_times_n_binned(batch.labels, pred, batch.row_mask)
+        elif train_auc == "exact":
+            auc = auc_times_n(batch.labels, pred, batch.row_mask)
+        else:
+            auc = torch.zeros((), dtype=torch.float32, device=pred.device)
+        gw, gV = loss.calc_grad(params, batch, pred, xv)
+        state = fns.apply_grad_rows(state, slots, rows, gw.contiguous(),
+                                    gV.contiguous(), params.v_mask)
+        return state, objv, auc
+
+    def eval_step(state, batch, slots):
+        _, pred, objv, auc = forward(state, batch, slots)
+        return pred, objv, auc
+
+    return forward, train_step, eval_step
 
 
 def make_predict_fn(fns, loss: LossSpec):

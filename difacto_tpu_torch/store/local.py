@@ -10,10 +10,14 @@ table (w, cnt, v_live, V and, with aux, z, sqrt_g, Vg as f32 arrays) plus
 geometry stamps, and a load rebuilds the fused rows through
 ``build_rows`` (requantizing when the stamp says int8/fp8).
 
+A trainable store (``read_only=False``) carries the optimizer state in
+its fused rows and saves it with ``save_aux``; the learner pushes through
+``store.fns`` (updaters/sgd_updater.make_fns) in place on ``state.VVg``.
+
 Not ported yet, and raising a typed NotImplementedError that names the
 ROADMAP.md queue item: the dictionary (exact-id) store, per-key-range
-sharded checkpoints and the host-RAM cold tier. The push path comes with
-the training slice.
+sharded checkpoints, the host-RAM cold tier, count-min admission and
+occupancy eviction.
 """
 
 from __future__ import annotations
@@ -60,10 +64,14 @@ class SlotStore:
             raise NotImplementedError(
                 "the dictionary (exact-id) store is not ported yet; set "
                 "hash_capacity > 0 (ROADMAP.md, Queue 1: dictionary store)")
-        if param.cold_tier_rows > 0 and not read_only:
-            raise NotImplementedError(
-                "cold_tier_rows: the host-RAM cold tier is not ported yet "
-                "(ROADMAP.md, Queue 1: capacity tier)")
+        if not read_only:
+            for knob in ("cold_tier_rows", "admit_min_count",
+                         "evict_occupancy"):
+                if getattr(param, knob):
+                    raise NotImplementedError(
+                        f"{knob}: the capacity tier (cold tier, admission, "
+                        "eviction) is not ported yet (ROADMAP.md, Queue 1: "
+                        "capacity tier)")
         self.param = param
         self.device = resolve_device(device)
         self.read_only = read_only
@@ -76,6 +84,21 @@ class SlotStore:
         never inserts, so ``insert`` changes nothing)."""
         return hash_slots(np.asarray(keys, dtype=FEAID_DTYPE),
                           self.param.hash_capacity)
+
+    def pad_slots(self, slots: np.ndarray, cap: int) -> torch.Tensor:
+        """Sorted unique slots padded to ``cap`` with ascending
+        out-of-bounds lanes, on the store's device."""
+        return torch.from_numpy(pad_slots_oob(
+            slots, cap, self.state.capacity)).to(self.device)
+
+    def evaluate_dev(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(penalty, nnz) as device scalars (Evaluate,
+        sgd_updater.cc:15-32); callers fetch them with other metrics."""
+        return self.fns.evaluate(self.state)
+
+    def evaluate(self) -> Tuple[float, float]:
+        penalty, nnz = self.evaluate_dev()
+        return float(penalty), float(nnz)
 
     # ------------------------------------------------------------- ckpt
     def _state_np(self, keys: Tuple[str, ...]) -> dict:

@@ -1,4 +1,4 @@
-"""Slot-table layout and the read half of the SGD updater (counterpart of
+"""Slot table and SGD updater: FTRL for w, AdaGrad for V (counterpart of
 difacto_tpu/updaters/sgd_updater.py).
 
 The model is a fixed-capacity table whose row 0 is a reserved trash slot.
@@ -16,20 +16,32 @@ Two layouts, keyed on ``V_dim``:
 Every layout decision is the JAX package's, so a table built here is the
 JAX table bit for bit (``jax.lax.bitcast_convert_type`` becomes
 ``Tensor.view(dtype)``, which splits an f32 into lanes low bits first on
-little-endian hosts, as XLA does). This slice ports what serving reads:
-the layout, :func:`build_rows`, :func:`init_state` and the pull
-(:func:`make_fns`: ``pull_rows``, ``rows_to_params``, ``get_rows``). The
-FTRL/AdaGrad push comes with the training slice.
+little-endian hosts, as XLA does).
 
-Pull gating (Get, sgd_updater.cc:34-58): an embedding is served only when
-live and, with ``l1_shrk``, when w != 0.
+- Pull gating (Get, sgd_updater.cc:34-58): an embedding is served only
+  when live and, with ``l1_shrk``, when w != 0.
+- Push (:func:`row_epilogue`, the plain version of the CUDA scatter
+  kernel's epilogue): FTRL-proximal on w (UpdateW, sgd_updater.cc:105-131),
+  lazy-V activation ``live |= (w != 0) & (cnt > V_threshold)``, AdaGrad on
+  V (UpdateV, sgd_updater.cc:133-142) for rows whose embedding was pulled.
+  Every operation is the JAX source's, in its order, on f32 values, so the
+  result is the JAX package's bit for bit: constants are f32-rounded
+  tensors on the data's device (CUDA divides by a Python scalar as a
+  multiply by its reciprocal), and ``sqrt`` is taken in f64 and rounded,
+  which is the correctly rounded f32 root (torch's CPU f32 ``sqrt`` is not
+  always).
+- Evaluate (sgd_updater.cc:15-32): penalty charges l2 on the V term too
+  (a reference quirk kept by the JAX package); nnz counts V_dim for every
+  live embedding.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Param
@@ -40,19 +52,29 @@ TRASH_SLOT = 0  # row 0 absorbs padded scatters; never a real feature
 
 @dataclass
 class SGDUpdaterParam(Param):
-    """The JAX package's updater knobs that serving reads, under the same
-    names and defaults: the table geometry (V_dim, hash_capacity, the row
-    layout knobs, slot_dtype, cold_tier_rows), the init (seed,
-    V_init_scale) and the pull gate ``l1_shrk``. The learning-rate knobs
-    come with the training slice; until then they are unknown keys.
-    ``fused_kernel`` is parsed so JAX configs that set it load, and
-    selects nothing: a table on the card always takes the CUDA kernel, a
-    table on the CPU the plain version."""
+    """The JAX package's updater knobs under the same names and defaults:
+    the learning knobs, the table geometry (V_dim, hash_capacity, the row
+    layout knobs, slot_dtype), the init (seed, V_init_scale) and the pull
+    gate ``l1_shrk``. ``fused_kernel`` is parsed so JAX configs that set it
+    load, and selects nothing: a table on the card always takes the CUDA
+    kernels, a table on the CPU their plain versions. ``init_capacity``
+    (dictionary store), ``admit_min_count``, ``evict_occupancy`` and
+    ``cold_tier_rows`` are parsed; the store refuses non-default values
+    (not ported)."""
+    l1: float = field(default=1.0, metadata=dict(lo=0, hi=1e10))
+    l2: float = field(default=0.0, metadata=dict(lo=0, hi=1e10))
+    V_l2: float = field(default=0.01, metadata=dict(lo=0, hi=1e10))
+    lr: float = field(default=0.01, metadata=dict(lo=0, hi=10))
+    lr_beta: float = field(default=1.0, metadata=dict(lo=0, hi=1e10))
+    V_lr: float = field(default=0.01, metadata=dict(lo=0, hi=1e10))
+    V_lr_beta: float = field(default=1.0, metadata=dict(lo=0, hi=10))
     V_init_scale: float = field(default=0.01, metadata=dict(lo=0, hi=10))
     V_dim: int = field(default=0, metadata=dict(lo=0))
+    V_threshold: int = 10
     l1_shrk: bool = True
     seed: int = 0
     hash_capacity: int = 0
+    init_capacity: int = field(default=1 << 14, metadata=dict(lo=2))
     V_dtype: str = field(default="float32",
                          metadata=dict(enum=["float32", "bfloat16"]))
     pad_v_rows: bool = True
@@ -63,6 +85,8 @@ class SGDUpdaterParam(Param):
     slot_dtype: str = field(default="fp32",
                             metadata=dict(enum=["fp32", "bf16",
                                                 "int8", "fp8"]))
+    admit_min_count: int = field(default=0, metadata=dict(lo=0))
+    evict_occupancy: float = field(default=0.0, metadata=dict(lo=0, hi=1))
     cold_tier_rows: int = field(default=0, metadata=dict(lo=0))
 
 
@@ -263,6 +287,99 @@ def init_state(param: SGDUpdaterParam, capacity: int,
                     v_live=torch.zeros(0, dtype=torch.bool, device=device))
 
 
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python float as the f32 0-d tensor JAX's weak typing makes of it,
+    on ``like``'s device."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt: f64 root rounded once to f32."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def ftrl_w(w, z, sg, gw, l1: float, l2: float, lr: float, lr_beta: float):
+    """The FTRL-proximal w update (UpdateW, sgd_updater.cc:105-131) in the
+    JAX source's operation order."""
+    l1t, l2t, lrt, lbt = (_f32(v, w) for v in (l1, l2, lr, lr_beta))
+    g = gw + l2t * w
+    sg_new = _sqrt(sg * sg + g * g)
+    z_new = z - (g - (sg_new - sg) / lrt * w)
+    eta = (lbt + sg_new) / lrt
+    w_new = torch.where(z_new.abs() <= l1t, torch.zeros_like(z_new),
+                        (z_new - torch.sign(z_new) * l1t) / eta)
+    return w_new, z_new, sg_new
+
+
+def row_epilogue(param: SGDUpdaterParam, capacity: int, rows: torch.Tensor,
+                 gw: torch.Tensor, gV: Optional[torch.Tensor],
+                 pull_vmask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The per-row FTRL(w) + AdaGrad(V) update of gathered fused rows
+    [n, Wx] -> new rows, without the gather and the scatter: the plain
+    version of the scatter kernel's epilogue. ``pull_vmask`` gates AdaGrad
+    to rows whose embedding was pulled this batch (sgd_updater.cc:91-96);
+    those rows get zeros in their pad lanes, the others keep their
+    embedding lanes bit for bit. Pad lanes of the slot vector compute
+    garbage that the scatter drops."""
+    k, h, _, off = row_layout(param, capacity)
+    q = quantized(param)
+    f = scal_f32(rows[:, off:])
+    w, z, sg, cnt, live = f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4] > 0
+    sV, sVg = f[:, 5], f[:, 6]
+    w_new, z_new, sg_new = ftrl_w(w, z, sg, gw, param.l1, param.l2,
+                                  param.lr, param.lr_beta)
+    live_new = live | ((w_new != 0) & (cnt > _f32(param.V_threshold, cnt)))
+    if gV is not None:
+        if q:
+            V = fused.dequant_half(rows[:, :k], sV, param.slot_dtype)
+            Vg = fused.dequant_half(rows[:, h:h + k], sVg, param.slot_dtype)
+        else:
+            V = rows[:, :k].to(torch.float32)
+            Vg = rows[:, h:h + k].to(torch.float32)
+        gv = gV + _f32(param.V_l2, V) * V
+        Vg_new = _sqrt(Vg * Vg + gv * gv)
+        V_new = V - _f32(param.V_lr, V) / (
+            Vg_new + _f32(param.V_lr_beta, V)) * gv
+        um = pull_vmask > 0
+        if q:
+            Vc, sV_new = fused.quant_half(V_new, param.slot_dtype)
+            Vgc, sVg_new = fused.quant_half(Vg_new, param.slot_dtype)
+            emb = torch.where(um[:, None], fuse_vvg(Vc, Vgc, h),
+                              rows[:, :2 * h])
+            sV = torch.where(um, sV_new, sV)
+            sVg = torch.where(um, sVg_new, sVg)
+        else:
+            emb = torch.where(um[:, None],
+                              fuse_vvg(V_new, Vg_new, h).to(rows.dtype),
+                              rows[:, :2 * h])
+    else:
+        emb = rows[:, :2 * h]
+    scal = pack_scal(w_new, z_new, sg_new, cnt, live_new, rows.dtype,
+                     scale_V=sV, scale_Vg=sVg)
+    # in-pad layout: the scalars replace the tail of emb's own pad lanes;
+    # appended layout: the gap lanes between are carried
+    if off <= 2 * h:
+        return torch.cat([emb[:, :off], scal], dim=1)
+    return torch.cat([emb, rows[:, 2 * h:off], scal], dim=1)
+
+
+def container_kind(param: SGDUpdaterParam) -> str:
+    """The fused row's container as the scatter kernel names it."""
+    if quantized(param):
+        return param.slot_dtype
+    return "bf16" if v_dtype(param) == torch.bfloat16 else "fp32"
+
+
+def epilogue_spec(param: SGDUpdaterParam, capacity: int) -> fused.Epilogue:
+    """The scatter kernel's epilogue for this table: layout, container
+    and the f32-rounded hyperparameters."""
+    k, h, _, off = row_layout(param, capacity)
+    hyper = tuple(float(np.float32(v)) for v in (
+        param.l1, param.l2, param.lr, param.lr_beta, param.V_l2,
+        param.V_lr, param.V_lr_beta, float(param.V_threshold)))
+    return fused.Epilogue(k, h, off, container_kind(param), hyper)
+
+
 def _gather_flat(col: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Flat-column gather with zero fill on OOB slots (the V_dim=0
     layout's pull, a plain tensor gather in both packages)."""
@@ -273,9 +390,14 @@ def _gather_flat(col: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 
 def make_fns(param: SGDUpdaterParam):
-    """The pull functions with the updater params baked in: a namespace of
-    ``pull_rows``, ``rows_to_params`` and ``get_rows``."""
+    """The updater functions with the params baked in: a namespace of
+    ``pull_rows``, ``rows_to_params``, ``get_rows`` (the pull),
+    ``apply_count``, ``apply_grad_rows``, ``apply_grad`` (the push, in
+    place on the state's table) and ``evaluate``. The train step always
+    threads its one gather from the pull to the push (the JAX package's
+    ``fns.fused`` path), so no flag selects it."""
     has_V = param.V_dim > 0
+    thr = param.V_threshold
 
     def pull_rows(state: SGDState, slots: torch.Tensor) -> torch.Tensor:
         """ONE full fused-row gather of the batch's sorted-unique
@@ -305,6 +427,70 @@ def make_fns(param: SGDUpdaterParam):
             return _gather_flat(state.w, slots), None, None
         return rows_to_params(state, pull_rows(state, slots))
 
+    def _flat_only(what: str):
+        raise NotImplementedError(
+            f"{what} on the flat V_dim=0 table (loss=logit) is not ported "
+            "yet (ROADMAP.md, Queue 1: loss=logit)")
+
+    def apply_count(state: SGDState, slots: torch.Tensor,
+                    counts: torch.Tensor) -> SGDState:
+        """kFeaCount push (Update, sgd_updater.cc:64-75): one gather, the
+        count and lazy-V update of the scalar lanes (scale lanes carried),
+        one scatter with the kernel's epilogue off."""
+        if not has_V:
+            _flat_only("apply_count")
+        _, _, _, off = row_layout(param, state.capacity)
+        rows = fused.gather_rows(state.VVg, slots)
+        f = scal_f32(rows[:, off:])
+        w, z, sg, cnt, live = f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4] > 0
+        cnt_new = cnt + counts
+        # V_threshold is an integer: exact in f32 and as a Python scalar
+        live_new = live | ((w != 0) & (cnt_new > float(thr)))
+        scal = pack_scal(w, z, sg, cnt_new, live_new, state.VVg.dtype,
+                         scale_V=f[:, 5], scale_Vg=f[:, 6])
+        out = torch.cat([rows[:, :off], scal], dim=1)
+        return state._replace(VVg=fused.scatter_rows(state.VVg, slots, out))
+
+    def apply_grad_rows(state: SGDState, slots: torch.Tensor,
+                        rows: torch.Tensor, gw: torch.Tensor,
+                        gV: torch.Tensor, pull_vmask: torch.Tensor
+                        ) -> SGDState:
+        """Fused kGradient push over rows the step already gathered: the
+        epilogue and the scatter in one kernel on the card
+        (ops/fused.fm_update_rows), in place."""
+        if not has_V:
+            _flat_only("apply_grad_rows")
+        cap = state.capacity
+        return state._replace(VVg=fused.fm_update_rows(
+            state.VVg, slots, rows, gw, gV, pull_vmask,
+            epilogue_spec(param, cap), functools.partial(row_epilogue,
+                                                          param, cap)))
+
+    def apply_grad(state: SGDState, slots: torch.Tensor, gw: torch.Tensor,
+                   gV: torch.Tensor, pull_vmask: torch.Tensor) -> SGDState:
+        """kGradient push that gathers its own rows first."""
+        return apply_grad_rows(state, slots, pull_rows(state, slots), gw,
+                               gV, pull_vmask)
+
+    def evaluate(state: SGDState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(penalty, nnz) over real rows as device scalars (Evaluate,
+        sgd_updater.cc:15-32); full-table column reads, once per epoch."""
+        if not has_V:
+            _flat_only("evaluate")
+        w, _, _, _, live = scal_cols(param, state)
+        w = w.clone()
+        w[TRASH_SLOT] = 0.0
+        l1, l2 = _f32(param.l1, w), _f32(param.l2, w)
+        penalty = torch.sum(l1 * w.abs() + 0.5 * l2 * w * w)
+        nnz = torch.sum((w != 0).to(torch.float32))
+        live = live.clone()
+        live[TRASH_SLOT] = False
+        Vcol = emb_cols_f32(param, state)[0]
+        Vm = Vcol * live[:, None]
+        penalty = penalty + torch.sum(0.5 * l2 * Vm * Vm)
+        nnz = nnz + torch.sum(live) * param.V_dim
+        return penalty, nnz
+
     class _NS:
         pass
 
@@ -313,4 +499,8 @@ def make_fns(param: SGDUpdaterParam):
     ns.pull_rows = pull_rows
     ns.rows_to_params = rows_to_params
     ns.get_rows = get_rows
+    ns.apply_count = apply_count
+    ns.apply_grad_rows = apply_grad_rows
+    ns.apply_grad = apply_grad
+    ns.evaluate = evaluate
     return ns

@@ -1,5 +1,8 @@
-"""The port's CUDA gather kernel on the card (marked ``cuda``; each test
-skips where no GPU is visible, deciding at run time).
+"""The port's CUDA kernels on the card (marked ``cuda``; each test skips
+where no GPU is visible, deciding at run time): the gather, and the
+scatter with its FTRL/AdaGrad epilogue on and off, byte for byte against
+their plain versions on the same card; the deterministic lane sum; and a
+small training run that repeats bit for bit.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -7,10 +10,15 @@ conftest (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import functools
+import os
+
+import numpy as np
 import pytest
 import torch
 
 from difacto_tpu_torch.ops import fused
+from difacto_tpu_torch.updaters import sgd_updater as T
 
 pytestmark = pytest.mark.cuda
 
@@ -59,3 +67,118 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         fused.gather_rows(torch.zeros((64, 3), device=cuda), slots)
     with pytest.raises(ValueError, match="one CUDA device"):
         fused.gather_rows(table, slots.cpu())
+
+
+_LAYOUTS = {"in_pad": dict(V_dim=16),
+            "appended_gap": dict(V_dim=16, pad_v_rows=False),
+            "appended_v64": dict(V_dim=64, pad_v_rows=False)}
+_HYPER = dict(l1=0.5, l2=0.1, lr=0.05, V_l2=0.01, V_lr=0.02,
+              V_threshold=2)
+
+
+def _fused_rows(param, n, seed, dev):
+    """[n, Wx] fused rows built on the card from seeded values, and the
+    step inputs gw, gV, vmask (vmask 0 and 1, z around l1, cnt around
+    V_threshold, some all-zero V halves)."""
+    k = param.V_dim
+    rng = np.random.RandomState(seed)
+    V = (rng.randn(n, k) * 0.1).astype(np.float32)
+    V[::7] = 0.0
+    cols = [V, np.abs(rng.randn(n, k)).astype(np.float32),
+            (rng.randn(n) * 0.5).astype(np.float32),
+            (rng.randn(n) * 0.6).astype(np.float32),
+            np.abs(rng.randn(n)).astype(np.float32),
+            rng.randint(0, 5, n).astype(np.float32), rng.rand(n) < 0.5]
+    rows = T.build_rows(param, 4096, *(torch.from_numpy(c).to(dev)
+                                       for c in cols))
+    gw = torch.from_numpy((rng.randn(n) * 0.3).astype(np.float32)).to(dev)
+    gV = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
+    vm = torch.from_numpy((rng.rand(n) < 0.6).astype(np.float32)).to(dev)
+    return rows, gw, gV, vm
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("epilogue", [True, False])
+def test_scatter_kernel_matches_plain_bytes(cuda, kind, layout, epilogue):
+    param = T.SGDUpdaterParam(slot_dtype=kind, hash_capacity=4096,
+                              **_LAYOUTS[layout], **_HYPER)
+    table, _, _, _ = _fused_rows(param, 4096, 1, cuda)
+    for real, u in (([0, 3, 77, 4095], 8), ([], 12),
+                    (range(0, 4096, 3), 1536)):
+        slots = _slots(4096, list(real), u, cuda)
+        rows, gw, gV, vm = _fused_rows(param, u, 2, cuda)
+        epi = T.epilogue_spec(param, 4096)
+        plain = functools.partial(T.row_epilogue, param, 4096)
+        got, want = table.clone(), table.clone()
+        if epilogue:
+            before = fused.fm_update_rows_cuda.launches
+            fused.fm_update_rows(got, slots, rows, gw, gV, vm, epi, plain)
+            fused.fm_update_rows_ref(want, slots, rows, gw, gV, vm, plain)
+            assert fused.fm_update_rows_cuda.launches == before + 1
+        else:
+            before = fused.scatter_rows_cuda.launches
+            fused.scatter_rows(got, slots, rows)
+            fused.scatter_rows_ref(want, slots, rows)
+            assert fused.scatter_rows_cuda.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        if not real:
+            assert torch.equal(got.view(torch.uint8),
+                               table.view(torch.uint8))
+
+
+def test_scatter_kernel_refuses_what_it_cannot_take(cuda):
+    param = T.SGDUpdaterParam(V_dim=16, hash_capacity=64)
+    epi = (T.epilogue_spec(param, 64),
+           functools.partial(T.row_epilogue, param, 64))
+    table = torch.zeros((64, 128), device=cuda)
+    rows = torch.zeros((8, 128), device=cuda)
+    slots = torch.arange(8, dtype=torch.int32, device=cuda)
+    gw, vm = torch.zeros(8, device=cuda), torch.ones(8, device=cuda)
+    gV = torch.zeros((8, 16), device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        fused.scatter_rows(table, slots.long(), rows)
+    with pytest.raises(TypeError, match="rows are"):
+        fused.scatter_rows(table, slots, rows.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="gV"):
+        fused.fm_update_rows(table, slots, rows, gw, gV.double(), vm, *epi)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.scatter_rows(table, slots,
+                           torch.zeros((128, 8), device=cuda).t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused.fm_update_rows(table, slots.cpu(), rows, gw, gV, vm, *epi)
+    with pytest.raises(ValueError, match="layout"):
+        fused.fm_update_rows(torch.zeros((64, 256), device=cuda), slots,
+                             torch.zeros((8, 256), device=cuda), gw, gV, vm,
+                             *epi)
+
+
+def test_lane_sum_on_the_card_is_sequential_and_repeats(cuda):
+    """The card's lane sums equal the CPU's bit for bit (both add each
+    lane's entries in ascending order) and repeat run to run."""
+    from difacto_tpu_torch.ops.segment import lane_sum
+    rng = np.random.RandomState(0)
+    lanes = torch.from_numpy((rng.zipf(1.3, 40000) % 12288).astype(np.int32))
+    data = torch.from_numpy(rng.randn(40000, 18).astype(np.float32))
+    cpu = lane_sum(data, lanes, 12288)
+    a = lane_sum(data.to(cuda), lanes.to(cuda), 12288)
+    b = lane_sum(data.to(cuda), lanes.to(cuda), 12288)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_training_on_the_card_repeats_bit_for_bit(cuda, tmp_path):
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "rcv1_100.libsvm")
+    tables = []
+    for run in range(2):
+        ln = SGDLearner(device="cuda")
+        ln.init([("data_in", data), ("V_dim", "4"), ("hash_capacity", "4096"),
+                 ("max_num_epochs", "2"), ("l1", "0.1"),
+                 ("V_threshold", "1")])
+        ln.run()
+        tables.append(ln.store.state.VVg.clone())
+    assert torch.equal(tables[0].view(torch.int32),
+                       tables[1].view(torch.int32))

@@ -4,9 +4,9 @@
   ``difacto_tpu`` poisoned in ``sys.meta_path`` (a fresh interpreter, so
   nothing is already cached).
 - An entry point called without ``device=`` on a box with no CUDA raises
-  instead of running on the CPU.
-- A CPU tensor takes the plain gather, and the CUDA kernel's launch
-  counter stays 0.
+  instead of running on the CPU, ``task=train`` included.
+- A CPU tensor takes the plain gather and the plain push, and the CUDA
+  kernels' launch counters stay 0.
 """
 
 import os
@@ -90,3 +90,51 @@ def test_cpu_tensor_takes_plain_gather_and_counts_no_launch():
     with pytest.raises(ValueError, match="CUDA"):
         fused.gather_rows_cuda(table, slots)
     assert fused.gather_rows_cuda.launches == 0
+
+
+_RCV1 = os.path.join(_ROOT, "tests", "data", "rcv1_100.libsvm")
+
+
+def test_train_without_device_raises_on_a_box_without_cuda(monkeypatch,
+                                                           tmp_path):
+    from difacto_tpu_torch.__main__ import main
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["task=train", f"data_in={_RCV1}", "V_dim=2",
+            "hash_capacity=4096", f"model_out={tmp_path / 'm'}"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SGDLearner().init([("data_in", _RCV1), ("V_dim", "2"),
+                           ("hash_capacity", "4096")])
+    assert not (tmp_path / "m_part-0").exists()
+    # the explicit CPU request trains
+    assert main(argv + ["device=cpu", "max_num_epochs=1"]) == 0
+    assert (tmp_path / "m_part-0").exists()
+
+
+def test_cpu_table_takes_plain_push_and_counts_no_launch():
+    from difacto_tpu_torch.updaters import sgd_updater as T
+    param = T.SGDUpdaterParam(V_dim=4, hash_capacity=64)
+    state = T.init_state(param, 64, torch.device("cpu"))
+    fns = T.make_fns(param)
+    slots = torch.tensor([1, 5, 64, 65], dtype=torch.int32)
+    counters = (fused.scatter_rows_cuda, fused.fm_update_rows_cuda,
+                fused.gather_rows_cuda)
+    launched = [c.launches for c in counters]
+    before = state.VVg.clone()
+    state = fns.apply_count(state, slots, torch.ones(4))
+    rows = fns.pull_rows(state, slots)
+    state = fns.apply_grad_rows(state, slots, rows, torch.full((4,), 0.5),
+                                torch.full((4, 4), 0.1), torch.ones(4))
+    changed = (state.VVg != before).any(dim=1).nonzero().flatten().tolist()
+    assert changed == [1, 5]
+    assert [c.launches for c in counters] == launched
+    # the kernel wrappers refuse a CPU table instead of copying it over
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.scatter_rows_cuda(state.VVg, slots, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.fm_update_rows_cuda(state.VVg, slots, rows, torch.zeros(4),
+                                  torch.zeros(4, 4), torch.ones(4),
+                                  T.epilogue_spec(param, 64))
+    assert [c.launches for c in counters] == launched

@@ -54,7 +54,7 @@ def _both(blk: RowBlock, U: int):
     np.testing.assert_array_equal(tf32, f32)
     jb, _, _ = junpack(jnp.asarray(i32), jnp.asarray(f32), b_cap, nnz_cap,
                        u_cap, binary=binary)
-    tb, _ = unpack_batch(torch.from_numpy(i32), torch.from_numpy(f32),
+    tb, _, _ = unpack_batch(torch.from_numpy(i32), torch.from_numpy(f32),
                          b_cap, nnz_cap, u_cap, max_row_nnz(blk),
                          binary=binary)
     return jb, tb, u_cap
@@ -151,7 +151,7 @@ def test_row_scores_do_not_depend_on_the_batch():
         i32, f32, binary = pack_batch(sub, 120, np.arange(u_cap, dtype=
                                                           np.int32),
                                       b_cap, nnz_cap, u_cap)
-        tb, _ = unpack_batch(torch.from_numpy(i32), torch.from_numpy(f32),
+        tb, _, _ = unpack_batch(torch.from_numpy(i32), torch.from_numpy(f32),
                              b_cap, nnz_cap, u_cap,
                              max(max_row_nnz(sub), 1) + extra_cap,
                              binary=binary)
