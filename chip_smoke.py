@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (difacto_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]...
 
 Drives the port's serving and training paths at the full width of
 examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
@@ -30,8 +30,11 @@ plain PyTorch versions. Phases:
    on the card, byte for byte, epilogue on and off: fp32, bf16, int8 and
    fp8 containers; the in-pad layout, the appended layout with its gap
    lanes (the main path's full-width [4,194,304 x 128] fp32 table) and
-   the appended V_dim 64 layout; u_cap 8 / 12288 / 49152 with OOB pads
-   and an all-OOB vector (table unchanged);
+   the appended V_dim 64 layout; at the edges of the kernel's tiles and
+   persistent grid: u_cap 8 with 5 and with 1 real row, 12288 and 12301
+   with 11,692 real (a real/pad boundary inside a tile, u_cap not a
+   multiple of the tile), 49152 with 40,000 real (more than one pass of
+   the grid), and all-OOB vectors of 12288 and 49152 (table unchanged);
 7. ``task=train`` through the port's learner at full width: 50,000
    synthetic train and 10,000 validation rows, 2 epochs, ``has_aux=1
    model_out=...``. The objective per row falls from epoch 0 to 1; the
@@ -43,11 +46,28 @@ plain PyTorch versions. Phases:
    within 1e-4 of a float64 numpy FM over the saved arrays;
 8. a train step's host wall time, device busy time, idle share, kernels
    per step and top device entries (torch.profiler over 5 steps), and the
-   scatter kernel's device time at the main path's own slot vectors,
-   beside its bound, the plain version and one ``index_copy_`` of the
-   precomputed new rows as a yardstick.
+   scatter kernel's device time on both routes at the main path's own
+   slot vectors on the trained table: epilogue on (the push) beside its
+   bound, the plain version and one ``index_copy_`` of the precomputed
+   new rows; epilogue off (the epoch-0 count push) beside its bound, the
+   plain version and ``index_copy_`` of the in-bounds rows, which
+   computes the same function. The timing loop cycles 5 payloads, more
+   than the L2 holds; the push is timed L2-warm as well (one payload
+   repeated), and in bf16 and int8 tables of the same shape. With
+   ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
+   ``git archive`` under the ignored ``difacto_tpu_torch/_build/``),
+   that tree's ``scatter_epilogue.cu`` is built beside this one and both
+   are timed in turns on the same inputs (parent, this, this, parent);
+   the flag may be given more than once, each tree named by its
+   directory.
 
-Prints one JSON line of kernel numbers, then, as the last line,
+Kernel times are device time from torch.profiler: the kernels' own
+durations summed, without the host's launch gaps. A profile on the card
+now and then loses device events, so a timed profile is kept only when it
+holds exactly ``rounds`` times the events of a one-pass profile.
+
+Prints one JSON line of kernel numbers (the scatter's two routes as two
+entries), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -55,6 +75,7 @@ phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import os
@@ -74,11 +95,16 @@ CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 N_ROWS = 20_000
 N_TRAIN, N_VAL = 50_000, 10_000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
-KERNELS = {
-    "gather_rows": ("difacto_tpu_torch/ops/csrc/gather_rows.cu",
-                    "difacto_tpu/ops/fused.py:254"),
-    "scatter_epilogue": ("difacto_tpu_torch/ops/csrc/scatter_epilogue.cu",
-                         "difacto_tpu/ops/fused.py:337"),
+KERNELS = {                 # library: source
+    "gather_rows": "difacto_tpu_torch/ops/csrc/gather_rows.cu",
+    "scatter_epilogue": "difacto_tpu_torch/ops/csrc/scatter_epilogue.cu",
+}
+# the kernels line: entry -> (library, the TPU kernel it replaces)
+ENTRIES = {
+    "gather_rows": ("gather_rows", "difacto_tpu/ops/fused.py:254"),
+    "scatter_epilogue": ("scatter_epilogue", "difacto_tpu/ops/fused.py:337"),
+    "scatter_epilogue_off": ("scatter_epilogue",
+                             "difacto_tpu/ops/fused.py:300"),
 }
 DEV = "cuda"                # "cpu" only in a rehearsal off the card
 
@@ -148,34 +174,12 @@ def reference_margins(text: bytes, arrays: dict, hash_capacity: int,
     return np.clip(lin + 0.5 * (XV ** 2 - XXVV).sum(1), -20.0, 20.0)
 
 
-# ------------------------------------------------------------ timing
-def device_ms(fn, args_list, rounds: int = 5):
-    """Mean device time of ``fn(*args)``: the CUDA kernels' own durations
-    from torch.profiler (CUPTI), summed per call — the work on the card
-    without the host's launch gaps. Raises when the profiler records no
-    device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for a in args_list:
-        fn(*a)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            for a in args_list:
-                fn(*a)
-        sync()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device activity: "
-                           "the kernels cannot be timed on this card")
-    return us / 1e3 / (rounds * len(args_list))
-
-
 # ------------------------------------------------------------ phases
-def phase_card() -> str:
+def phase_card(parents: list, work: str):
+    """The card's name and power limit; every kernel built at once, and
+    the ``scatter_epilogue.cu`` of each tree in ``parents``: returns the
+    nvidia-smi line and {tree name: its launch function}."""
+    import ctypes
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -187,16 +191,37 @@ def phase_card() -> str:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     from concurrent.futures import ThreadPoolExecutor
-    from difacto_tpu_torch.ops import build
+    from pathlib import Path
+    from difacto_tpu_torch.ops import build, fused
+    names = {os.path.basename(os.path.normpath(d)): d for d in parents}
+    if len(names) != len(parents) or set(names) & {"kernel"}:
+        raise ValueError(f"--parent trees need distinct directory names "
+                         f"other than 'kernel': {parents}")
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(build.library, KERNELS))
-    log(f"phase 1 ok: kernels built in {time.monotonic() - t0:.2f} s")
-    for name in KERNELS:
-        for ln in build.build_log(name).splitlines():
+    with ThreadPoolExecutor(len(KERNELS) + len(names)) as pool:
+        builds = [pool.submit(build.library, name) for name in KERNELS]
+        others = {n: pool.submit(
+            build.compile_source, Path(d) / KERNELS["scatter_epilogue"],
+            Path(work) / f"{n}_scatter_epilogue.so")
+            for n, d in names.items()}
+        for b in builds:
+            b.result()
+        logs = {n: f.result() for n, f in others.items()}
+    log(f"phase 1 ok: kernels built in {time.monotonic() - t0:.2f} s"
+        + (f" (and the scatter_epilogue.cu of {', '.join(names)})"
+           if names else ""))
+    logs.update((name, build.build_log(name)) for name in KERNELS)
+    fns = {}
+    for n, text in logs.items():
+        for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
-                log(f"  ptxas {name}: " + ln.strip())
-    return line
+                log(f"  ptxas {n}: " + ln.strip())
+        if n in names:
+            fn = ctypes.CDLL(str(Path(work) / f"{n}_scatter_epilogue.so")
+                             ).difacto_scatter_epilogue
+            fn.argtypes, fn.restype = fused.SCATTER_ARGTYPES, ctypes.c_int
+            fns[n] = fn
+    return line, fns
 
 
 def _slot_vector(C: int, n_real: int, u: int, gen, dev):
@@ -359,6 +384,85 @@ def phase_serve(store, lines, text: bytes, batch: int) -> int:
     return launches
 
 
+def _profile(fn, args_list, rounds: int):
+    """(device us, device events, event names in order) of ``rounds``
+    passes of ``fn`` over ``args_list`` under torch.profiler. On the card
+    a profile now and then misses the first one or two kernels launched
+    after it starts, so it starts with marker kernels
+    (``torch.cuda._sleep``'s spin kernel), waits for them and 2 ms more,
+    and ends with one; markers are left out of the count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
+        for _ in range(rounds):
+            for a in args_list:
+                fn(*a)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and "spin_kernel" not in e.key]
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    return (sum(e.self_device_time_total for e in dev),
+            sum(e.count for e in dev), names)
+
+
+def device_ms(fn, args_list, rounds: int = 5) -> float:
+    """Mean device ms of one ``fn(*args)``: the CUDA kernels' own
+    durations, summed per call, over ``rounds`` passes of ``args_list``.
+    A profile is kept only when it holds exactly ``rounds`` times the
+    device events of a one-pass profile taken just before it (the card's
+    profiler now and then loses events); at most 8 tries."""
+    import torch
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(8):
+        _, per_pass, names = _profile(fn, args_list, 1)
+        us, events, _ = _profile(fn, args_list, rounds)
+        if per_pass > 0 and events == rounds * per_pass:
+            return us / 1e3 / (rounds * len(args_list))
+        seen.append((per_pass, events))
+    raise RuntimeError(
+        f"torch.profiler: no profile of {rounds} passes held {rounds} x "
+        f"the events of one pass in 8 tries (one pass, {rounds} passes: "
+        f"{seen}); the last one-pass profile: "
+        + "; ".join(n[:60] for n in names))
+
+
+def device_ms_turns(cands, rounds: int = 5) -> dict:
+    """Device ms of each ``(name, fn, args_list)``, timed in turns: the
+    order a, b, ..., b, a, so that a drift over the call weighs on each
+    alike. Returns {name: [first, second]}."""
+    got: dict = {}
+    for name, fn, args in list(cands) + list(reversed(cands)):
+        got.setdefault(name, []).append(device_ms(fn, args, rounds))
+    return got
+
+
+def with_fn(fn, wrapper):
+    """The scatter ``wrapper`` launching library function ``fn`` (another
+    tree's build) instead of this tree's."""
+    from difacto_tpu_torch.ops import fused
+
+    def run(*args):
+        saved = fused._scatter_fn
+        fused._scatter_fn = lambda: fn
+        try:
+            return wrapper(*args)
+        finally:
+            fused._scatter_fn = saved
+    return run
+
+
 def phase_measure(store, windows) -> dict:
     """The kernel at the main path's own slot vectors (one per pred
     window, cycled so that repeats see the cache as the stream does)."""
@@ -395,8 +499,8 @@ def phase_measure(store, windows) -> dict:
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"  gather at the main path's shape: table [{C}, {W}] "
         f"{table.dtype}, u_cap {u_cap}, {real:.0f} real rows on average: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select "
+        f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms "
         f"({moved / 1e6:.2f} MB at 3.35 TB/s) -> "
         f"{bound_ms / ms:.1%} of the bound")
     profile_predict(store, windows[:5])
@@ -465,15 +569,16 @@ def _step_inputs(k: int, u: int, seed: int):
     return gw, gV, vmask
 
 
-def phase_scatter_vs_plain(uparam) -> float:
+def phase_scatter_vs_plain(uparam) -> dict:
     """Byte-exact scatter kernel vs its plain version, epilogue on and
-    off; returns the max abs difference over the fp32 compares."""
+    off; returns the max abs difference over the fp32 compares of each
+    route, {True: on, False: off}."""
     import dataclasses
     import torch
     from difacto_tpu_torch.ops import fused
     from difacto_tpu_torch.updaters import sgd_updater as T
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    worst = 0.0
+    worst = {True: 0.0, False: 0.0}
     for layout, kw in (("in-pad", dict(V_dim=16, pad_v_rows=True)),
                        ("appended+gap", dict(V_dim=16, pad_v_rows=False)),
                        ("appended V64", dict(V_dim=64, pad_v_rows=False))):
@@ -488,8 +593,9 @@ def phase_scatter_vs_plain(uparam) -> float:
             epi = T.epilogue_spec(param, C)
             plain = functools.partial(T.row_epilogue, param, C)
             rows_src = _seeded_table(param, 49152, SEED + 8)
-            for u, n_real in ((8, 5), (12288, 11700), (49152, 40000),
-                              (12288, 0)):
+            for u, n_real in ((8, 5), (8, 1), (12288, 11692),
+                              (12301, 11692), (49152, 40000), (12288, 0),
+                              (49152, 0)):
                 slots = _slot_vector(C, n_real, u, gen, DEV)
                 rows = rows_src[:u].contiguous()
                 gw, gV, vm = _step_inputs(param.V_dim, u, SEED + u)
@@ -512,8 +618,8 @@ def phase_scatter_vs_plain(uparam) -> float:
                     if kind == "fp32":
                         fin = torch.isfinite(got) & torch.isfinite(want)
                         d = (got[fin] - want[fin]).abs()
-                        worst = max(worst, float(d.max()) if d.numel()
-                                    else 0.0)
+                        worst[on] = max(worst[on], float(d.max())
+                                        if d.numel() else 0.0)
                     if not same:
                         raise AssertionError(
                             f"scatter kernel != plain: {layout} {kind} "
@@ -521,8 +627,9 @@ def phase_scatter_vs_plain(uparam) -> float:
                             f"epilogue={'on' if on else 'off'}")
                     del got, want
             log(f"  {layout} {kind} [{C} x {table.shape[1]}] "
-                f"{table.dtype}: u_cap 8/12288/49152/all-OOB, epilogue "
-                "on and off: bit-exact")
+                f"{table.dtype}: u_cap 8 (5, 1 real) / 12288, 12301 "
+                "(11692 real) / 49152 (40000 real) / all-OOB 12288, 49152, "
+                "epilogue on and off: bit-exact")
             del table, rows_src
             torch.cuda.empty_cache()
     log("phase 6 ok: scatter kernel bit-exact with its plain version")
@@ -663,9 +770,10 @@ def phase_train(work: str, conf: list, uparam) -> dict:
             "kwargs": kwargs}
 
 
-def phase_measure_train(ln, data_in: str) -> dict:
+def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
     """A train step's time budget and the scatter kernel at the main
     path's own inputs (the trained table, 5 batches of epoch 1)."""
+    import dataclasses
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -723,57 +831,135 @@ def phase_measure_train(ln, data_in: str) -> dict:
         log(f"    {e.self_device_time_total / 1e3 / len(payloads):8.4f} ms "
             f"x{e.count // len(payloads):4d}  {e.key[:90]}")
 
-    # the scatter kernel at the main path's own inputs
+    # the scatter kernel at the main path's own inputs, both routes
     from difacto_tpu_torch.losses import FMParams
-    epi = epilogue_spec(store.param, C)
-    plain = functools.partial(row_epilogue, store.param, C)
+    sp = store.param
+    k = sp.V_dim
+    epi = epilogue_spec(sp, C)
+    plain = functools.partial(row_epilogue, sp, C)
     table = store.state.VVg
-    args, plain_args, lib_args, n_real = [], [], [], []
+    steps = []                  # per payload: slots, rows, gw, gV, vm
     for pl in payloads:
         i32 = torch.from_numpy(pl.i32).to(DEV)
         f32 = torch.from_numpy(pl.f32).to(DEV)
         batch, slots, _ = unpack_panel(i32, f32, pl.b_cap, pl.d2, pl.u_cap,
                                        binary=pl.binary)
-        fns = store.fns
-        rows = fns.pull_rows(store.state, slots)
-        w, V, vm = fns.rows_to_params(store.state, rows)
+        rows = store.fns.pull_rows(store.state, slots)
+        w, V, vm = store.fns.rows_to_params(store.state, rows)
         params = FMParams(w=w, V=V, v_mask=vm)
         pred, xv = ln.loss.predict_xv(params, batch)
         gw, gV = ln.loss.calc_grad(params, batch, pred, xv)
-        gw, gV = gw.contiguous(), gV.contiguous()
-        args.append((table, slots, rows, gw, gV, vm, epi))
-        plain_args.append((table, slots, rows, gw, gV, vm, plain))
-        n = int((slots < C).sum())
-        n_real.append(n)
-        new = row_epilogue(store.param, C, rows, gw, gV, vm)
-        lib_args.append((table, slots[:n].long(), new[:n].contiguous()))
+        steps.append((slots, rows, gw.contiguous(), gV.contiguous(), vm))
+    u_cap = payloads[0].u_cap
+    ok = [(s >= 0) & (s < C) for s, *_ in steps]
+    real = float(np.mean([int(o.sum()) for o in ok]))
+    real_vm = float(np.mean([int((o & (st[4] > 0)).sum())
+                             for o, st in zip(ok, steps)]))
+    on = measure_scatter(table, steps, epi, plain, parent_fns,
+                         f"fp32 [{C}, {table.shape[1]}] (trained)")
+    off = measure_scatter(table, steps, None, None, parent_fns,
+                          f"fp32 [{C}, {table.shape[1]}] (trained)")
+    row_bytes = table.shape[1] * table.element_size()
+    on["bound_ms"] = (4 * u_cap + real * (2 * row_bytes + 8)
+                      + real_vm * 4 * k) / HBM_BYTES_PER_S * 1e3
+    off["bound_ms"] = (4 * u_cap + real * 2 * row_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    for name, t in (("epilogue on", on), ("epilogue off", off)):
+        log(f"  scatter {name}: {real:.0f} real rows of u_cap {u_cap} on "
+            f"average ({real_vm:.0f} with vmask > 0), bound "
+            f"{t['bound_ms']:.5f} ms at 3.35 TB/s -> kernel at "
+            f"{t['bound_ms'] / t['ms']:.1%} of it, index_copy_'s "
+            f"{t['library_ms'] / t['ms']:.2f}x the kernel's time"
+            + "".join(f", {n}'s {v / t['ms']:.2f}x"
+                      for n, v in t["others_ms"].items()))
+
+    # the push in bf16 and int8 tables of the main path's shape (their
+    # layout at this capacity: in-pad), seeded, at the same slot vectors
+    # and gradients
+    for kind in ("bf16", "int8"):
+        param = dataclasses.replace(sp, slot_dtype=kind)
+        tab = _seeded_table(param, C, SEED + 9)
+        steps_k = [(s, fused.gather_rows_ref(tab, s), gw, gV, vm)
+                   for s, _, gw, gV, vm in steps]
+        t = measure_scatter(tab, steps_k, epilogue_spec(param, C),
+                            functools.partial(row_epilogue, param, C),
+                            parent_fns, f"{kind} [{C}, {tab.shape[1]}]")
+        rb = tab.shape[1] * tab.element_size()
+        bound = (4 * u_cap + real * (2 * rb + 8) + real_vm * 4 * k) \
+            / HBM_BYTES_PER_S * 1e3
+        log(f"  scatter epilogue on, {kind}: bound {bound:.5f} ms -> "
+            f"kernel at {bound / t['ms']:.1%} of it")
+        del tab, steps_k
+        torch.cuda.empty_cache()
+    log("phase 8 ok: measured")
+    return {"on": on, "off": off, "wall_ms": wall, "busy_ms": busy,
+            "kernels_per_step": kernels}
+
+
+def measure_scatter(table, steps, epi, plain, parent_fns: dict,
+                    what: str) -> dict:
+    """One scatter route on ``steps`` (per payload: slots, gathered rows,
+    gw, gV, vmask): the kernel (and other trees', in turns), the plain
+    version and one ``index_copy_`` of the in-bounds rows (of the new rows
+    where ``epi`` is set), cycled over the payloads; then the kernel on
+    one payload repeated, L2-warm. The table is written in place."""
+    import torch
+    from difacto_tpu_torch.ops import fused
+    C = table.shape[0]
+    if epi is not None:
+        kern = fused.fm_update_rows_cuda
+        args = [(table, s, r, gw, gV, vm, epi) for s, r, gw, gV, vm in steps]
+        plain_fn = fused.fm_update_rows_ref
+        plain_args = [a[:6] + (plain,) for a in args]
+        new = [plain(r, gw, gV, vm) for _, r, gw, gV, vm in steps]
+    else:
+        kern = fused.scatter_rows_cuda
+        args = [(table, s, r) for s, r, *_ in steps]
+        plain_fn, plain_args = fused.scatter_rows_ref, args
+        new = [r for _, r, *_ in steps]
+    lib_args = []
+    for (s, *_), r in zip(steps, new):
+        ok = (s >= 0) & (s < C)
+        lib_args.append((table, s[ok].long(), r[ok].contiguous()))
 
     def library(t, s, r):
         return t.index_copy_(0, s, r)
 
-    ms, plain_ms, library_ms = (
-        device_ms(fn, a) for fn, a in (
-            (fused.fm_update_rows_cuda, args),
-            (fused.fm_update_rows_ref, plain_args), (library, lib_args)))
-    u_cap = payloads[0].u_cap
+    cands = [(n, with_fn(f, kern), args) for n, f in parent_fns.items()]
+    cands.insert((len(cands) + 1) // 2, ("kernel", kern, args))
+    turns = device_ms_turns(cands)
+    out = {"ms": float(np.mean(turns["kernel"])),
+           "plain_ms": device_ms(plain_fn, plain_args),
+           "library_ms": device_ms(library, lib_args),
+           "warm_ms": device_ms(kern, args[:1]),
+           "others_ms": {n: float(np.mean(turns[n])) for n in parent_fns}}
     row_bytes = table.shape[1] * table.element_size()
-    real = float(np.mean(n_real))
-    k = store.param.V_dim
-    moved = 4 * u_cap + real * (2 * row_bytes + 4 * (2 + k))
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"  scatter+epilogue at the main path's shape: table [{C}, "
-        f"{table.shape[1]}] {table.dtype}, u_cap {u_cap}, {real:.0f} real "
-        f"rows on average: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_copy_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({moved / 1e6:.2f} MB at 3.35 TB/s) -> "
-        f"{bound_ms / ms:.1%} of the bound")
-    log("phase 8 ok: measured")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "wall_ms": wall, "busy_ms": busy,
-            "kernels_per_step": kernels}
+    s0, r0, *_ = steps[0]
+    touched = (r0.numel() * r0.element_size() + 4 * s0.numel()
+               + sum(t.numel() * 4 for t in steps[0][2:])
+               + int(((s0 >= 0) & (s0 < C)).sum()) * row_bytes)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size \
+        if DEV == "cuda" else 0
+    route = "on" if epi is not None else "off"
+    order = ", ".join(f"{n} {'/'.join(f'{v:.5f}' for v in turns[n])}"
+                      for n, *_ in cands)
+    log(f"  scatter epilogue {route}, {what}, u_cap {s0.numel()}: kernel "
+        f"{out['ms']:.5f} ms (in turns: {order} ms), plain "
+        f"{out['plain_ms']:.5f} ms, index_copy_ {out['library_ms']:.5f} ms; "
+        f"the loop cycles {len(steps)} payloads, "
+        f"{len(steps) * touched / 1e6:.1f} MB against a {l2 / 1e6:.1f} MB "
+        f"L2; one payload repeated ({touched / 1e6:.1f} MB, L2-warm): "
+        f"kernel {out['warm_ms']:.5f} ms")
+    return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", action="append", default=[],
+                    help="a checkout of another commit whose "
+                         "scatter_epilogue.cu phase 8 times in turns with "
+                         "this tree's (may be given more than once)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -793,7 +979,7 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        phase_card()
+        _, parent_fns = phase_card(args.parent, work)
         conf = parse_config_file(CONF)
         if DEV == "cpu":        # a rehearsal's table: the CPU holds less
             conf.append(("hash_capacity", "8192"))
@@ -819,7 +1005,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         scatter_err = phase_scatter_vs_plain(uparam)
         tr = phase_train(work, conf, uparam)
-        m = phase_measure_train(tr["learner"], tr["data_in"])
+        m = phase_measure_train(tr["learner"], tr["data_in"], parent_fns)
         if "jax" in sys.modules or "difacto_tpu" in sys.modules:
             raise AssertionError("the smoke imported JAX or difacto_tpu")
         tl = tr["launches"]
@@ -827,11 +1013,14 @@ def main() -> int:
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches
                  + tl["gather_rows_cuda"], gather_err, g),
-                ("scatter_epilogue", tl["fm_update_rows_cuda"]
-                 + tl["scatter_rows_cuda"], scatter_err, m)):
+                ("scatter_epilogue", tl["fm_update_rows_cuda"],
+                 scatter_err[True], m["on"]),
+                ("scatter_epilogue_off", tl["scatter_rows_cuda"],
+                 scatter_err[False], m["off"])):
+            lib, replaces = ENTRIES[name]
             kernels.append({
-                "name": name, "route": "cuda", "source": KERNELS[name][0],
-                "replaces": KERNELS[name][1], "launches": launches,
+                "name": name, "route": "cuda", "source": KERNELS[lib],
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]})

@@ -71,12 +71,18 @@ def library(name: str) -> ctypes.CDLL:
 def _build(name: str, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    out.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name} (exit "
-                           f"{proc.returncode}):\n{proc.stdout[-4000:]}")
+    log = compile_source(CSRC_DIR / f"{name}.cu", tmp)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
+
+
+def compile_source(src: Path, out: Path) -> str:
+    """nvcc ``src`` into the shared library ``out``; returns nvcc's output
+    (``-Xptxas -v``) and raises when the build fails."""
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(out),
+                           str(src)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src} (exit "
+                           f"{proc.returncode}):\n{proc.stdout[-4000:]}")
+    return proc.stdout

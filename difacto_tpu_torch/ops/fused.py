@@ -218,12 +218,17 @@ def fm_update_rows(table: torch.Tensor, slots: torch.Tensor,
 _CONTAINER = {"fp32": 0, "bf16": 1, "int8": 2, "fp8": 3}
 
 
+# difacto_scatter_epilogue(table, slots, rows, gw, gV, vmask, capacity,
+# n_rows, row_bytes, k, h, off, container, epilogue, hyper, stream)
+SCATTER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8
+                    + [ctypes.c_void_p, ctypes.c_void_p])
+
+
 def _scatter_fn():
     lib = build.library("scatter_epilogue")
     fn = lib.difacto_scatter_epilogue
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8
-                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 

@@ -71,12 +71,16 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
 
 _LAYOUTS = {"in_pad": dict(V_dim=16),
             "appended_gap": dict(V_dim=16, pad_v_rows=False),
-            "appended_v64": dict(V_dim=64, pad_v_rows=False)}
+            "appended_v64": dict(V_dim=64, pad_v_rows=False),
+            "appended_v8": dict(V_dim=8, pad_v_rows=False),
+            "appended_v40": dict(V_dim=40, pad_v_rows=False),
+            "in_pad_v40": dict(V_dim=40)}
 _HYPER = dict(l1=0.5, l2=0.1, lr=0.05, V_l2=0.01, V_lr=0.02,
               V_threshold=2)
+_C = 65536
 
 
-def _fused_rows(param, n, seed, dev):
+def _fused_rows(param, n, seed, dev, C=4096):
     """[n, Wx] fused rows built on the card from seeded values, and the
     step inputs gw, gV, vmask (vmask 0 and 1, z around l1, cnt around
     V_threshold, some all-zero V halves)."""
@@ -89,27 +93,69 @@ def _fused_rows(param, n, seed, dev):
             (rng.randn(n) * 0.6).astype(np.float32),
             np.abs(rng.randn(n)).astype(np.float32),
             rng.randint(0, 5, n).astype(np.float32), rng.rand(n) < 0.5]
-    rows = T.build_rows(param, 4096, *(torch.from_numpy(c).to(dev)
-                                       for c in cols))
+    rows = T.build_rows(param, C, *(torch.from_numpy(c).to(dev)
+                                    for c in cols))
     gw = torch.from_numpy((rng.randn(n) * 0.3).astype(np.float32)).to(dev)
     gV = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
     vm = torch.from_numpy((rng.rand(n) < 0.6).astype(np.float32)).to(dev)
     return rows, gw, gV, vm
 
 
+def _make_nonfinite(param, C, rows, gV):
+    """NaN and +-Inf where the requant amax and the AdaGrad columns see
+    them: in gV on every 5th row, and in the stored halves (the scale
+    words of 8-bit rows, NaN fp8 codes, the V and Vg lanes of fp32 and
+    bf16 rows) on others."""
+    k, h, _, off = T.row_layout(param, C)
+    nan, inf = float("nan"), float("inf")
+    gV[4::5, 0] = inf
+    gV[4::5, min(1, k - 1)] = -inf
+    gV[4::5, k - 1] = nan
+    if T.quantized(param):
+        scal = rows[:, off:].view(torch.float32)
+        scal[1::5, 5] = nan
+        scal[2::5, 5] = inf
+        scal[3::5, 6] = -inf
+        if param.slot_dtype == "fp8":
+            rows[::7, 0] = 0x7F          # NaN codes
+            rows[3::7, h] = -1           # 0xFF, -NaN
+    else:
+        rows[1::5, 0] = nan
+        rows[2::5, 0] = inf
+        rows[3::5, h] = -inf
+        rows[3::5, k - 1] = 3e38
+
+
+def _scatter_cases(C):
+    """(real slots, u): the tile edges of the kernel's persistent grid —
+    a real/pad boundary inside a tile, u not a multiple of the tile, u
+    larger than one pass of the grid, a single real row before pads, and
+    an all-OOB vector."""
+    rng = np.random.RandomState(3)
+
+    def sample(n):
+        return rng.choice(C, n, replace=False).tolist()
+    return [([0, 3, 77, 4095], 8), ([], 12), (range(0, 4096, 3), 1536),
+            ([77], 8), ([C - 1], 1536), (sample(11692), 12288),
+            (sample(11692), 12301), (sample(40000), 49152), ([], 49152)]
+
+
+@pytest.mark.parametrize("values", ["finite", "nonfinite"])
 @pytest.mark.parametrize("layout", list(_LAYOUTS))
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "fp8"])
 @pytest.mark.parametrize("epilogue", [True, False])
-def test_scatter_kernel_matches_plain_bytes(cuda, kind, layout, epilogue):
-    param = T.SGDUpdaterParam(slot_dtype=kind, hash_capacity=4096,
+def test_scatter_kernel_matches_plain_bytes(cuda, kind, layout, epilogue,
+                                            values):
+    param = T.SGDUpdaterParam(slot_dtype=kind, hash_capacity=_C,
                               **_LAYOUTS[layout], **_HYPER)
-    table, _, _, _ = _fused_rows(param, 4096, 1, cuda)
-    for real, u in (([0, 3, 77, 4095], 8), ([], 12),
-                    (range(0, 4096, 3), 1536)):
-        slots = _slots(4096, list(real), u, cuda)
-        rows, gw, gV, vm = _fused_rows(param, u, 2, cuda)
-        epi = T.epilogue_spec(param, 4096)
-        plain = functools.partial(T.row_epilogue, param, 4096)
+    table, _, _, _ = _fused_rows(param, _C, 1, cuda, _C)
+    epi = T.epilogue_spec(param, _C)
+    plain = functools.partial(T.row_epilogue, param, _C)
+    for real, u in _scatter_cases(_C):
+        slots = _slots(_C, list(real), u, cuda)
+        rows, gw, gV, vm = _fused_rows(param, u, 2, cuda, _C)
+        if values == "nonfinite":
+            _make_nonfinite(param, _C, rows, gV)
         got, want = table.clone(), table.clone()
         if epilogue:
             before = fused.fm_update_rows_cuda.launches
@@ -122,7 +168,8 @@ def test_scatter_kernel_matches_plain_bytes(cuda, kind, layout, epilogue):
             fused.scatter_rows_ref(want, slots, rows)
             assert fused.scatter_rows_cuda.launches == before + 1
         torch.cuda.synchronize()
-        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), \
+            f"u={u} real={len(real)}"
         if not real:
             assert torch.equal(got.view(torch.uint8),
                                table.view(torch.uint8))

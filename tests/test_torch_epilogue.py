@@ -237,3 +237,57 @@ def test_apply_grad_matches_jax(kind):
                                      jnp.asarray(gw), jnp.asarray(gV),
                                      jnp.asarray(vm)).VVg
     assert_same_bits(got, want, kind)
+
+
+def _kernel_fp8_codes(y: np.ndarray) -> np.ndarray:
+    """``f32_to_fp8e4m3fn`` of ops/csrc/scatter_epilogue.cu, step for step
+    in numpy: c10's fp8e4m3fn_from_fp32_value, NaN (0x7F) for values at
+    and above 480, for those that round up to it, and for +-Inf and NaN."""
+    bits = y.astype(np.float32).view(np.uint32)
+    sign = bits & np.uint32(0x80000000)
+    f = bits ^ sign
+    out = np.zeros(f.shape, np.uint32)
+    big = f >= np.uint32(1087 << 20)
+    small = ~big & (f < np.uint32(121 << 23))
+    mid = ~big & ~small
+    out[big] = 0x7F
+    denorm = np.uint32(141 << 23).view(np.float32)
+    added = (f[small].view(np.float32) + denorm).view(np.uint32)
+    out[small] = added - np.uint32(141 << 23)
+    m = f[mid]
+    m = m + np.uint32(((7 - 127) << 23) % (1 << 32)) + np.uint32(0x7FFFF) \
+        + ((m >> np.uint32(20)) & np.uint32(1))
+    out[mid] = (m >> np.uint32(20)) & np.uint32(0xFF)
+    return ((out & np.uint32(0xFF)) | (sign >> np.uint32(24))).astype(
+        np.uint8)
+
+
+def test_kernel_fp8_rule_matches_jax():
+    """The fp8 requant codes of the CUDA kernel follow the JAX reference's
+    cast (ml_dtypes' float8_e4m3fn): round to nearest even, subnormals
+    included, and NaN past the finite range (from 464, which rounds up to
+    480, and for +-Inf) rather than the saturation to 448 of newer c10.
+    Every fp8 value, the midpoints between neighbours and a wide seeded
+    sample of f32 values, both signs."""
+    fp8 = np.arange(256, dtype=np.uint8).view(jnp.float8_e4m3fn)
+    vals = np.asarray(fp8, np.float32)
+    vals = np.sort(vals[np.isfinite(vals) & (vals >= 0)])
+    mids = (vals[:-1] + vals[1:]) / 2
+    rng = np.random.RandomState(0)
+    wide = (rng.rand(20000) * 2 - 1).astype(np.float32) \
+        * np.exp2(rng.randint(-30, 30, 20000)).astype(np.float32)
+    edge = np.array([447.9, 448.0, 463.9, 464.0, 464.1, 479.9, 480.0, 1e10,
+                     3e38, np.inf, np.nan, 1e-30, 2.0 ** -10, 2.0 ** -9.5],
+                    np.float32)
+    y = np.concatenate([vals, mids, np.nextafter(mids, 0),
+                        np.nextafter(mids, np.inf), wide, edge])
+    y = np.concatenate([y, -y]).astype(np.float32)
+    want = np.asarray(jax.lax.bitcast_convert_type(
+        jnp.asarray(y).astype(jnp.float8_e4m3fn), jnp.uint8))
+    got = _kernel_fp8_codes(y)
+    bad = np.flatnonzero(got != want)
+    assert bad.size == 0, [(float(y[i]), int(got[i]), int(want[i]))
+                           for i in bad[:10]]
+    past = np.array([448.0, 464.0, 464.1, 480.0, 1e10, np.inf], np.float32)
+    assert _kernel_fp8_codes(past).tolist() == [0x7E, 0x7E, 0x7F, 0x7F,
+                                                0x7F, 0x7F]
