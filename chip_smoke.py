@@ -5,10 +5,11 @@
 
 Drives the port's serving and training paths at the full width of
 examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
-2.0 GiB fp32 table on the card) with random weights and synthetic
-Criteo rows made from a seed, and holds the CUDA kernels (the fused-row
-gather and the scatter with its FTRL/AdaGrad epilogue) against their
-plain PyTorch versions. Phases:
+2.0 GiB fp32 table on the card) and of examples/criteo_dict.conf (the
+dictionary store at the JAX package's defaults), with random weights and
+synthetic Criteo rows made from a seed, and holds the CUDA kernels (the
+fused-row gather and the scatter with its FTRL/AdaGrad epilogue) against
+their plain PyTorch versions. Phases:
 
 1. the card's name and power limit; build the kernels with nvcc, one
    thread (and one nvcc) per source, all started together;
@@ -37,37 +38,59 @@ plain PyTorch versions. Phases:
    the grid), and all-OOB vectors of 12288 and 49152 (table unchanged);
 7. ``task=train`` through the port's learner at full width: 50,000
    synthetic train and 10,000 validation rows, 2 epochs, ``has_aux=1
-   model_out=...``. The objective per row falls from epoch 0 to 1; the
-   launch counts match the batches (one gather and one scatter per step,
-   one more of each per epoch-0 batch for the count push, one gather per
-   validation block); a second run leaves a bit-identical table, and a
-   third with the kernels swapped for their plain versions the same
-   table again; the saved model scored through phase 3's pred path is
-   within 1e-4 of a float64 numpy FM over the saved arrays;
-8. a train step's host wall time, device busy time, idle share, kernels
-   per step and top device entries (torch.profiler over 5 steps), and the
-   scatter kernel's device time on both routes at the main path's own
-   slot vectors on the trained table: epilogue on (the push) beside its
-   bound, the plain version and one ``index_copy_`` of the precomputed
-   new rows; epilogue off (the epoch-0 count push) beside its bound, the
-   plain version and ``index_copy_`` of the in-bounds rows, which
-   computes the same function. The timing loop cycles 5 payloads, more
-   than the L2 holds; the push is timed L2-warm as well (one payload
-   repeated), and in bf16 and int8 tables of the same shape. With
-   ``--parent DIR`` (a checkout of another commit, e.g. unpacked with
-   ``git archive`` under the ignored ``difacto_tpu_torch/_build/``),
-   that tree's ``scatter_epilogue.cu`` is built beside this one and both
-   are timed in turns on the same inputs (parent, this, this, parent);
-   the flag may be given more than once, each tree named by its
-   directory.
+   model_out=...``, the replay cache at its default budget (epoch 0
+   streams and stages, epoch 1 replays). The objective per row falls
+   from epoch 0 to 1; the launch counts match the batches (one gather
+   and one scatter per step, one more of each per epoch-0 batch for the
+   count push, one gather per validation block and epoch); a second run
+   leaves a bit-identical table, and a third with the kernels swapped
+   for their plain versions the same table again; each epoch's wall
+   time; the saved model scored through phase 3's pred path is within
+   1e-4 of a float64 numpy FM over the saved arrays;
+8. a streamed and a replayed train step's host wall time, device busy
+   time, idle share, device events per step and top device entries
+   (torch.profiler over 5 steps), and the scatter kernel's device time
+   on both routes at the main path's own slot vectors on the trained
+   table: epilogue on (the push) beside its bound, the plain version and
+   one ``index_copy_`` of the precomputed new rows; epilogue off (the
+   epoch-0 count push) beside its bound, the plain version and
+   ``index_copy_`` of the in-bounds rows, which computes the same
+   function. The timing loop cycles 5 payloads, more than the L2 holds;
+   the push is timed L2-warm as well (one payload repeated), and in
+   bf16 and int8 tables of the same shape. With ``--parent DIR`` (a
+   checkout of another commit, e.g. unpacked with ``git archive`` under
+   the ignored ``difacto_tpu_torch/_build/``), that tree's
+   ``scatter_epilogue.cu`` is built beside this one and both are timed
+   in turns on the same inputs (parent, this, this, parent); the flag
+   may be given more than once, each tree named by its directory;
+9. ``task=train`` at the JAX package's defaults on the dictionary store
+   at the full width of examples/criteo_dict.conf (no ``hash_capacity``,
+   ``device_cache_mb`` 2048, ``shuffle`` 10, mesh keys ignored): 150,000
+   train and 10,000 validation rows, 3 epochs. The table grows from
+   16,384 rows at least 4 times while the cache stages, and the staged
+   slot pads are rewritten before epoch 1 replays; the objective per row
+   falls every epoch; the replayed epochs make no host-to-device copy
+   (torch.profiler); the launches match the batches; a second run and a
+   run on the plain versions leave the same table and key map bit for
+   bit; each epoch's wall time; the saved dictionary model scored by
+   ``task=pred`` is within 1e-4 of a float64 FM over its arrays and keys;
+10. a short V_dim 16 dictionary run from 1,024 rows with
+    ``pad_v_rows_max_mb=1``: its growth crosses the padded layout's limit
+    at 2,048 rows and the rows are laid out anew; the same table bit for
+    bit on the plain versions;
+11. examples/local.conf (logistic regression on the flat V_dim=0 table,
+    the dictionary store): the objective falls over 5 epochs and
+    ``task=pred`` of the saved model is within 1e-4 of a float64 model.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
 now and then loses device events, so a timed profile is kept only when it
 holds exactly ``rounds`` times the events of a one-pass profile.
 
-Prints one JSON line of kernel numbers (the scatter's two routes as two
-entries), then, as the last line,
+Prints the whole smoke's wall time, one JSON line of kernel numbers (the
+scatter's two routes as two entries; launches summed over the main
+paths of phases 3, 4, 7, 9 and 10, each counted from 0 just before its
+own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -77,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import shutil
@@ -94,6 +118,9 @@ CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "examples", "criteo_hashed.conf")
 N_ROWS = 20_000
 N_TRAIN, N_VAL = 50_000, 10_000
+DICT_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "criteo_dict.conf")
+N_DICT_TRAIN, N_DICT_EPOCHS = 150_000, 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
 KERNELS = {                 # library: source
     "gather_rows": "difacto_tpu_torch/ops/csrc/gather_rows.cu",
@@ -107,6 +134,7 @@ ENTRIES = {
                              "difacto_tpu/ops/fused.py:300"),
 }
 DEV = "cuda"                # "cpu" only in a rehearsal off the card
+T_START = 0.0
 
 
 def sync() -> None:
@@ -150,27 +178,43 @@ def synthetic_criteo(n: int, seed: int) -> bytes:
     return ("\n".join(lines) + "\n").encode()
 
 
-def reference_margins(text: bytes, arrays: dict, hash_capacity: int,
+def reference_margins(text: bytes, arrays: dict, hash_capacity: int = 0,
+                      keys=None, data_format: str = "criteo",
                       l1_shrk: bool = True) -> np.ndarray:
     """float64 numpy FM over the logical arrays, straight from the
-    formula (the reference's fm_loss.h): every nonzero of a row adds
-    w[slot] and V[slot] (masked by live & w != 0)."""
+    formula (the reference's fm_loss.h): every nonzero x of a row adds
+    x w[slot] to the linear term and x V[slot] (masked by live & w != 0)
+    to the interaction. Slots are the hashed rule's (``hash_capacity``),
+    or the row of the id in a dictionary model's sorted ``keys`` (an id
+    the model does not hold adds nothing). A flat model has no V."""
     from difacto_tpu_torch.base import reverse_bytes
-    from difacto_tpu_torch.data.parsers import parse_criteo
+    from difacto_tpu_torch.data.parsers import parse_criteo, parse_libsvm
     from difacto_tpu_torch.store.local import hash_slots
-    blk = parse_criteo(text)
-    slot = hash_slots(reverse_bytes(blk.index), hash_capacity)
-    w = arrays["w"].astype(np.float64)[slot]
+    blk = (parse_criteo if data_format == "criteo" else parse_libsvm)(text)
+    rev = reverse_bytes(blk.index)
+    if keys is None:
+        slot = hash_slots(rev, hash_capacity)
+    else:
+        i = np.minimum(np.searchsorted(keys, rev), len(keys) - 1)
+        slot = np.where(keys[i] == rev, i, len(keys))   # len: a zero row
+        arrays = {f: np.concatenate([a, np.zeros((1,) + a.shape[1:],
+                                                 a.dtype)])
+                  for f, a in arrays.items()}
+    x = blk.values_or_ones().astype(np.float64)
+    row = np.repeat(np.arange(blk.size), np.diff(blk.offset))
+    lin = np.bincount(row, weights=x * arrays["w"].astype(np.float64)[slot],
+                      minlength=blk.size)
+    V = arrays.get("V")
+    if V is None or V.shape[1] == 0:
+        return np.clip(lin, -20.0, 20.0)
     live = arrays["v_live"][slot]
     if l1_shrk:
         live = live & (arrays["w"][slot] != 0)
-    V = arrays["V"].astype(np.float64)[slot] * live[:, None]
-    row = np.repeat(np.arange(blk.size), np.diff(blk.offset))
-    lin = np.bincount(row, weights=w, minlength=blk.size)
+    xV = V.astype(np.float64)[slot] * (live * x)[:, None]
     XV = np.zeros((blk.size, V.shape[1]))
     XXVV = np.zeros_like(XV)
-    np.add.at(XV, row, V)
-    np.add.at(XXVV, row, V * V)
+    np.add.at(XV, row, xV)
+    np.add.at(XXVV, row, xV * xV)
     return np.clip(lin + 0.5 * (XV ** 2 - XXVV).sum(1), -20.0, 20.0)
 
 
@@ -476,7 +520,7 @@ def phase_measure(store, windows) -> dict:
     row_bytes = W * table.element_size()
     real_slots = []
     for sub in windows:
-        _, uniq = compact(sub)
+        _, uniq, _ = compact(sub)
         real_slots.append(np.unique(store.map_keys(uniq)).astype(np.int32))
     # the executor's sticky cap: the bucket of the largest window
     u_cap = bucket(max(len(s) for s in real_slots))
@@ -651,24 +695,102 @@ def _count_batches(p, data_in: str, data_val: str, epochs: int):
     return train, val
 
 
-def _train(kwargs: list):
+def _h2d_copies(fn) -> tuple:
+    """(host-to-device copies, device events) the card recorded while
+    ``fn()`` ran, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    h2d = [e for e in ev if "HtoD" in e.name]
+    if h2d:
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.key in ("aten::copy_", "aten::_to_copy")}
+        log(f"    host-to-device copies: {len(h2d)}; copy ops: {ops}")
+    return len(h2d), len(ev)
+
+
+def _train(kwargs: list, watch_replays: bool = False):
     """One ``task=train`` run through the learner: (learner, per-epoch
-    training progress)."""
+    (training, validation) progress, [(epoch, job, wall s)], and with
+    ``watch_replays`` [(epoch, job, host-to-device copies, device
+    events)] of every replayed epoch, from the profiler)."""
     from difacto_tpu_torch.learners.sgd import SGDLearner
     ln = SGDLearner(device=DEV)
     ln.init(list(kwargs))
-    progress = []
+    progress, walls, replays = [], [], []
     ln.add_epoch_end_callback(lambda k, t, v: progress.append((t, v)))
+    run_epoch, replay = ln._run_epoch, ln._replay_cached
+
+    def timed(epoch, job_type, prog):
+        t0 = time.perf_counter()
+        run_epoch(epoch, job_type, prog)
+        sync()
+        walls.append((epoch, job_type, time.perf_counter() - t0))
+
+    def watched(job_type, epoch, cache, prog):
+        if DEV != "cuda":
+            replay(job_type, epoch, cache, prog)
+            replays.append((epoch, job_type, 0, 0))
+            return
+        n, ev = _h2d_copies(lambda: replay(job_type, epoch, cache, prog))
+        replays.append((epoch, job_type, n, ev))
+
+    ln._run_epoch = timed
+    if watch_replays:
+        ln._replay_cached = watched
     ln.run()
     sync()
-    return ln, progress
+    return ln, progress, walls, replays
+
+
+def _epoch_walls(walls) -> str:
+    return ", ".join(f"{e}{'t' if j == 3 else 'v'} {s:.3f}"
+                     for e, j, s in walls)
+
+
+def _swap_plain():
+    """Swap the three kernel dispatchers for their plain versions; returns
+    a function that swaps them back."""
+    from difacto_tpu_torch.ops import fused
+
+    def plain_push(table, slots, rows, gw, gV, vmask, epi, epilogue):
+        return fused.fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
+                                        epilogue)
+
+    saved = (fused.gather_rows, fused.fm_update_rows, fused.scatter_rows)
+    fused.gather_rows = fused.gather_rows_ref
+    fused.fm_update_rows = plain_push
+    fused.scatter_rows = fused.scatter_rows_ref
+
+    def restore():
+        fused.gather_rows, fused.fm_update_rows, fused.scatter_rows = saved
+    return restore
+
+
+COUNTERS = ("gather_rows_cuda", "fm_update_rows_cuda", "scatter_rows_cuda")
+
+
+def _reset_counts() -> None:
+    from difacto_tpu_torch.ops import fused
+    for c in COUNTERS:
+        getattr(fused, c).launches = 0
+
+
+def _counts() -> dict:
+    from difacto_tpu_torch.ops import fused
+    return {c: getattr(fused, c).launches for c in COUNTERS}
 
 
 def phase_train(work: str, conf: list, uparam) -> dict:
+    """Phase 7: the hashed store at full width, the replay cache at its
+    default budget: epoch 0 streams and stages, epoch 1 replays."""
     import torch
     from difacto_tpu_torch.__main__ import run_pred
     from difacto_tpu_torch.learners.sgd import SGDLearnerParam
-    from difacto_tpu_torch.ops import fused
     t0 = time.monotonic()
     data_in = os.path.join(work, "train.txt")
     data_val = os.path.join(work, "val.txt")
@@ -682,61 +804,59 @@ def phase_train(work: str, conf: list, uparam) -> dict:
                      ("max_num_epochs", "2"), ("stop_rel_objv", "0"),
                      ("stop_val_auc", "-2")]
     lp, _ = SGDLearnerParam.init_allow_unknown(kwargs)
-    train_b, val_b = _count_batches(lp, data_in, data_val, 2)
+    train_b, val_b = _count_batches(lp, data_in, data_val, 1)
+    nb = train_b[0]
     log(f"  {N_TRAIN} train + {N_VAL} validation rows written in "
-        f"{time.monotonic() - t0:.1f} s: {train_b} train batches per "
-        f"epoch, {val_b} validation block(s)")
+        f"{time.monotonic() - t0:.1f} s: {nb} train batches per epoch "
+        f"(epoch 1 replays them), {val_b} validation block(s); "
+        f"device_cache_mb {lp.device_cache_mb}")
 
-    counters = (fused.gather_rows_cuda, fused.fm_update_rows_cuda,
-                fused.scatter_rows_cuda)
-    for c in counters:
-        c.launches = 0
+    _reset_counts()
     t0 = time.monotonic()
-    ln, progress = _train(kwargs + [("has_aux", "1"), ("model_out", model)])
+    ln, progress, walls, _ = _train(kwargs + [("has_aux", "1"),
+                                              ("model_out", model)])
     train_s = time.monotonic() - t0
-    launches = {c.__name__: c.launches for c in counters}
-    want = {"gather_rows_cuda": sum(train_b) + train_b[0] + 2 * val_b,
-            "fm_update_rows_cuda": sum(train_b),
-            "scatter_rows_cuda": train_b[0]}
+    launches = _counts()
+    # one gather and one push per step, one more gather and a count
+    # push per epoch-0 batch, one gather per validation block and epoch
+    want = {"gather_rows_cuda": 2 * nb + nb + 2 * val_b,
+            "fm_update_rows_cuda": 2 * nb, "scatter_rows_cuda": nb}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, the batches need "
                              f"{want}")
+    info = ln.device_cache_info()
+    if not all(c["complete"] for c in info.values()):
+        raise AssertionError(f"the replay cache did not cover the run: "
+                             f"{info}")
     loss = [t.loss / t.nrows for t, _ in progress]
     if not (len(loss) == 2 and np.isfinite(loss).all()
             and loss[1] < loss[0]):
         raise AssertionError(f"objective per row did not fall: {loss}")
     first = ln.store.state.VVg.clone()
-    table = ln.store.state.VVg
     log(f"  run 1: {train_s:.1f} s for 2 epochs, loss/row {loss[0]:.6f} -> "
         f"{loss[1]:.6f}, val AUC "
         f"{[round(v.auc / max(v.nrows, 1), 6) for _, v in progress]}, "
-        f"launches {launches} (as the batches need)")
-    del ln, table
+        f"launches {launches} (as the batches need), cache {info}")
+    del ln
     torch.cuda.empty_cache()
 
-    ln, _ = _train(kwargs)
+    ln, _, walls, _ = _train(kwargs)
     if not torch.equal(ln.store.state.VVg.view(torch.int32),
                        first.view(torch.int32)):
         raise AssertionError("a second training run left another table")
     del ln
     torch.cuda.empty_cache()
-    log("  run 2: final table bit-identical to run 1")
+    log(f"  run 2: final table bit-identical to run 1; epoch wall s "
+        f"(t training, v validation; epoch 0 streams, 1 replays): "
+        f"{_epoch_walls(walls)}")
 
-    def plain_push(table, slots, rows, gw, gV, vmask, epi, epilogue):
-        return fused.fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
-                                        epilogue)
-
-    saved = (fused.gather_rows, fused.fm_update_rows, fused.scatter_rows)
-    for c in counters:
-        c.launches = 0
-    fused.gather_rows = fused.gather_rows_ref
-    fused.fm_update_rows = plain_push
-    fused.scatter_rows = fused.scatter_rows_ref
+    _reset_counts()
+    restore = _swap_plain()
     try:
-        ln, _ = _train(kwargs)
+        ln, _, _, _ = _train(kwargs)
     finally:
-        fused.gather_rows, fused.fm_update_rows, fused.scatter_rows = saved
-    if any(c.launches for c in counters):
+        restore()
+    if any(_counts().values()):
         raise AssertionError("the run on the plain versions launched a "
                              "kernel")
     if not torch.equal(ln.store.state.VVg.view(torch.int32),
@@ -746,6 +866,7 @@ def phase_train(work: str, conf: list, uparam) -> dict:
     log("  run 3 (gather/scatter swapped for their plain versions): final "
         "table bit-identical to run 1")
     del first
+    torch.cuda.empty_cache()
 
     # the saved model through phase 3's pred path vs a float64 FM
     with np.load(model + "_part-0") as z:
@@ -764,10 +885,10 @@ def phase_train(work: str, conf: list, uparam) -> dict:
     log(f"  saved model: {int((arrays['w'] != 0).sum())} non-zero w, "
         f"{int(arrays['v_live'].sum())} live embeddings; task=pred over the "
         f"validation rows within {p_err:.3g} of the float64 FM")
-    log("phase 7 ok: task=train at full width, deterministic, kernels = "
-        "plain versions")
+    log("phase 7 ok: task=train at full width, the replay cache at its "
+        "default, deterministic, kernels = plain versions")
     return {"launches": launches, "learner": ln, "data_in": data_in,
-            "kwargs": kwargs}
+            "walls": walls}
 
 
 def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
@@ -775,8 +896,6 @@ def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
     path's own inputs (the trained table, 5 batches of epoch 1)."""
     import dataclasses
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from difacto_tpu_torch.data.batch_reader import BatchReader
     from difacto_tpu_torch.data.pack_stream import (ShapeSchedule,
                                                     prepare_hashed)
@@ -809,27 +928,24 @@ def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
 
     if any(pl.layout != "panel" for pl in payloads):
         raise AssertionError("the Criteo batches did not pack as panels")
-    for pl in payloads:
-        step(pl)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for pl in payloads:
-            step(pl)
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3 / len(payloads)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3 / len(payloads)
-    if DEV == "cuda" and busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    kernels = sum(e.count for e in dev) / len(payloads)
-    log(f"  train step (1000 Criteo rows, u_cap {payloads[0].u_cap}): wall "
-        f"{wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({1 - busy / wall:.1%} idle), {kernels:.0f} kernels per step")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3 / len(payloads):8.4f} ms "
-            f"x{e.count // len(payloads):4d}  {e.key[:90]}")
+    from difacto_tpu_torch.learners.sgd import K_TRAINING
+    # full staged batches (a part's ragged last batch packs as COO)
+    staged = [st for items in ln._caches[K_TRAINING].entries.values()
+              for st in items if st.chunks is not None
+              and st.nrows == p.batch_size][:5]
+    if len(staged) < 5:
+        raise AssertionError("the replay cache holds fewer than 5 full "
+                             "chunked panels")
+
+    def replayed(st):
+        pending = []
+        ln._dispatch_staged(K_TRAINING, st, False, pending)
+        return pending[-1][1]
+
+    budget = {"streamed": profile_steps(step, payloads, "streamed"),
+              "replayed": profile_steps(replayed, staged, "replayed")}
+    if budget["replayed"]["h2d"]:
+        raise AssertionError("a replayed step copied from the host")
 
     # the scatter kernel at the main path's own inputs, both routes
     from difacto_tpu_torch.losses import FMParams
@@ -892,8 +1008,41 @@ def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
         del tab, steps_k
         torch.cuda.empty_cache()
     log("phase 8 ok: measured")
-    return {"on": on, "off": off, "wall_ms": wall, "busy_ms": busy,
-            "kernels_per_step": kernels}
+    return {"on": on, "off": off, "steps": budget}
+
+
+def profile_steps(fn, items, what: str) -> dict:
+    """A train step's host wall time (``fn(item)`` over ``items``, ended
+    by a synchronize), the card's busy time (the sum of its kernels'
+    durations), idle share and kernels per step, from torch.profiler,
+    and the top device entries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for it in items:
+        fn(it)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in items:
+            fn(it)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3 / len(items)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / len(items)
+    if DEV == "cuda" and busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    kernels = sum(e.count for e in dev) / len(items)
+    h2d = sum(e.count for e in dev if "HtoD" in e.key) / len(items)
+    log(f"  {what} train step (1000 Criteo rows): wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms ({1 - busy / wall:.1%} idle), "
+        f"{kernels:.0f} device events per step ({h2d:.0f} host-to-device "
+        "copies)")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3 / len(items):8.4f} ms "
+            f"x{e.count // len(items):4d}  {e.key[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": kernels,
+            "h2d": h2d}
 
 
 def measure_scatter(table, steps, epi, plain, parent_fns: dict,
@@ -953,6 +1102,226 @@ def measure_scatter(table, steps, epi, plain, parent_fns: dict,
     return out
 
 
+def _dict_growths(ln, start: int) -> int:
+    cap = ln.store.state.capacity
+    return max(0, cap.bit_length() - start.bit_length())
+
+
+def phase_train_dict(work: str) -> dict:
+    """Phase 9: ``task=train`` at the JAX package's defaults on the
+    dictionary store, at the full width of examples/criteo_dict.conf."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.config import parse_config_file
+    from difacto_tpu_torch.learners.sgd import SGDLearnerParam
+    conf = parse_config_file(DICT_CONF)
+    n_train = N_DICT_TRAIN
+    t0 = time.monotonic()
+    data_in = os.path.join(work, "dict_train.txt")
+    data_val = os.path.join(work, "dict_val.txt")
+    with open(data_in, "wb") as f:
+        f.write(synthetic_criteo(n_train, SEED + 4))
+    val_text = synthetic_criteo(N_VAL, SEED + 5)
+    with open(data_val, "wb") as f:
+        f.write(val_text)
+    model = os.path.join(work, "dict_model")
+    kwargs = conf + [("data_in", data_in), ("data_val", data_val),
+                     ("max_num_epochs", str(N_DICT_EPOCHS)),
+                     ("stop_rel_objv", "0"), ("stop_val_auc", "-2")]
+    lp, rest = SGDLearnerParam.init_allow_unknown(kwargs)
+    (nb,), val_b = _count_batches(lp, data_in, data_val, 1)
+    start = dict(rest).get("init_capacity", 1 << 14)
+    log(f"config {DICT_CONF}: V_dim {dict(rest)['V_dim']}, no "
+        f"hash_capacity (the dictionary store from {start} rows), "
+        f"batch_size {lp.batch_size}, device_cache_mb {lp.device_cache_mb}, "
+        f"shuffle {lp.shuffle}, mesh keys ignored; {n_train} train + "
+        f"{N_VAL} validation rows written in {time.monotonic() - t0:.1f} s: "
+        f"{nb} train batches per epoch, {val_b} validation block(s)")
+
+    _reset_counts()
+    t0 = time.monotonic()
+    ln, progress, walls, replays = _train(
+        kwargs + [("has_aux", "1"), ("model_out", model)],
+        watch_replays=True)
+    train_s = time.monotonic() - t0
+    launches = _counts()
+    E = N_DICT_EPOCHS
+    want = {"gather_rows_cuda": E * nb + nb + E * val_b,
+            "fm_update_rows_cuda": E * nb, "scatter_rows_cuda": nb}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, the batches need "
+                             f"{want}")
+    growths = _dict_growths(ln, int(start))
+    if growths < 4:
+        raise AssertionError(f"the table grew {growths} times, want >= 4")
+    info = ln.device_cache_info()
+    if not all(c["complete"] for c in info.values()):
+        raise AssertionError(f"the replay cache did not cover the run: "
+                             f"{info}")
+    if len(replays) != 2 * (E - 1) or any(n for _, _, n, _ in replays):
+        raise AssertionError(f"replayed epochs (epoch, job, host-to-device "
+                             f"copies, device events): {replays}")
+    if DEV == "cuda" and any(ev < (nb if job == 3 else 1)
+                             for _, job, _, ev in replays):
+        raise AssertionError(f"the profiler saw too few device events in "
+                             f"a replayed epoch: {replays}")
+    loss = [t.loss / t.nrows for t, _ in progress]
+    if not (len(loss) == E and np.isfinite(loss).all()
+            and all(b < a for a, b in zip(loss, loss[1:]))):
+        raise AssertionError(f"objective per row did not fall: {loss}")
+    first = ln.store.state.VVg.clone()
+    keys = ln.store._keys.copy()
+    cap = ln.store.state.capacity
+    log(f"  run 1: {train_s:.1f} s for {E} epochs, loss/row "
+        f"{' -> '.join(f'{l:.6f}' for l in loss)}, val AUC "
+        f"{[round(v.auc / max(v.nrows, 1), 6) for _, v in progress]}; "
+        f"{len(keys)} keys, table {start} -> {cap} rows ({growths} "
+        f"doublings, {tuple(first.shape)} {first.dtype}, "
+        f"{first.numel() * first.element_size() / 2 ** 20:.0f} MiB); "
+        f"launches {launches} (as the batches need); replay cache "
+        f"{info} of {lp.device_cache_mb} MB; replayed epochs (epoch, "
+        f"job, host-to-device copies, device events): {replays}")
+    del ln
+    torch.cuda.empty_cache()
+
+    ln, _, walls, _ = _train(kwargs)
+    if not (torch.equal(ln.store.state.VVg.view(torch.int32),
+                        first.view(torch.int32))
+            and np.array_equal(ln.store._keys, keys)):
+        raise AssertionError("a second run left another table or key map")
+    del ln
+    torch.cuda.empty_cache()
+    log(f"  run 2: table and key map bit-identical to run 1; epoch wall s "
+        f"(epoch 0 streams and stages, later epochs replay): "
+        f"{_epoch_walls(walls)}")
+
+    _reset_counts()
+    restore = _swap_plain()
+    try:
+        ln, _, _, _ = _train(kwargs)
+    finally:
+        restore()
+    if any(_counts().values()):
+        raise AssertionError("the run on the plain versions launched a "
+                             "kernel")
+    if not (torch.equal(ln.store.state.VVg.view(torch.int32),
+                        first.view(torch.int32))
+            and np.array_equal(ln.store._keys, keys)):
+        raise AssertionError("the run on the plain versions left another "
+                             "table or key map than the kernels")
+    del ln, first
+    torch.cuda.empty_cache()
+    log("  run 3 (gather/scatter swapped for their plain versions): table "
+        "and key map bit-identical to run 1")
+
+    with np.load(model + "_part-0") as z:
+        arrays = {f: z[f] for f in ("w", "V", "v_live")}
+        saved_keys = z["keys"]
+    pred_out = os.path.join(work, "dict_pred")
+    run_pred(conf + [("model_in", model), ("data_in", data_val),
+                     ("pred_out", pred_out)], device=DEV)
+    with open(pred_out + "_part-0", "rb") as f:
+        probs = np.array([float(l.split(b"\t")[1])
+                          for l in f.read().splitlines()])
+    ref = reference_margins(val_text, arrays, keys=saved_keys)
+    p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref))).max())
+    if len(probs) != N_VAL or not p_err <= 1e-4:
+        raise AssertionError(f"dictionary model's pred vs float64 FM: "
+                             f"{len(probs)} rows, prob err {p_err}")
+    log(f"  saved model: {len(saved_keys)} keys; task=pred over the "
+        f"validation rows within {p_err:.3g} of the float64 FM")
+    log("phase 9 ok: task=train at the defaults on the dictionary store at "
+        "full width: grows, replays with no host-to-device copy, "
+        "deterministic, kernels = plain versions")
+    return {"launches": launches, "walls": walls}
+
+
+def phase_layout_cross(work: str) -> dict:
+    """Phase 10: a V_dim 16 dictionary run whose growth crosses
+    ``pad_v_rows_max_mb=1`` at 2,048 rows (the in-pad row becomes the
+    appended one), on the kernels and on the plain versions."""
+    import torch
+    from difacto_tpu_torch.config import parse_config_file
+    from difacto_tpu_torch.updaters.sgd_updater import row_layout
+    data_in = os.path.join(work, "cross_train.txt")
+    with open(data_in, "wb") as f:
+        f.write(synthetic_criteo(4000, SEED + 6))
+    kwargs = parse_config_file(DICT_CONF) + [
+        ("data_in", data_in), ("max_num_epochs", "2"),
+        ("pad_v_rows_max_mb", "1"), ("init_capacity", "1024")]
+    _reset_counts()
+    ln, _, _, _ = _train(kwargs)
+    launches = _counts()
+    p, cap = ln.store.param, ln.store.state.capacity
+    before, after = row_layout(p, 2048), row_layout(p, cap)
+    if not (cap > 2048 and before[1] == 64 and after[1] == p.V_dim):
+        raise AssertionError(f"the layout did not cross: capacity {cap}, "
+                             f"(k, h, Wx, off) {before} -> {after}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    table, keys = ln.store.state.VVg.clone(), ln.store._keys.copy()
+    del ln
+    restore = _swap_plain()
+    try:
+        ln, _, _, _ = _train(kwargs)
+    finally:
+        restore()
+    if not (torch.equal(ln.store.state.VVg.view(torch.int32),
+                        table.view(torch.int32))
+            and np.array_equal(ln.store._keys, keys)):
+        raise AssertionError("the layout-crossing run on the plain versions "
+                             "left another table")
+    log(f"  1024 -> {cap} rows, (k, h, Wx, off) {before} -> {after}; "
+        f"launches {launches}; the plain-version run: the same table and "
+        "key map bit for bit")
+    log("phase 10 ok: growth across pad_v_rows_max_mb, kernels = plain "
+        "versions")
+    return {"launches": launches}
+
+
+def phase_local_conf(work: str) -> None:
+    """Phase 11: examples/local.conf (logistic regression, the flat
+    V_dim=0 table, the dictionary store) through the CLI's learner on the
+    card, scored through task=pred against a float64 reference."""
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.config import parse_config_file
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = parse_config_file(os.path.join(root, "examples", "local.conf"))
+    conf = [(k, os.path.join(root, v) if k == "data_in" else v)
+            for k, v in conf]
+    model = os.path.join(work, "local")
+    _reset_counts()
+    ln, progress, walls, _ = _train(conf + [
+        ("max_num_epochs", "5"), ("stop_rel_objv", "0"),
+        ("model_out", model)])
+    loss = [t.loss / t.nrows for t, _ in progress]
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        raise AssertionError(f"local.conf objective per row did not fall: "
+                             f"{loss}")
+    if any(_counts().values()) or ln.store.param.V_dim != 0:
+        raise AssertionError("the flat table launched a fused-row kernel")
+    data = dict(conf)["data_in"]
+    pred_out = os.path.join(work, "local_pred")
+    run_pred([("model_in", model), ("data_in", data),
+              ("pred_out", pred_out)], device=DEV)
+    with open(pred_out + "_part-0", "rb") as f:
+        probs = np.array([float(l.split(b"\t")[1])
+                          for l in f.read().splitlines()])
+    with np.load(model + "_part-0") as z:
+        arrays, keys = {"w": z["w"]}, z["keys"]
+    with open(data, "rb") as f:
+        ref = reference_margins(f.read(), arrays, keys=keys,
+                                data_format="libsvm")
+    p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref))).max())
+    if len(probs) != 100 or not p_err <= 1e-4:
+        raise AssertionError(f"local.conf pred vs float64 LR: {len(probs)} "
+                             f"rows, prob err {p_err}")
+    log(f"  local.conf: loss/row {' -> '.join(f'{l:.6f}' for l in loss)}, "
+        f"{len(keys)} keys saved, epoch wall s {_epoch_walls(walls)}; "
+        f"task=pred within {p_err:.3g} of the float64 LR")
+    log("phase 11 ok: the flat table trains and scores on the card")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -977,6 +1346,8 @@ def main(argv=None) -> int:
     from difacto_tpu_torch.config import parse_config_file
     from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
 
+    global T_START
+    T_START = time.monotonic()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         _, parent_fns = phase_card(args.parent, work)
@@ -1000,15 +1371,23 @@ def main(argv=None) -> int:
         serve_launches = phase_serve(store, lines, text, batch)
         g = phase_measure(store, windows)
         del store, arrays
-        import gc
         gc.collect()
         torch.cuda.empty_cache()
         scatter_err = phase_scatter_vs_plain(uparam)
         tr = phase_train(work, conf, uparam)
         m = phase_measure_train(tr["learner"], tr["data_in"], parent_fns)
+        del tr["learner"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        td = phase_train_dict(work)
+        tx = phase_layout_cross(work)
+        phase_local_conf(work)
         if "jax" in sys.modules or "difacto_tpu" in sys.modules:
             raise AssertionError("the smoke imported JAX or difacto_tpu")
-        tl = tr["launches"]
+        # launches on the main paths: phases 3, 4, 7, 9 and 10, each read
+        # just after its own run
+        tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
+              for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches
@@ -1024,6 +1403,7 @@ def main(argv=None) -> int:
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]})
+        log(f"smoke wall time {time.monotonic() - T_START:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

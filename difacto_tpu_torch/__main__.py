@@ -8,8 +8,11 @@
 - ``task=serve`` — the online scoring server over ``model_in``
   (serve/__init__.py run_serve).
 - ``task=train`` (the default) — the sgd learner (learners/sgd.py): FM
-  on the hashed store, saving ``<model_out>_part-0`` (with the optimizer
-  state when ``has_aux=1``).
+  or logistic regression (the flat ``V_dim=0`` table), on the hashed or
+  the dictionary store, with the replay cache, saving
+  ``<model_out>_part-0`` (with the optimizer state when ``has_aux=1``).
+  ``examples/local.conf``, ``examples/fm.conf`` and the Criteo configs
+  run as they are (mesh keys are ignored: one card).
 
 ``device=cuda`` (the default) runs on the card and raises when there is
 none; ``device=cpu`` runs on the CPU. The other tasks (dump, convert,

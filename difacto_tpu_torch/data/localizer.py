@@ -8,7 +8,7 @@ uint32 positions into them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -16,9 +16,13 @@ from ..base import reverse_bytes
 from .rowblock import RowBlock
 
 
-def compact(blk: RowBlock) -> Tuple[RowBlock, np.ndarray]:
-    """Returns (compacted block, uniq reversed ids sorted ascending)."""
-    uniq, inverse = np.unique(reverse_bytes(blk.index), return_inverse=True)
+def compact(blk: RowBlock, need_counts: bool = False
+            ) -> Tuple[RowBlock, np.ndarray, Optional[np.ndarray]]:
+    """Returns (compacted block, uniq reversed ids sorted ascending, each
+    id's occurrence count as f32 when ``need_counts``, else None)."""
+    uniq, inverse, counts = np.unique(reverse_bytes(blk.index),
+                                      return_inverse=True,
+                                      return_counts=True)
     out = RowBlock(
         offset=blk.offset.copy(),
         label=blk.label,
@@ -26,4 +30,4 @@ def compact(blk: RowBlock) -> Tuple[RowBlock, np.ndarray]:
         value=blk.value,
         weight=blk.weight,
     )
-    return out, uniq
+    return out, uniq, (counts.astype(np.float32) if need_counts else None)

@@ -10,6 +10,9 @@ difacto_tpu/data/pack_stream.py, the thread-transport half).
   the slot vector is padded with ascending out-of-bounds lanes, and
   :func:`pack_payload` packs the panel layout for near-uniform rows, COO
   otherwise — the JAX package's buffers byte for byte.
+- :func:`pack_mapped`: the same payloads for a block the dictionary store
+  has already mapped (the JAX learner's ``_pack_mapped``), padded at the
+  table's capacity after this block's inserts.
 """
 
 from __future__ import annotations
@@ -78,6 +81,23 @@ def pack_payload(shapes: ShapeSchedule, cblk, n_lanes: int,
     i32, f32, binary = pack_batch(cblk, n_lanes, padded, b_cap, nnz_cap,
                                   u_cap, counts=counts)
     return Payload("coo", i32, f32, binary, b_cap, nnz_cap, u_cap, row_cap)
+
+
+def pack_mapped(shapes: ShapeSchedule, blk, cblk, slots: np.ndarray,
+                counts: Optional[np.ndarray], capacity: int, dim_min: int,
+                job: str) -> Payload:
+    """Pack a block whose ids the dictionary store mapped: ``slots`` are
+    sorted unique (``SlotStore.map_keys_dedup``) and ``cblk.index``
+    addresses them; ``counts`` (epoch 0) fill the counts section. The
+    batch cap is the sticky bucket of the block sizes, as in the JAX
+    learner."""
+    from ..store.local import pad_slots_oob
+    n_uniq = len(slots)
+    u_cap = shapes.cap(job + ".u", n_uniq)
+    b_cap = shapes.cap(job + ".b", blk.size, dim_min)
+    padded = pad_slots_oob(slots.astype(np.int32), u_cap, capacity)
+    return pack_payload(shapes, cblk, n_uniq, padded, b_cap, dim_min, job,
+                        counts=counts)
 
 
 def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,

@@ -1,21 +1,34 @@
-"""SGD learner: the minibatch FM trainer (counterpart of
-difacto_tpu/learners/sgd.py; the reference's SGDLearner,
+"""SGD learner: the minibatch FM / logistic-regression trainer (counterpart
+of difacto_tpu/learners/sgd.py; the reference's SGDLearner,
 src/sgd/sgd_learner.{h,cc}).
 
-Per batch: host read + hash + dedup + pack (data/pack_stream.py), one copy
-of the two packed buffers to the device, on epoch 0 the count push, then
-the train step (step.py: one gather kernel, FM forward and backward, one
-scatter kernel with the FTRL/AdaGrad epilogue, in place on the table).
-Metric scalars stay on the device and are fetched in one transfer at part
-boundaries when a progress row is due, every ``_MERGE_CAP`` batches, and
-at epoch end together with the store's (penalty, nnz).
+Per batch: host read + localize + slot map + pack (data/pack_stream.py;
+the hashed store hashes, the dictionary store maps and inserts on this
+thread, growing the table), one copy of the two packed buffers to the
+device, on epoch 0 the count push, then the train step (step.py: one
+gather kernel, FM forward and backward, one scatter kernel with the
+FTRL/AdaGrad epilogue, in place on the table; the flat V_dim=0 table
+pushes with plain scatters). Metric scalars stay on the device and are
+fetched in one transfer at part boundaries when a progress row is due,
+every ``_MERGE_CAP`` batches, and at epoch end together with the store's
+(penalty, nnz).
+
+The replay cache (``device_cache_mb``, on by default as in JAX) keeps
+the first pass's device buffers: a panel training batch is staged with
+its chunked-run layout built on the device, and epoch 0 already takes
+the chunked backward; later epochs replay the staged batches in a
+per-part ``RandomState(epoch)`` permutation with no host-to-device copy
+(``_replay_cached``). A dictionary that grows after staging leaves the
+staged out-of-bounds pads stale; the replay entry rewrites them
+(``_repad_cache``).
 
 The scheduler is the JAX package's (RunScheduler, sgd_learner.cc:52-122):
 epoch loop with training and validation jobs, relative-objective and
 validation-AUC early stopping, model load and save, epoch-end callbacks,
 progress rows. Parts are read in a plain serial loop: this port has no
 producer pool, so the knobs that only set its speed are accepted and
-logged, and the knobs that change what is computed raise when set.
+logged, and the knobs that change what is computed and are not ported
+raise when set.
 """
 
 from __future__ import annotations
@@ -24,16 +37,20 @@ import dataclasses
 import logging
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import KWArgs, Param
 from ..data.batch_reader import BatchReader
-from ..data.pack_stream import Payload, ShapeSchedule, prepare_hashed
+from ..data.localizer import compact
+from ..data.pack_stream import (Payload, ShapeSchedule, pack_mapped,
+                                prepare_hashed)
 from ..data.reader import Reader
 from ..losses import create as create_loss
-from ..ops.batch import bucket, unpack_batch, unpack_panel
+from ..ops.batch import (bucket, panel_chunk_tokens_flat, unpack_batch,
+                         unpack_panel)
 from ..step import make_step_fns
 from ..store.local import SlotStore
 from ..updaters.sgd_updater import SGDUpdaterParam
@@ -97,10 +114,10 @@ class SGDLearnerParam(Param):
     replica_k: int = 1
 
 
-# knobs that only set the speed of the JAX package's producer pool and
-# replay cache: accepted, and the port streams every epoch serially
-_SPEED_ONLY = ("device_cache_mb", "num_producers", "producer_mode",
-               "producer_depth", "ring_slot_mb", "straggler_timeout")
+# knobs that only set the speed of the JAX package's producer pool:
+# accepted, and the port reads parts serially on the dispatch thread
+_SPEED_ONLY = ("num_producers", "producer_mode", "producer_depth",
+               "ring_slot_mb", "straggler_timeout")
 # knobs that change what is computed, with the ROADMAP.md item that ports
 # them; a non-default value raises
 _NOT_PORTED = {
@@ -115,14 +132,147 @@ _NOT_PORTED = {
 }
 
 
+class _Staged(NamedTuple):
+    """One batch on the device: the packed buffers and their statics, and
+    for a staged panel training batch its chunked-run layout (ci, cl,
+    cv)."""
+    layout: str
+    i32: torch.Tensor
+    f32: torch.Tensor
+    b_cap: int
+    d2: int
+    u_cap: int
+    row_cap: int
+    binary: bool
+    nrows: int
+    chunks: Optional[tuple] = None
+
+    @property
+    def slots_offset(self) -> int:
+        """Where the slot vector starts in ``i32``."""
+        return self.b_cap * self.d2 if self.layout == "panel" \
+            else 2 * self.d2
+
+
+class _DeviceBatchCache:
+    """Device-resident replay cache of staged batches (the JAX package's
+    ``_DeviceBatchCache``, one card).
+
+    The first pass over a part stages each batch once and keeps its
+    device buffers; later epochs replay them with no host-to-device
+    copy, shuffled as a per-epoch permutation of each part's batches
+    (``RandomState(epoch)``; the row -> batch assignment is frozen at
+    staging). All caches of one learner draw from ONE ``device_cache_mb``
+    budget (``shared``). When the budget fills mid-pass the staged part
+    prefix is kept (``_freeze``): later epochs replay the prefix and
+    stream the rest. A dictionary store may grow after a batch is staged,
+    which pulls its out-of-bounds pad slots back in bounds; slot
+    assignment is insertion-stable, so only the pads go stale
+    (``repadable``: the learner rewrites them, ``_repad_cache``), while a
+    store that cannot repad invalidates the cache back to streaming."""
+
+    def __init__(self, budget_mb: int, shared: Optional[dict] = None,
+                 repadable: bool = False) -> None:
+        self.budget = budget_mb << 20
+        self.shared = shared if shared is not None else {"used": 0}
+        self.used = 0
+        self.entries: dict = {}   # part -> staged batches
+        self.part_bytes: dict = {}
+        self.ready = False        # a staging pass has completed
+        self.alive = True
+        self.frozen = False       # the budget filled mid-pass
+        self.repadable = repadable
+        self.stale_pads = False   # some batches padded at an older capacity
+        self.passes = 0
+        self.capacity: Optional[int] = None  # store capacity at staging
+
+    @property
+    def staging(self) -> bool:
+        """True while the current pass stages batches (the first one)."""
+        return self.alive and not self.frozen and self.passes == 0
+
+    @property
+    def partial(self) -> bool:
+        """True when the cache holds a proper prefix of the parts: replay
+        it and stream the rest."""
+        return self.frozen and bool(self.entries)
+
+    def parts(self) -> set:
+        return set(self.entries)
+
+    def invalidate(self, reason: str) -> None:
+        self.alive = False
+        self.ready = False
+        self.entries.clear()
+        self.part_bytes.clear()
+        self.shared["used"] -= self.used
+        self.used = 0
+        log.info("device batch cache invalidated (%s) — streaming", reason)
+
+    def _freeze(self, drop_part: int, reason: str) -> None:
+        """Keep the fully staged part prefix and drop the part being
+        staged (its remaining batches would be lost on replay); parts
+        stage in order, so what is kept is a prefix."""
+        self.frozen = True
+        dropped = self.part_bytes.pop(drop_part, 0)
+        self.entries.pop(drop_part, None)
+        self.used -= dropped
+        self.shared["used"] -= dropped
+        log.info("device batch cache frozen (%s): keeping %d staged "
+                 "part(s), streaming the rest", reason, len(self.entries))
+
+    def add(self, part: int, payload, nbytes: int,
+            capacity: Optional[int] = None) -> None:
+        if not self.staging:
+            return
+        if capacity is not None:
+            if self.capacity is None:
+                self.capacity = capacity
+            elif self.capacity != capacity:
+                if self.repadable:
+                    self.capacity = capacity
+                    self.stale_pads = True
+                else:
+                    self.invalidate("store capacity grew during staging")
+                    return
+        if self.shared["used"] + nbytes > self.budget:
+            self._freeze(part, f"budget {self.budget >> 20} MB filled")
+            return
+        self.used += nbytes
+        self.shared["used"] += nbytes
+        self.entries.setdefault(part, []).append(payload)
+        self.part_bytes[part] = self.part_bytes.get(part, 0) + nbytes
+
+    def finish_pass(self) -> None:
+        if self.alive and self.passes == 0:
+            self.ready = bool(self.entries)
+            if self.frozen and not self.entries:
+                # nothing fit: stream for good
+                self.alive = False
+        self.passes += 1
+
+    def iter_parts(self, shuffle: bool, seed: int):
+        rng = np.random.RandomState(seed)
+        for part in sorted(self.entries):
+            items = self.entries[part]
+            order = rng.permutation(len(items)) if shuffle \
+                else range(len(items))
+            for i in order:
+                yield part, items[i]
+
+
 class SGDLearner(Learner):
     # dispatched batches whose metrics are held on the device before a
     # merge fetches them
     _MERGE_CAP = 256
 
-    def __init__(self, device="cuda") -> None:
+    def __init__(self, device="cuda", table_init=None) -> None:
+        """``table_init`` is the store's init provider
+        (store/local.SlotStore): ``table_init(capacity) -> SGDState``;
+        None draws the port's own."""
         super().__init__()
         self.device = device
+        self._table_init = table_init
         self.param: Optional[SGDLearnerParam] = None
         self.store: Optional[SlotStore] = None
 
@@ -145,18 +295,21 @@ class SGDLearner(Learner):
             raise NotImplementedError(
                 "the learner's prediction job is task=pred on the CLI "
                 "(difacto_tpu_torch.__main__.run_pred)")
+        # the loss owns the effective V_dim (loss=logit forces 0): the
+        # store never allocates embedding state it would not train
         self.loss = create_loss(p.loss, uparam.V_dim)
-        if self.loss.V_dim == 0:
-            raise NotImplementedError(
-                "loss=logit / V_dim=0 (the flat table's push) is not ported "
-                "yet (ROADMAP.md, Queue 1: loss=logit)")
-        log.info("%s: not ported, streams every epoch", ", ".join(
+        if uparam.V_dim != self.loss.V_dim:
+            uparam = dataclasses.replace(uparam, V_dim=self.loss.V_dim)
+        log.info("%s: not ported, parts are read serially", ", ".join(
             f"{k}={getattr(p, k)}" for k in _SPEED_ONLY))
         if p.mesh_fs * p.mesh_dp > 1:
             log.info("mesh_dp=%d mesh_fs=%d ignored: the port trains on one "
                      "card", p.mesh_dp, p.mesh_fs)
-        self.store = SlotStore(uparam, device=self.device)
+        self.store = SlotStore(uparam, device=self.device,
+                               init=self._table_init)
         self._shapes = ShapeSchedule()
+        self._caches: dict = {}
+        self._cache_pool = {"used": 0}   # one budget across job types
         _, self._train_step, self._eval_step = make_step_fns(
             self.store.fns, self.loss, train_auc=p.train_auc)
         return remain
@@ -251,55 +404,152 @@ class SGDLearner(Learner):
                 and time.monotonic() - self._last_row_t
                 >= self.param.report_interval)
 
+    def _get_cache(self, job_type: int) -> Optional[_DeviceBatchCache]:
+        """The replay cache of this job type, or None: ``device_cache_mb``
+        0 turns it off, and training with ``neg_sampling != 1`` resamples
+        every epoch, so its batches cannot be replayed."""
+        p = self.param
+        if p.device_cache_mb <= 0 or (job_type == K_TRAINING
+                                      and p.neg_sampling != 1.0):
+            return None
+        if job_type not in self._caches:
+            self._caches[job_type] = _DeviceBatchCache(
+                p.device_cache_mb, shared=self._cache_pool,
+                repadable=not self.store.hashed)
+        return self._caches[job_type]
+
+    def device_cache_info(self) -> dict:
+        """Replay-cache coverage per job type after a run: ``complete``
+        means later epochs replay entirely from the card, ``frozen`` that
+        the budget filled mid-staging (a staged prefix replays, the rest
+        streams)."""
+        return {jt: {"complete": bool(c.ready and c.alive and not c.frozen),
+                     "frozen": bool(c.frozen and c.entries),
+                     "staged_parts": len(c.entries),
+                     "staged_mb": round(c.used / (1 << 20), 1)}
+                for jt, c in self._caches.items()}
+
     def _iterate_parts(self, job_type: int, epoch: int, n_jobs: int,
                        prog: Progress) -> None:
         """IterateData (sgd_learner.cc:201-317) over this epoch's parts in
-        order, one batch at a time."""
+        order: a ready replay cache replays its staged parts, and the
+        parts it does not hold are read, packed and dispatched one batch
+        at a time (and staged on the cache's first pass)."""
         p = self.param
+        cache = self._get_cache(job_type)
+        stream_parts = list(range(n_jobs))
+        if cache is not None and cache.ready:
+            stale = (cache.capacity is not None
+                     and (cache.stale_pads
+                          or cache.capacity != self.store.state.capacity))
+            if stale and cache.repadable:
+                self._repad_cache(cache)
+                stale = False
+            if stale:
+                cache.invalidate("store capacity changed since staging")
+            else:
+                self._replay_cached(job_type, epoch, cache, prog)
+                if not cache.partial:
+                    return
+                cached = cache.parts()
+                stream_parts = [q for q in stream_parts if q not in cached]
         is_train = job_type == K_TRAINING
-        push_cnt = is_train and epoch == 0
+        # the epoch-0 count push exists for the embeddings' activation;
+        # the flat table has none (the JAX learner's do_embedding)
+        push_cnt = is_train and epoch == 0 and self.loss.V_dim > 0
         job = "train" if is_train else "eval"
         b_cap = bucket(p.batch_size, 8) if is_train else None
-        C = self.store.param.hash_capacity
         pending: list = []
+        cur_part = stream_parts[0] if stream_parts else 0
         before = Progress(nrows=prog.nrows, loss=prog.loss, auc=prog.auc)
-        for part in range(n_jobs):
-            if part and self._row_due(job_type):
-                self._merge_pending(pending, prog)
-                pending = []
-                self._report_part(job_type, before, prog)
-                before = Progress(nrows=prog.nrows, loss=prog.loss,
-                                  auc=prog.auc)
+        for part in stream_parts:
+            if part != cur_part:
+                cur_part = part
+                if self._row_due(job_type):
+                    self._merge_pending(pending, prog)
+                    pending = []
+                    self._report_part(job_type, before, prog)
+                    before = Progress(nrows=prog.nrows, loss=prog.loss,
+                                      auc=prog.auc)
             for blk in self._make_reader(job_type, epoch, part, n_jobs):
-                payload = prepare_hashed(self._shapes, C, blk, push_cnt,
-                                         push_cnt, 8, job, b_cap)
+                payload = self._prepare(blk, push_cnt, job, b_cap)
                 self._dispatch_prepared(job_type, blk, payload, push_cnt,
-                                        pending)
+                                        pending, cache, part)
                 if len(pending) >= self._MERGE_CAP:
                     self._merge_pending(pending, prog)
                     pending = []
-        extra = self.store.evaluate_dev() if is_train else ()
-        vals = self._merge_pending(pending, prog, extra=extra)
-        if is_train:
-            self._eval_scalars = (vals[0], vals[1])
+        self._final_merge(job_type, pending, prog)
         self._report_part(job_type, before, prog)
+        if cache is not None:
+            cache.finish_pass()
+
+    def _prepare(self, blk, push_cnt: bool, job: str,
+                 b_cap: Optional[int]) -> Payload:
+        """Pack one raw-id block: the hashed store hashes; the dictionary
+        store maps (inserting, and so growing the table, before this
+        batch is padded) and packs the same layouts."""
+        if self.store.hashed:
+            return prepare_hashed(self._shapes,
+                                  self.store.param.hash_capacity, blk,
+                                  push_cnt, push_cnt, 8, job, b_cap)
+        cblk, uniq, cnts = compact(blk, need_counts=push_cnt)
+        slots, remap, cnts = self.store.map_keys_dedup(uniq, cnts)
+        if remap is not None:
+            cblk = dataclasses.replace(
+                cblk, index=remap[cblk.index].astype(np.uint32))
+        return pack_mapped(self._shapes, blk, cblk, slots, cnts,
+                           self.store.state.capacity, 8, job)
 
     def _dispatch_prepared(self, job_type: int, blk, payload: Payload,
-                           push_cnt: bool, pending: list) -> None:
-        """Copy one packed batch to the device and run its step; the
-        epoch-0 count push goes first, as in the JAX step program
-        (sgd.py:651-654)."""
+                           push_cnt: bool, pending: list,
+                           cache: Optional[_DeviceBatchCache],
+                           part: int) -> None:
+        """Copy one packed batch to the device and run its step; while the
+        cache stages, a panel training batch first gets its chunked-run
+        layout (built on the device) and takes the chunked backward, and
+        the batch is kept, its counts section zeroed so that a replay
+        never counts again."""
         dev = self.store.device
+        is_train = job_type == K_TRAINING
         i32 = torch.from_numpy(payload.i32).to(dev)
         f32 = torch.from_numpy(payload.f32).to(dev)
-        if payload.layout == "panel":
+        staging = cache is not None and cache.staging
+        chunks = None
+        if staging and is_train and payload.layout == "panel":
+            cells = payload.b_cap * payload.d2
+            chunks = panel_chunk_tokens_flat(
+                i32[:cells], None if payload.binary else f32[:cells],
+                payload.u_cap, payload.b_cap, payload.d2)
+        staged = _Staged(payload.layout, i32, f32, payload.b_cap,
+                         payload.d2, payload.u_cap, payload.row_cap,
+                         payload.binary, blk.size, chunks)
+        self._dispatch_staged(job_type, staged, push_cnt, pending)
+        if staging:
+            if push_cnt:
+                f32[f32.shape[0] - payload.u_cap:] = 0.0
+            nbytes = i32.nbytes + f32.nbytes + sum(
+                t.nbytes for t in chunks or () if t is not None)
+            cache.add(part, staged, nbytes,
+                      capacity=self.store.state.capacity)
+
+    def _dispatch_staged(self, job_type: int, st: _Staged, push_cnt: bool,
+                         pending: list) -> None:
+        """Run the step of one batch already on the device; the epoch-0
+        count push goes first, as in the JAX step program
+        (sgd.py:651-654). The step reads the staged buffers and writes
+        only the table."""
+        if st.layout == "panel":
             batch, slots, counts = unpack_panel(
-                i32, f32, payload.b_cap, payload.d2, payload.u_cap,
-                has_counts=push_cnt, binary=payload.binary)
+                st.i32, st.f32, st.b_cap, st.d2, st.u_cap,
+                has_counts=push_cnt, binary=st.binary)
+            if st.chunks is not None:
+                ci, cl, cv = st.chunks
+                batch = batch._replace(chunk_idx=ci, chunk_lane=cl,
+                                       chunk_vals=cv)
         else:
             batch, slots, counts = unpack_batch(
-                i32, f32, payload.b_cap, payload.d2, payload.u_cap,
-                payload.row_cap, binary=payload.binary, has_counts=push_cnt)
+                st.i32, st.f32, st.b_cap, st.d2, st.u_cap, st.row_cap,
+                binary=st.binary, has_counts=push_cnt)
         if job_type == K_TRAINING:
             if counts is not None:
                 self.store.state = self.store.fns.apply_count(
@@ -308,7 +558,68 @@ class SGDLearner(Learner):
                 self.store.state, batch, slots)
         else:
             _, objv, auc = self._eval_step(self.store.state, batch, slots)
-        pending.append((blk.size, objv, auc))
+        pending.append((st.nrows, objv, auc))
+
+    def _replay_cached(self, job_type: int, epoch: int,
+                       cache: _DeviceBatchCache, prog: Progress) -> None:
+        """A replayed epoch: the staged batches, each part's in a
+        ``RandomState(epoch)`` permutation when training shuffles, with
+        no host-to-device copy and no count push."""
+        p = self.param
+        is_train = job_type == K_TRAINING
+        pending: list = []
+        cur_part = 0
+        before = Progress(nrows=prog.nrows, loss=prog.loss, auc=prog.auc)
+        for part, staged in cache.iter_parts(is_train and p.shuffle > 0,
+                                             seed=epoch):
+            if part != cur_part:
+                cur_part = part
+                if self._row_due(job_type):
+                    self._merge_pending(pending, prog)
+                    pending = []
+                    self._report_part(job_type, before, prog)
+                    before = Progress(nrows=prog.nrows, loss=prog.loss,
+                                      auc=prog.auc)
+            self._dispatch_staged(job_type, staged, False, pending)
+            if len(pending) >= self._MERGE_CAP:
+                self._merge_pending(pending, prog)
+                pending = []
+        if cache.partial:
+            # streamed parts follow: the epoch's (penalty, nnz) belong to
+            # its end
+            self._merge_pending(pending, prog)
+        else:
+            self._final_merge(job_type, pending, prog)
+        self._report_part(job_type, before, prog)
+
+    def _repad_cache(self, cache: _DeviceBatchCache) -> None:
+        """Rewrite each staged batch's out-of-bounds slot pads for the live
+        capacity. Dictionary slots never move when the table grows, but
+        the pads ``capacity-at-pack-time + i`` fall in bounds after a
+        growth and would alias real rows (and repeat slots the kernels
+        take as unique). ``num_uniq`` rides the batch's meta lanes, so the
+        rewrite stays on the device; the sizes and the budget are
+        unchanged."""
+        cap = self.store.state.capacity
+        for items in cache.entries.values():
+            for st in items:
+                off, u = st.slots_offset, st.u_cap
+                nu = st.i32[off + u + 1]
+                j = torch.arange(u, dtype=torch.int32, device=st.i32.device)
+                seg = st.i32[off:off + u]
+                seg.copy_(torch.where(j < nu, seg, cap + j - nu))
+        cache.capacity = cap
+        cache.stale_pads = False
+        log.info("device cache repadded to capacity %d", cap)
+
+    def _final_merge(self, job_type: int, pending: list,
+                     prog: Progress) -> None:
+        """The epoch-final metric fetch; a training epoch fetches the
+        store's (penalty, nnz) in the same transfer."""
+        extra = self.store.evaluate_dev() if job_type == K_TRAINING else ()
+        vals = self._merge_pending(pending, prog, extra=extra)
+        if extra:
+            self._eval_scalars = (vals[0], vals[1])
 
     def _merge_pending(self, pending: list, prog: Progress,
                        extra=()) -> list:

@@ -16,9 +16,13 @@ from .fm import (FMParams, fm_grad, fm_grad_panel, fm_predict,
 @dataclass(frozen=True)
 class LossSpec:
     """Loss dispatch on the batch layout: PanelBatch takes the panel
-    forward/backward, DeviceBatch the COO ones."""
+    forward/backward, DeviceBatch the COO ones. ``chunks_sorted`` says
+    that a chunked panel's ``chunk_lane`` ascends (true of every layout
+    on one card; a data-parallel batch concatenated from per-rank blocks
+    would not be)."""
     name: str
     V_dim: int
+    chunks_sorted: bool = True
 
     def predict(self, params: FMParams, batch):
         if isinstance(batch, PanelBatch):
@@ -34,7 +38,8 @@ class LossSpec:
 
     def calc_grad(self, params: FMParams, batch, pred, xv=None):
         if isinstance(batch, PanelBatch):
-            return fm_grad_panel(params, batch, pred, xv)
+            return fm_grad_panel(params, batch, pred, xv,
+                                 self.chunks_sorted)
         return fm_grad(params, batch, pred, xv)
 
     def evaluate(self, pred, batch):

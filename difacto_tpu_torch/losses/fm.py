@@ -22,7 +22,10 @@ fixed order, so a step gives the same bits on every run (no atomics):
 - the panel forward sums each row's F columns in column order, JAX's
   column loop (``fm.py:144-158``);
 - both backwards sum each slot lane's contributions in ascending entry
-  order (ops/segment.lane_sum), XLA's CPU scatter-add order.
+  order (ops/segment.lane_sum), XLA's CPU scatter-add order;
+- the chunked-run panel backward (batches the replay cache staged with
+  ops/batch.panel_chunk_tokens) sums each chunk's L tokens, then each
+  lane's chunk partials in chunk order (ops/segment.chunk_sum).
 
 The row reductions over the k embedding columns take their own order, and
 ``exp`` is torch's, so the port agrees with the JAX package within a
@@ -36,7 +39,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.batch import DeviceBatch, PanelBatch
-from ..ops.segment import lane_sum, row_sum, segment_sum, spmv, spmv_t
+from ..ops.segment import (chunk_sum, lane_sum, row_sum, segment_sum, spmv,
+                           spmv_t)
 
 PRED_CLAMP = 20.0
 
@@ -156,16 +160,72 @@ def fm_predict_panel(params: FMParams, pb: PanelBatch) -> torch.Tensor:
     return fm_predict_panel_xv(params, pb)[0]
 
 
+def _chunk_tokens(rowq: torch.Tensor, chunk_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """rowq[chunk_idx] ([B, m] -> [C, L, m]) with the pad slots (row
+    ``B``) reading 0, as JAX's gather with mode="fill"."""
+    ext = torch.cat([rowq, rowq.new_zeros((1, rowq.shape[1]))])
+    return ext[chunk_idx.long()]
+
+
+def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
+                           p: torch.Tensor, xv: Optional[torch.Tensor],
+                           sorted_chunks: bool = True
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Chunked-run backward (``pb.chunk_*`` set): each chunk's L token
+    rows of the row quantities (p XV | p) are gathered and summed to one
+    partial, times x (and x^2 for xxp) on valued panels; the partials sum
+    per lane in chunk order (ops/segment.chunk_sum). Binary panels share
+    one column for gw and xxp (x == x^2). The JAX package's
+    ``_fm_grad_panel_chunked``; the sum over a chunk's L tokens is
+    torch's reduction, XLA's order may differ, so the two agree within a
+    float32 tolerance."""
+    U = params.w.shape[0]
+    cv = pb.chunk_vals
+    if params.V is None or params.V.shape[1] == 0:
+        toks = _chunk_tokens(p[:, None], pb.chunk_idx)[:, :, 0]  # [C, L]
+        if cv is not None:
+            toks = toks * cv
+        gw = chunk_sum(torch.sum(toks, dim=1)[:, None], pb.chunk_lane, U,
+                       sorted_chunks)[:, 0]
+        return gw, None
+    k = params.V.shape[1]
+    vm = _vmask(params)
+    Vm = (params.V * vm.to(params.V.dtype)[:, None]).to(torch.float32)
+    rowq = torch.cat([p[:, None] * xv, p[:, None]], dim=1)     # [B, k+1]
+    toks = _chunk_tokens(rowq, pb.chunk_idx)                   # [C, L, k+1]
+    if cv is None:
+        red = chunk_sum(torch.sum(toks, dim=1), pb.chunk_lane, U,
+                        sorted_chunks)
+        t1, gw = red[:, :k], red[:, k]
+        xxp = gw
+    else:
+        v = cv[:, :, None]
+        partial = torch.cat([torch.sum(toks * v, dim=1),
+                             torch.sum(toks[:, :, k:] * (v * v), dim=1)],
+                            dim=1)                             # [C, k+2]
+        red = chunk_sum(partial, pb.chunk_lane, U, sorted_chunks)
+        t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
+    gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
+    return gw, gV
+
+
 def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
-                  xv: Optional[torch.Tensor] = None
+                  xv: Optional[torch.Tensor] = None,
+                  sorted_chunks: bool = True
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Panel backward: each cell contributes broadcasts of its row's
     (p XV | p | p) times (x | x | x^2), rounded to V's container dtype as
     in JAX, and ONE lane sum in ascending cell order gives (t1 | gw |
-    xxp)."""
+    xxp). A batch that carries the chunked-run layout takes
+    :func:`_fm_grad_panel_chunked`."""
     U = params.w.shape[0]
     B, F = pb.idx.shape
     p = _p_vector(pred, pb)
+    if pb.chunk_lane is not None:
+        if params.V is not None and params.V.shape[1] > 0 and xv is None:
+            _, xv = fm_predict_panel_xv(params, pb)
+        return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks)
     flat_idx = pb.idx.reshape(B * F)
     if params.V is None or params.V.shape[1] == 0:
         cell = p[:, None].expand(B, F)

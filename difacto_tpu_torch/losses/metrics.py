@@ -41,7 +41,9 @@ def auc_times_n_binned(label: torch.Tensor, pred: torch.Tensor,
     order, so the scatter-adds here are deterministic."""
     lo, hi = -20.5, 20.5
     dev = pred.device
-    scale = torch.tensor(bins / (hi - lo), dtype=torch.float32, device=dev)
+    # a fill, not a copy from the host: the train step makes no
+    # host-to-device copy of its own
+    scale = torch.full((), bins / (hi - lo), dtype=torch.float32, device=dev)
     b = torch.clamp(((pred - lo) * scale).to(torch.int32), 0, bins - 1)
     is_pos = ((label > 0) & (mask > 0)).to(torch.float32)
     is_neg = ((label <= 0) & (mask > 0)).to(torch.float32)

@@ -47,7 +47,11 @@ class DeviceBatch(NamedTuple):
 
 class PanelBatch(NamedTuple):
     """Fixed-width row panel: idx[B, F] positions into the slot vector,
-    vals[B, F] or None (binary rows with no pad cells)."""
+    vals[B, F] or None (binary rows with no pad cells). A panel staged for
+    replay also carries the chunked-run backward layout
+    (:func:`panel_chunk_tokens`): each lane's token run cut into chunks of
+    ``CHUNK_L`` token rows, so the backward reduces dense [C, L] chunks to
+    per-chunk partials and sums those per lane (losses/fm.py)."""
     idx: torch.Tensor              # int32[B, F] (pad cells: 0)
     vals: Optional[torch.Tensor]   # f32[B, F] (pad cells: 0) or None
     labels: torch.Tensor           # f32[B]
@@ -55,6 +59,9 @@ class PanelBatch(NamedTuple):
     row_mask: torch.Tensor         # f32[B] 1 for real rows
     num_rows: torch.Tensor         # i32[]
     num_uniq: torch.Tensor         # i32[]
+    chunk_idx: Optional[torch.Tensor] = None   # i32[C, L] token rows
+    chunk_lane: Optional[torch.Tensor] = None  # i32[C] ascending lanes
+    chunk_vals: Optional[torch.Tensor] = None  # f32[C, L] or None
 
     @property
     def batch_cap(self) -> int:
@@ -177,6 +184,112 @@ def unpack_panel(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
     pb = PanelBatch(idx=idx, vals=vals, labels=labels, rweight=rweight,
                     row_mask=row_mask, num_rows=meta[0], num_uniq=meta[1])
     return pb, slots, counts
+
+
+# Chunk length of the chunked-run backward layout (the JAX package's
+# measured choice for the TPU; kept so that the layouts agree bit for bit).
+CHUNK_L = 16
+
+
+def chunk_cap(u_cap: int, cells: int, L: int = CHUNK_L) -> int:
+    """Static chunk-count bound: each of the <= u_cap lane runs wastes
+    less than one chunk, plus cells/L full chunks."""
+    return u_cap + cells // L + 2
+
+
+def panel_chunk_tokens_flat(flat_idx: torch.Tensor,
+                            flat_vals: Optional[torch.Tensor], u_cap: int,
+                            b_cap: int, width: int, L: int = CHUNK_L):
+    """Chunked-run backward layout from the flat panel lanes, on the
+    tensors' device (built once per batch when the replay cache stages
+    it). Tokens are sorted by lane with a stable sort, so within a lane
+    they keep ascending flat order; each lane's run is cut into
+    ceil(len/L) chunks of exactly L token slots. Returns
+
+      chunk_idx  i32[C, L]  token row per slot (pad: ``b_cap``, a row past
+                            the batch that reads as 0),
+      chunk_lane i32[C]     ascending lane per chunk (pad: ``u_cap``,
+                            dropped by the reduction),
+      chunk_vals f32[C, L]  token values (None when ``flat_vals`` is),
+
+    with C = chunk_cap(u_cap, cells, L); equal to the JAX package's
+    ``panel_chunk_tokens_flat`` bit for bit. Chunk numbers are counted
+    from the tokens that open a chunk (position in run % L == 0), which
+    gives the same numbering as the per-run bases of the JAX version."""
+    cells = flat_idx.shape[0]
+    C = chunk_cap(u_cap, cells, L)
+    dev = flat_idx.device
+    lane, order = torch.sort(flat_idx.to(torch.int32), stable=True)
+    rows = torch.div(order, width, rounding_mode="floor").to(torch.int32)
+    ari = torch.arange(cells, dtype=torch.int64, device=dev)
+    start = torch.ones(cells, dtype=torch.bool, device=dev)
+    start[1:] = lane[1:] != lane[:-1]
+    run_start = torch.cummax(torch.where(start, ari, 0), dim=0).values
+    q = ari - run_start                                   # pos within run
+    c = torch.cumsum((q % L == 0).to(torch.int64), dim=0) - 1
+    cell = c * L + q % L                                  # ascending unique
+    ci = torch.full((C * L,), b_cap, dtype=torch.int32, device=dev)
+    ci[cell] = rows
+    cl = torch.full((C,), u_cap, dtype=torch.int32, device=dev)
+    # every token of a chunk writes the chunk's one lane: equal values
+    cl.scatter_(0, c, lane)
+    cv = None
+    if flat_vals is not None:
+        cv = torch.zeros(C * L, dtype=flat_vals.dtype, device=dev)
+        cv[cell] = flat_vals[order]
+        cv = cv.view(C, L)
+    return ci.view(C, L), cl, cv
+
+
+def panel_chunk_tokens_np(flat_idx: np.ndarray,
+                          flat_vals: Optional[np.ndarray], u_cap: int,
+                          b_fill: int, width: int, L: int = CHUNK_L,
+                          C: Optional[int] = None, row_base: int = 0):
+    """Host (numpy) twin of :func:`panel_chunk_tokens_flat`, the JAX
+    package's ``panel_chunk_tokens_np``: ``b_fill`` is the pad row,
+    ``row_base`` offsets token rows and ``C`` pins the chunk count (its
+    mesh callers shard the rows and chunks over data-parallel ranks)."""
+    cells = len(flat_idx)
+    if C is None:
+        C = chunk_cap(u_cap, cells, L)
+    order = np.argsort(flat_idx, kind="stable")
+    lane = flat_idx[order].astype(np.int32)
+    rows = (order // width).astype(np.int32) + row_base
+    start = np.empty(cells, dtype=bool)
+    if cells:
+        start[0] = True
+        start[1:] = lane[1:] != lane[:-1]
+    rid = np.cumsum(start) - 1
+    run_start = np.nonzero(start)[0]
+    q = np.arange(cells, dtype=np.int64) - run_start[rid]
+    run_len = np.diff(np.append(run_start, cells))
+    n_chunks = (run_len + L - 1) // L
+    chunk_base = np.concatenate([[0], np.cumsum(n_chunks)[:-1]])
+    c = chunk_base[rid] + q // L
+    cell = c * L + q % L
+    if len(c) and c[-1] >= C:
+        raise ValueError(f"chunk count {c[-1] + 1} exceeds cap {C}")
+    ci = np.full(C * L, b_fill, dtype=np.int32)
+    ci[cell] = rows
+    cl = np.full(C, u_cap, dtype=np.int32)
+    cl[c] = lane
+    cv = None
+    if flat_vals is not None:
+        cv = np.zeros(C * L, dtype=flat_vals.dtype)
+        cv[cell] = flat_vals[order]
+        cv = cv.reshape(C, L)
+    return ci.reshape(C, L), cl, cv
+
+
+def panel_chunk_tokens(pb: PanelBatch, u_cap: int,
+                       L: int = CHUNK_L) -> PanelBatch:
+    """Attach the chunked-run backward layout to a panel batch; ``u_cap``
+    is the length of its slot vector."""
+    B, F = pb.idx.shape
+    fv = None if pb.vals is None else pb.vals.reshape(B * F)
+    ci, cl, cv = panel_chunk_tokens_flat(pb.idx.reshape(B * F), fv, u_cap,
+                                         B, F, L)
+    return pb._replace(chunk_idx=ci, chunk_lane=cl, chunk_vals=cv)
 
 
 def pack_batch(blk: RowBlock, num_uniq: int, slots: np.ndarray,

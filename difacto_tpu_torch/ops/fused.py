@@ -22,7 +22,8 @@ a kernel cannot take raises.
 - :func:`quant_half` / :func:`dequant_half` — the per-row symmetric
   int8/fp8 quantization of the embedding halves (fp8 codes are
   ``torch.float8_e4m3fn`` bit patterns viewed as int8), bit-exact with
-  the JAX package's jnp versions.
+  the JAX package's jnp versions on rows whose amax and scale are normal
+  f32 values (XLA on the CPU flushes subnormals, torch does not).
 
 The JAX package's ``fused_kernel`` knob (auto|pallas|jnp|off) is parsed
 by :class:`~difacto_tpu_torch.updaters.sgd_updater.SGDUpdaterParam` so its
@@ -46,8 +47,8 @@ def quant_half(x: torch.Tensor, kind: str):
     """f32 [n, m] half -> (int8 codes [n, m], f32 scale [n]).
 
     ``scale = max|row| / qmax`` (1.0 for all-zero rows); int8 codes round
-    half-to-even and clip to [-127, 127], fp8 codes cast to float8_e4m3fn
-    and are viewed as int8."""
+    half-to-even and clip to [-127, 127], fp8 codes are float8_e4m3fn bit
+    patterns (:func:`fp8_e4m3fn_codes`) viewed as int8."""
     amax = x.abs().amax(dim=1)
     # divide by a tensor on x's device: CUDA divides by a Python scalar as
     # a multiply by its reciprocal, which is not the IEEE quotient
@@ -57,8 +58,33 @@ def quant_half(x: torch.Tensor, kind: str):
     if kind == "int8":
         codes = torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
     else:
-        codes = y.to(torch.float8_e4m3fn).view(torch.int8)
+        codes = fp8_e4m3fn_codes(y)
     return codes, scale
+
+
+def fp8_e4m3fn_codes(y: torch.Tensor) -> torch.Tensor:
+    """f32 -> float8_e4m3fn bit patterns (as int8) by the JAX reference's
+    rule (ml_dtypes): round to nearest even, subnormals included, and NaN
+    (0x7F, with the sign) for values that round to 480 or beyond, for
+    +-Inf and for NaN. c10's own cast saturates such values to +-448 in
+    some torch versions, so the rule is written out here, step for step
+    as the scatter kernel's ``f32_to_fp8e4m3fn`` (csrc/scatter_epilogue.cu)
+    computes it, in int64 lanes."""
+    bits = y.to(torch.float32).view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    sign = bits & 0x80000000
+    f = bits ^ sign
+    big = f >= (1087 << 20)                       # |y| >= 480, Inf, NaN
+    small = f < (121 << 23)                       # below fp8's normals
+    denorm = 141 << 23                            # the f32 bits of 2^14
+    # subnormal codes: the f32 add of 2^14 rounds the mantissa for us
+    sub = (f.to(torch.int32).view(torch.float32)
+           + torch.full_like(y, 2.0 ** 14, dtype=torch.float32)
+           ).view(torch.int32).to(torch.int64) - denorm
+    mid = (f + (((7 - 127) << 23) + 0x7FFFF) + ((f >> 20) & 1)) >> 20
+    code = torch.where(big, torch.full_like(f, 0x7F),
+                       torch.where(small, sub, mid)) & 0xFF
+    return (code | (sign >> 24)).to(torch.uint8).view(torch.int8)
 
 
 def dequant_half(codes: torch.Tensor, scale: torch.Tensor, kind: str

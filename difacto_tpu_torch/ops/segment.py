@@ -27,6 +27,14 @@ entry order, starting from 0, with ``torch.segment_reduce`` over 2-D data
 (a sequential loop per output element on the CPU and on the card, no
 atomics). That is the order XLA's CPU scatter-add takes, so on the CPU
 the sums come out bit-identical to ``jax.ops.segment_sum``.
+
+The chunked-run backward (losses/fm.py, for batches staged by the replay
+cache) reduces each chunk of a lane's run to a partial first; its chunk
+lanes are already ascending, so :func:`chunk_sum` sums each lane's
+partials in chunk order with the same sequential ``segment_reduce`` and
+no sort, which is the order of the JAX package's sorted scatter-add.
+Neither reduction uses ``index_add_``/``scatter_add_``: their order on
+the card is not deterministic.
 """
 
 from __future__ import annotations
@@ -86,6 +94,23 @@ def lane_sum(data: torch.Tensor, lanes: torch.Tensor,
     return torch.segment_reduce(data[order], "sum",
                                 lengths=bounds[1:] - bounds[:-1],
                                 axis=0, unsafe=True)
+
+
+def chunk_sum(partials: torch.Tensor, chunk_lane: torch.Tensor,
+              num_lanes: int, lanes_sorted: bool = True) -> torch.Tensor:
+    """out[u] = 0 + partials[c0] + partials[c1] + ... over the chunks c0 <
+    c1 < ... of lane u ([C, m] -> [num_lanes, m]); chunks of lanes >=
+    ``num_lanes`` (the pad chunks) are dropped. ``lanes_sorted`` says that
+    ``chunk_lane`` ascends, as a single-card layout's does; otherwise the
+    chunks are put in lane order first (:func:`lane_sum`)."""
+    if not lanes_sorted:
+        return lane_sum(partials, chunk_lane, num_lanes)
+    bounds = torch.searchsorted(
+        chunk_lane, torch.arange(num_lanes + 1, dtype=chunk_lane.dtype,
+                                 device=chunk_lane.device))
+    return torch.segment_reduce(partials, "sum",
+                                lengths=bounds[1:] - bounds[:-1], axis=0,
+                                unsafe=True)
 
 
 def spmv_t(vals, rows, cols, p, num_cols: int):

@@ -10,8 +10,10 @@ localization, packing (ops/batch.pack_batch) and predict step
 per-row order (ops/segment.py) — so offline prediction files and online
 responses are bit-identical for the same rows, however they are batched.
 
-The executor never mutates the store: unknown ids hash to slots whose
-rows are whatever the table holds, as in the JAX package's hashed store.
+The executor never mutates the store: in a hashed store unknown ids hash
+to slots whose rows are whatever the table holds; in a dictionary store
+they map to the trash slot, whose w is 0 and whose embedding is never
+live, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class PredictExecutor:
         if blk.size == 0:
             z = torch.zeros((), dtype=torch.float32, device=dev)
             return np.zeros(0, dtype=np.float32), z, z
-        cblk, uniq = compact(blk)
+        cblk, uniq, _ = compact(blk)
         # sort + dedup the slot set (the gather declares sorted unique
         # slots; hashed ids may collide) and rewrite the localized columns
         slots = store.map_keys(uniq, insert=False)

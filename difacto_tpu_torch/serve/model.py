@@ -1,10 +1,11 @@
 """Model metadata + serving-store construction (counterpart of
 difacto_tpu/serve/model.py).
 
-``open_serving_store`` is the serving entry: a read-only hashed SlotStore
-on ``device`` with a weights-only, manifest-verified load. The geometry
-(V_dim, hash_capacity, slot_dtype) comes from the checkpoint itself; a
-corrupt newest file walks back to the newest generation that verifies.
+``open_serving_store`` is the serving entry: a read-only SlotStore
+(hashed or dictionary, FM or the flat V_dim=0 table) on ``device`` with
+a weights-only, manifest-verified load. The geometry (V_dim,
+hash_capacity, slot_dtype) comes from the checkpoint itself; a corrupt
+newest file walks back to the newest generation that verifies.
 """
 
 from __future__ import annotations
@@ -106,11 +107,6 @@ def _open_verified(path: str, kwargs: KWArgs, device
             f"learner={meta['learner']!r}; the serving executor loads sgd "
             "SlotStore checkpoints only — re-train with learner=sgd to "
             "serve this data")
-    if not meta["hashed"]:
-        raise NotImplementedError(
-            f"model {path!r} is a dictionary-store checkpoint; the port "
-            "serves hashed stores only so far (ROADMAP.md, Queue 1: "
-            "dictionary store)")
     uparam, remain = SGDUpdaterParam.init_allow_unknown(list(kwargs))
     # geometry from the checkpoint; the cold tier is a training-side
     # residency choice, a serving replica holds the whole table
@@ -120,7 +116,8 @@ def _open_verified(path: str, kwargs: KWArgs, device
                                  cold_tier_rows=0)
     store = SlotStore(uparam, device=device, read_only=True)
     n = store.load(meta["path"])
-    log.info("serving store: %s (hashed, V_dim=%d, %s, %d non-empty "
-             "entries, weights-only)", meta["path"], meta["V_dim"],
+    log.info("serving store: %s (%s, V_dim=%d, %s, %d non-empty "
+             "entries, weights-only)", meta["path"],
+             "hashed" if meta["hashed"] else "dictionary", meta["V_dim"],
              store.device, n)
     return store, meta, remain

@@ -6,7 +6,10 @@ card), FM forward, objective, training AUC, backward, and the
 FTRL/AdaGrad push of those same gathered rows through the CUDA scatter
 kernel, in place on the table. The gather is never repeated: the rows go
 from the pull to the push. On the card the next step's gather is queued
-after this step's push on the same stream.
+after this step's push on the same stream. The flat ``V_dim=0`` table
+(loss=logit) has no fused row: its step pulls w with a plain gather and
+pushes FTRL through plain scatters of the w/z/sqrt_g columns, as the
+JAX package's "off" backend does for it.
 
 ``task=pred`` and ``task=serve`` run :func:`make_predict_fn` through
 serve/executor.py, which is what makes their scores bit-identical for the
@@ -27,6 +30,9 @@ def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
     "exact" (sort), "none". Validation always takes the exact AUC."""
 
     def pull(state, slots):
+        if not fns.has_V:
+            w, _, _ = fns.get_rows(state, slots)
+            return FMParams(w=w), None
         rows = fns.pull_rows(state, slots)
         w, V, vmask = fns.rows_to_params(state, rows)
         return FMParams(w=w, V=V, v_mask=vmask), rows
@@ -49,8 +55,11 @@ def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
         else:
             auc = torch.zeros((), dtype=torch.float32, device=pred.device)
         gw, gV = loss.calc_grad(params, batch, pred, xv)
-        state = fns.apply_grad_rows(state, slots, rows, gw.contiguous(),
-                                    gV.contiguous(), params.v_mask)
+        if gV is None:
+            state = fns.apply_grad(state, slots, gw, None, None)
+        else:
+            state = fns.apply_grad_rows(state, slots, rows, gw.contiguous(),
+                                        gV.contiguous(), params.v_mask)
         return state, objv, auc
 
     def eval_step(state, batch, slots):

@@ -1,13 +1,30 @@
-"""Slot store over a hashed device slot table (counterpart of
-difacto_tpu/store/local.py, the hashed store).
+"""Slot store over a device slot table (counterpart of
+difacto_tpu/store/local.py): the hashed store and the exact-id
+dictionary store.
 
-The model lives in device tensors (:class:`SGDState`); the host keeps only
-the slot-assignment rule. A hashed store maps byte-reversed feature ids to
-``rev_id mod (capacity - 1) + 1`` (row 0 stays the trash slot), with no
-dictionary. Checkpoints are the JAX package's npz + manifest format, byte
-for byte, in both directions: a hashed save writes the full dense logical
-table (w, cnt, v_live, V and, with aux, z, sqrt_g, Vg as f32 arrays) plus
-geometry stamps, and a load rebuilds the fused rows through
+The model lives in device tensors (:class:`SGDState`); the host keeps
+only the slot-assignment rule:
+
+- hashed (``hash_capacity > 0``): byte-reversed feature ids map to
+  ``rev_id mod (capacity - 1) + 1`` (row 0 stays the trash slot), no
+  dictionary, a fixed capacity;
+- dictionary (``hash_capacity == 0``, the JAX package's default): the
+  sorted parallel arrays ``_keys``/``_slots`` map each id to its own
+  slot, assigned in insertion order from 1; a lookup inserts unknown ids
+  (read-only stores map them to the trash slot instead), and the table
+  doubles from ``init_capacity`` whenever the next slot would not fit.
+  New rows come from the store's init provider, ``init(capacity) ->
+  SGDState``: by default ``init_state`` (V drawn from a torch generator
+  seeded with ``param.seed`` over the whole capacity, so a row's initial
+  V depends on the seed and the capacity only); parity tests give it the
+  JAX package's init table, which torch cannot draw.
+
+Checkpoints are the JAX package's npz + manifest format in both
+directions: a hashed save writes the full dense logical table (w, cnt,
+v_live, V and, with aux, z, sqrt_g, Vg as f32 arrays) plus geometry
+stamps; a dictionary save writes the sorted ``keys`` with the rows of
+the entries that are non-empty (w, cnt or a live embedding), and a load
+gives them slots 1..n. Loads rebuild the fused rows through
 ``build_rows`` (requantizing when the stamp says int8/fp8).
 
 A trainable store (``read_only=False``) carries the optimizer state in
@@ -15,26 +32,24 @@ its fused rows and saves it with ``save_aux``; the learner pushes through
 ``store.fns`` (updaters/sgd_updater.make_fns) in place on ``state.VVg``.
 
 Not ported yet, and raising a typed NotImplementedError that names the
-ROADMAP.md queue item: the dictionary (exact-id) store, per-key-range
-sharded checkpoints, the host-RAM cold tier, count-min admission and
-occupancy eviction.
+ROADMAP.md queue item: per-key-range sharded checkpoints, the host-RAM
+cold tier, count-min admission and occupancy eviction.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..base import FEAID_DTYPE
-from ..updaters.sgd_updater import (SGDState, SGDUpdaterParam,
-                                    emb_cols_f32, init_state, make_fns,
-                                    quantized, row_layout, scal_cols)
+from ..updaters.sgd_updater import (TRASH_SLOT, SGDState, SGDUpdaterParam,
+                                    grow_state, init_state, make_fns)
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
-from .convert import state_from_numpy
+from .convert import state_from_numpy, state_to_numpy
 
 
 def pad_slots_oob(slots: np.ndarray, cap: int, capacity: int) -> np.ndarray:
@@ -53,17 +68,16 @@ def hash_slots(rev_ids: np.ndarray, hash_capacity: int) -> np.ndarray:
 
 
 class SlotStore:
-    """A hashed slot table on one device.
+    """A hashed or dictionary slot table on one device.
 
-    ``read_only`` stores serve inference: :meth:`load` defaults to a
-    weights-only view that never materializes optimizer state."""
+    ``read_only`` stores serve inference: lookups never insert, and
+    :meth:`load` defaults to a weights-only view that never materializes
+    optimizer state. ``init`` overrides the init provider (see the module
+    docstring)."""
 
     def __init__(self, param: SGDUpdaterParam, device="cuda",
-                 read_only: bool = False):
-        if param.hash_capacity <= 0:
-            raise NotImplementedError(
-                "the dictionary (exact-id) store is not ported yet; set "
-                "hash_capacity > 0 (ROADMAP.md, Queue 1: dictionary store)")
+                 read_only: bool = False,
+                 init: Optional[Callable[[int], SGDState]] = None):
         if not read_only:
             for knob in ("cold_tier_rows", "admit_min_count",
                          "evict_occupancy"):
@@ -76,14 +90,92 @@ class SlotStore:
         self.device = resolve_device(device)
         self.read_only = read_only
         self.fns = make_fns(param)
-        self.state: SGDState = init_state(param, param.hash_capacity,
-                                          self.device)
+        self.hashed = param.hash_capacity > 0
+        self._init = init if init is not None else (
+            lambda capacity: init_state(param, capacity, self.device))
+        self._keys = np.empty(0, dtype=FEAID_DTYPE)
+        self._slots = np.empty(0, dtype=np.int64)
+        self._next_slot = TRASH_SLOT + 1
+        self.state: SGDState = self._init(
+            param.hash_capacity if self.hashed else param.init_capacity)
+
+    # ------------------------------------------------------------- keys
+    @property
+    def num_features(self) -> int:
+        return len(self._keys)
 
     def map_keys(self, keys: np.ndarray, insert: bool = True) -> np.ndarray:
-        """Unique byte-reversed uint64 ids -> int32 slots (the hashed rule
-        never inserts, so ``insert`` changes nothing)."""
-        return hash_slots(np.asarray(keys, dtype=FEAID_DTYPE),
-                          self.param.hash_capacity)
+        """Unique byte-reversed uint64 ids -> int32 slots. Hashed: the
+        modular rule. Dictionary: known ids get their slot; unknown ids
+        are inserted with the next slots in input order (the reference's
+        operator[] inserts on Get, sgd_updater.cc:46), growing the table
+        as needed, or map to TRASH_SLOT when ``insert`` is off or the
+        store is read-only."""
+        keys = np.asarray(keys, dtype=FEAID_DTYPE)
+        if self.hashed:
+            return hash_slots(keys, self.param.hash_capacity)
+        insert = insert and not self.read_only
+        n = len(self._keys)
+        out = np.full(len(keys), TRASH_SLOT, dtype=np.int32)
+        if n:
+            idx = np.searchsorted(self._keys, keys)
+            safe = np.minimum(idx, n - 1)
+            hit = (idx < n) & (self._keys[safe] == keys)
+            out[hit] = self._slots[idx[hit]]
+        else:
+            hit = np.zeros(len(keys), dtype=bool)
+        if insert:
+            miss = ~hit
+            n_new = int(miss.sum())
+            if n_new:
+                new_keys = keys[miss]
+                new_slots = self._next_slot + np.arange(n_new, dtype=np.int64)
+                out[miss] = new_slots.astype(np.int32)
+                self._next_slot += n_new
+                order = np.argsort(new_keys, kind="stable")
+                nk, ns = new_keys[order], new_slots[order]
+                pos = np.searchsorted(self._keys, nk)
+                self._keys = np.insert(self._keys, pos, nk)
+                self._slots = np.insert(self._slots, pos, ns)
+                self._ensure_capacity(self._next_slot)
+        return out
+
+    def map_keys_dedup(self, keys: np.ndarray,
+                       counts: Optional[np.ndarray] = None):
+        """:meth:`map_keys` -> ``(slots, remap, counts)`` with ``slots``
+        sorted unique, as the kernels take them. ``remap`` is None when
+        the mapped slots already ascend, else ``remap[i]`` is the new
+        position of input key ``i`` (the caller rewrites its localized
+        indices through it); hashed ids that collide merge, and their
+        ``counts`` add up."""
+        slots = self.map_keys(keys)
+        n = len(slots)
+        if n > 1 and (slots[1:] <= slots[:-1]).any():
+            uniq, inv = np.unique(slots, return_inverse=True)
+            if counts is not None:
+                counts = np.bincount(
+                    inv, weights=counts, minlength=len(uniq)
+                ).astype(np.float32)
+            return uniq.astype(np.int32), inv, counts
+        return slots, None, counts
+
+    def capacity_for(self, need: int) -> int:
+        """The capacity after doubling the live one until ``need`` slots
+        fit."""
+        cap = self.state.capacity
+        while cap < need:
+            cap *= 2
+        return cap
+
+    def _ensure_capacity(self, need: int) -> None:
+        self.grow_to(self.capacity_for(need))
+
+    def grow_to(self, capacity: int) -> None:
+        """Grow the table to ``capacity`` rows (updaters/sgd_updater
+        ``grow_state``); no-op when it is already that large."""
+        if capacity > self.state.capacity:
+            self.state = grow_state(self.param, self.state, capacity,
+                                    self._init)
 
     def pad_slots(self, slots: np.ndarray, cap: int) -> torch.Tensor:
         """Sorted unique slots padded to ``cap`` with ascending
@@ -101,64 +193,73 @@ class SlotStore:
         return float(penalty), float(nnz)
 
     # ------------------------------------------------------------- ckpt
-    def _state_np(self, keys: Tuple[str, ...]) -> dict:
-        """Host numpy view of the LOGICAL columns ``keys`` (V/Vg stripped
-        of pad and scalar lanes, dequantized for 8-bit rows, f32)."""
-        p, st = self.param, self.state
-        w, z, sg, cnt, live = scal_cols(p, st)
-        cols = {"w": w, "z": z, "sqrt_g": sg, "cnt": cnt, "v_live": live}
-        if "V" in keys or "Vg" in keys:
-            if p.V_dim == 0:
-                cols["V"] = cols["Vg"] = st.VVg
-            elif quantized(p):
-                cols["V"], cols["Vg"] = emb_cols_f32(p, st)
-            else:
-                k, h, _, _ = row_layout(p, st.capacity)
-                cols["V"], cols["Vg"] = st.VVg[:, :k], st.VVg[:, h:h + k]
-        out = {f: cols[f].cpu() for f in keys}
-        for f in ("V", "Vg"):
-            if f in out:
-                out[f] = out[f].to(torch.float32)
-        return {f: a.numpy() for f, a in out.items()}
+
+    def _state_np(self, keys) -> dict:
+        """Host numpy view of the live table's logical columns ``keys``
+        (store/convert.state_to_numpy)."""
+        return state_to_numpy(self.param, self.state, keys)
 
     def save(self, path: str, save_aux: bool = False) -> int:
-        """Checkpoint the dense hashed table as one uncompressed npz plus
-        its manifest sidecar (monotonic generation, written after the
-        npz). Returns the count of non-zero w."""
+        """Checkpoint as one uncompressed npz plus its manifest sidecar
+        (monotonic generation, written after the npz): the dense hashed
+        table, or the dictionary's sorted keys with their non-empty rows.
+        Returns the count of non-zero w (hashed) or of saved keys."""
         saved = ("w", "cnt", "v_live", "V") + (
             ("z", "sqrt_g", "Vg") if save_aux else ())
         st = self._state_np(saved)
-        arrays = dict(hash_capacity=np.array(self.param.hash_capacity),
-                      V_dim=np.array(self.param.V_dim),
-                      save_aux=np.array(save_aux),
-                      learner=np.array("sgd"),
-                      slot_dtype=np.array(self.param.slot_dtype),
-                      cold_tier_rows=np.array(self.param.cold_tier_rows),
-                      **{k: st[k] for k in saved})
-        n = int((st["w"] != 0).sum())
+        if self.hashed:
+            arrays = dict(hash_capacity=np.array(self.param.hash_capacity),
+                          V_dim=np.array(self.param.V_dim),
+                          save_aux=np.array(save_aux),
+                          learner=np.array("sgd"),
+                          slot_dtype=np.array(self.param.slot_dtype),
+                          cold_tier_rows=np.array(self.param.cold_tier_rows),
+                          **{k: st[k] for k in saved})
+            n = int((st["w"] != 0).sum())
+        else:
+            keys, slots = self._keys, self._slots
+            live = (st["w"][slots] != 0) | (st["cnt"][slots] != 0)
+            if self.param.V_dim > 0:
+                live |= st["v_live"][slots]
+            keys, slots = keys[live], slots[live]
+            arrays = dict(keys=keys, w=st["w"][slots], cnt=st["cnt"][slots],
+                          v_live=st["v_live"][slots], V=st["V"][slots],
+                          save_aux=np.array(save_aux),
+                          V_dim=np.array(self.param.V_dim),
+                          learner=np.array("sgd"),
+                          slot_dtype=np.array(self.param.slot_dtype))
+            if save_aux:
+                arrays.update(z=st["z"][slots], sqrt_g=st["sqrt_g"][slots],
+                              Vg=st["Vg"][slots])
+            n = len(keys)
         man = {"learner": "sgd", "rows": n, "save_aux": bool(save_aux),
                "generation": mft.next_generation(path)}
         stream.save_npz(path, manifest=man, **arrays)
         return n
 
     def load(self, path: str, weights_only: Optional[bool] = None) -> int:
-        """Restore a hashed checkpoint (the counterpart of the JAX store's
-        hashed ``load`` + ``_assemble_state``). ``weights_only`` (default:
-        the read_only flag) reads just w / cnt / v_live / V; absent
-        columns are zero. Members are digested as they load, and a
-        corrupt file raises ``manifest.CheckpointCorrupt`` before any
-        state commits. Returns the count of non-zero w."""
+        """Restore a checkpoint (the counterpart of the JAX store's
+        ``load`` + ``_assemble_state``). ``weights_only`` (default: the
+        read_only flag) reads just w / cnt / v_live / V; the optimizer
+        columns are zero. A dictionary checkpoint's keys take slots 1..n
+        of a fresh table from the init provider, at the live capacity
+        doubled until n + 1 rows fit. Members are digested as they load,
+        and a corrupt file raises ``manifest.CheckpointCorrupt`` before
+        any state commits. Returns the count of non-zero w (hashed) or of
+        loaded keys."""
         if weights_only is None:
             weights_only = self.read_only
         loaded = ("w", "cnt", "v_live", "V") + (
             () if weights_only else ("z", "sqrt_g", "Vg"))
-        cap, k = self.param.hash_capacity, self.param.V_dim
+        k = self.param.V_dim
         with mft.open_verified(path) as z:
-            if "hash_capacity" not in z.files:
+            if self.hashed != ("hash_capacity" in z.files):
                 raise ValueError(
-                    "checkpoint store mode mismatch: checkpoint is a "
-                    "dictionary model, store is hashed")
-            if int(z["hash_capacity"]) != cap:
+                    "checkpoint store mode mismatch: checkpoint is "
+                    f"{'a dictionary model' if self.hashed else 'hashed'},"
+                    f" store is {'hashed' if self.hashed else 'dictionary'}")
+            if self.hashed and int(z["hash_capacity"]) \
+                    != self.param.hash_capacity:
                 raise ValueError("hashed checkpoint needs a store with the "
                                  "same hash_capacity")
             ck_vdim = int(z["V_dim"]) if "V_dim" in z.files else 0
@@ -170,12 +271,25 @@ class SlotStore:
                     f"{path} is a per-key-range sharded checkpoint stub; "
                     "sharded loads are not ported yet (ROADMAP.md, "
                     "Queue 1: sharding)")
-            arr = {key: z[key] for key in loaded if key in z.files}
+            arr = {key: z[key] for key in loaded + ("keys",)
+                   if key in z.files}
             z.finish()  # digest sweep BEFORE the state commits
-        for key, a in arr.items():
-            if np.shape(a)[0] != cap:
-                raise ValueError(f"checkpoint array {key!r} has "
-                                 f"{np.shape(a)[0]} rows, the table {cap}")
-        arr.setdefault("w", np.zeros(cap, np.float32))
-        self.state = state_from_numpy(self.param, arr, self.device)
-        return int((np.asarray(arr["w"]) != 0).sum())
+        if self.hashed:
+            cap = self.param.hash_capacity
+            for key, a in arr.items():
+                if np.shape(a)[0] != cap:
+                    raise ValueError(f"checkpoint array {key!r} has "
+                                     f"{np.shape(a)[0]} rows, the table "
+                                     f"{cap}")
+            arr.setdefault("w", np.zeros(cap, np.float32))
+            self.state = state_from_numpy(self.param, arr, self.device)
+            return int((np.asarray(arr["w"]) != 0).sum())
+        keys = np.asarray(arr["keys"], dtype=FEAID_DTYPE)
+        n = len(keys)
+        self.state = state_from_numpy(self.param, arr, self.device,
+                                      init=self._init,
+                                      min_capacity=self.state.capacity)
+        self._keys = keys
+        self._slots = np.arange(1, n + 1, dtype=np.int64)
+        self._next_slot = n + 1
+        return n

@@ -289,8 +289,8 @@ def init_state(param: SGDUpdaterParam, capacity: int,
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     """A Python float as the f32 0-d tensor JAX's weak typing makes of it,
-    on ``like``'s device."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    on ``like``'s device (a fill there, no copy from the host)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -389,6 +389,39 @@ def _gather_flat(col: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, v, torch.zeros_like(v))
 
 
+def _scatter_flat(col: torch.Tensor, slots: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """``col[slots] = vals`` in place for the in-bounds lanes of sorted
+    unique slots; out-of-bounds pad lanes are dropped (the V_dim=0
+    layout's push, a plain tensor scatter in both packages)."""
+    s = slots.to(torch.int64)
+    ok = (s >= 0) & (s < col.shape[0])
+    col[s[ok]] = vals[ok]
+
+
+def grow_state(param: SGDUpdaterParam, state: SGDState, new_capacity: int,
+               init) -> SGDState:
+    """Double-and-copy growth of the dictionary store's table: rows
+    ``[old:]`` come from ``init(new_capacity)`` (a fresh table at the new
+    capacity, so a row's initial V is a function of the seed and the
+    capacity at which it was added, as in the JAX package). A growth that
+    crosses ``pad_v_rows_max_mb`` changes the row layout (the half width
+    h drops from 64 to V_dim); the old rows are then re-laid out through
+    ``build_rows`` at the new capacity's layout."""
+    old = state.capacity
+    if new_capacity <= old:
+        return state
+    ext = init(new_capacity)
+    if param.V_dim and row_layout(param, old) != row_layout(param,
+                                                            new_capacity):
+        _, _, _, off = row_layout(param, old)
+        w, z, sg, cnt, live = unpack_scal(state.VVg[:, off:])
+        Vf, Vgf = emb_cols_f32(param, state)
+        state = state._replace(VVg=build_rows(
+            param, new_capacity, Vf, Vgf, w, z, sg, cnt, live))
+    return SGDState(*(torch.cat([a, b[old:]]) for a, b in zip(state, ext)))
+
+
 def make_fns(param: SGDUpdaterParam):
     """The updater functions with the params baked in: a namespace of
     ``pull_rows``, ``rows_to_params``, ``get_rows`` (the pull),
@@ -427,18 +460,16 @@ def make_fns(param: SGDUpdaterParam):
             return _gather_flat(state.w, slots), None, None
         return rows_to_params(state, pull_rows(state, slots))
 
-    def _flat_only(what: str):
-        raise NotImplementedError(
-            f"{what} on the flat V_dim=0 table (loss=logit) is not ported "
-            "yet (ROADMAP.md, Queue 1: loss=logit)")
-
     def apply_count(state: SGDState, slots: torch.Tensor,
                     counts: torch.Tensor) -> SGDState:
         """kFeaCount push (Update, sgd_updater.cc:64-75): one gather, the
         count and lazy-V update of the scalar lanes (scale lanes carried),
-        one scatter with the kernel's epilogue off."""
+        one scatter with the kernel's epilogue off. The flat table adds
+        the counts to its cnt column."""
         if not has_V:
-            _flat_only("apply_count")
+            _scatter_flat(state.cnt, slots,
+                          _gather_flat(state.cnt, slots) + counts)
+            return state
         _, _, _, off = row_layout(param, state.capacity)
         rows = fused.gather_rows(state.VVg, slots)
         f = scal_f32(rows[:, off:])
@@ -459,7 +490,8 @@ def make_fns(param: SGDUpdaterParam):
         epilogue and the scatter in one kernel on the card
         (ops/fused.fm_update_rows), in place."""
         if not has_V:
-            _flat_only("apply_grad_rows")
+            raise ValueError("apply_grad_rows: the flat V_dim=0 table has "
+                             "no fused rows; its push is apply_grad")
         cap = state.capacity
         return state._replace(VVg=fused.fm_update_rows(
             state.VVg, slots, rows, gw, gV, pull_vmask,
@@ -467,24 +499,36 @@ def make_fns(param: SGDUpdaterParam):
                                                           param, cap)))
 
     def apply_grad(state: SGDState, slots: torch.Tensor, gw: torch.Tensor,
-                   gV: torch.Tensor, pull_vmask: torch.Tensor) -> SGDState:
-        """kGradient push that gathers its own rows first."""
+                   gV: Optional[torch.Tensor],
+                   pull_vmask: Optional[torch.Tensor]) -> SGDState:
+        """kGradient push that gathers its own rows first. On the flat
+        table: FTRL on the gathered w/z/sqrt_g and three plain scatters,
+        in place."""
+        if not has_V:
+            w_new, z_new, sg_new = ftrl_w(
+                _gather_flat(state.w, slots), _gather_flat(state.z, slots),
+                _gather_flat(state.sqrt_g, slots), gw, param.l1, param.l2,
+                param.lr, param.lr_beta)
+            for col, new in ((state.w, w_new), (state.sqrt_g, sg_new),
+                             (state.z, z_new)):
+                _scatter_flat(col, slots, new)
+            return state
         return apply_grad_rows(state, slots, pull_rows(state, slots), gw,
                                gV, pull_vmask)
 
     def evaluate(state: SGDState) -> Tuple[torch.Tensor, torch.Tensor]:
         """(penalty, nnz) over real rows as device scalars (Evaluate,
         sgd_updater.cc:15-32); full-table column reads, once per epoch."""
-        if not has_V:
-            _flat_only("evaluate")
         w, _, _, _, live = scal_cols(param, state)
         w = w.clone()
-        w[TRASH_SLOT] = 0.0
+        w[TRASH_SLOT:TRASH_SLOT + 1].zero_()     # a fill, no host copy
         l1, l2 = _f32(param.l1, w), _f32(param.l2, w)
         penalty = torch.sum(l1 * w.abs() + 0.5 * l2 * w * w)
         nnz = torch.sum((w != 0).to(torch.float32))
+        if not has_V:
+            return penalty, nnz
         live = live.clone()
-        live[TRASH_SLOT] = False
+        live[TRASH_SLOT:TRASH_SLOT + 1].zero_()
         Vcol = emb_cols_f32(param, state)[0]
         Vm = Vcol * live[:, None]
         penalty = penalty + torch.sum(0.5 * l2 * Vm * Vm)
@@ -496,6 +540,7 @@ def make_fns(param: SGDUpdaterParam):
 
     ns = _NS()
     ns.param = param
+    ns.has_V = has_V
     ns.pull_rows = pull_rows
     ns.rows_to_params = rows_to_params
     ns.get_rows = get_rows

@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card (marked ``cuda``; each test skips
 where no GPU is visible, deciding at run time): the gather, and the
 scatter with its FTRL/AdaGrad epilogue on and off, byte for byte against
-their plain versions on the same card; the deterministic lane sum; and a
-small training run that repeats bit for bit.
+their plain versions on the same card; the deterministic lane sum; the
+chunked-run layout (equal to the CPU's) and the chunked backward (which
+repeats bit for bit); and small training runs that repeat bit for bit,
+one through the dictionary store's growth and the replay cache that also
+equals its run on the plain versions.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -229,3 +232,95 @@ def test_training_on_the_card_repeats_bit_for_bit(cuda, tmp_path):
         tables.append(ln.store.state.VVg.clone())
     assert torch.equal(tables[0].view(torch.int32),
                        tables[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_chunk_layout_on_the_card_equals_the_cpu(cuda, binary):
+    """The chunked-run layout built on the card (sort, scans, scatters)
+    equals the CPU's bit for bit, at the main path's panel shape."""
+    from difacto_tpu_torch.ops.batch import panel_chunk_tokens_flat
+    rng = np.random.RandomState(1)
+    B, F, u_cap = 1024, 39, 12288
+    idx = torch.from_numpy((rng.zipf(1.2, B * F) % 11000).astype(np.int32))
+    vals = None if binary else torch.from_numpy(
+        rng.rand(B * F).astype(np.float32))
+    cpu = panel_chunk_tokens_flat(idx, vals, u_cap, B, F)
+    card = panel_chunk_tokens_flat(idx.to(cuda), None if vals is None
+                                   else vals.to(cuda), u_cap, B, F)
+    for a, b in zip(cpu, card):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("k", [0, 16])
+def test_chunked_backward_on_the_card_repeats(cuda, k):
+    from difacto_tpu_torch.losses import FMParams
+    from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops.batch import PanelBatch, panel_chunk_tokens
+    rng = np.random.RandomState(2)
+    B, F, U = 1024, 39, 12288
+    t = functools.partial(torch.tensor, device=cuda)
+    pb = PanelBatch(
+        idx=t((rng.zipf(1.2, (B, F)) % 11000).astype(np.int32)),
+        vals=t(rng.rand(B, F).astype(np.float32)),
+        labels=t((rng.rand(B) < 0.3).astype(np.float32)),
+        rweight=torch.ones(B, device=cuda), row_mask=torch.ones(B,
+                                                                device=cuda),
+        num_rows=t(B), num_uniq=t(11000))
+    pb = panel_chunk_tokens(pb, U)
+    params = FMParams(
+        w=t(rng.randn(U).astype(np.float32) * 0.1),
+        V=t(rng.randn(U, k).astype(np.float32) * 0.1) if k else None,
+        v_mask=t((rng.rand(U) < 0.7).astype(np.float32)) if k else None)
+    pred = t(rng.randn(B).astype(np.float32))
+    xv = fm.fm_predict_panel_xv(params, pb)[1] if k else None
+    runs = [fm.fm_grad_panel(params, pb, pred, xv) for _ in range(3)]
+    for gw, gV in runs[1:]:
+        assert torch.equal(gw.view(torch.int32), runs[0][0].view(torch.int32))
+        if k:
+            assert torch.equal(gV.view(torch.int32),
+                               runs[0][1].view(torch.int32))
+
+
+def test_dictionary_replay_run_repeats_and_equals_plain(cuda, tmp_path):
+    """A dictionary run from a 64-row table (growing while the cache
+    stages, repadded before the replays) on the card: twice the same
+    table and key map bit for bit, and the same again with the kernels
+    swapped for their plain versions."""
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "rcv1_100.libsvm")
+    kw = [("data_in", data), ("V_dim", "4"), ("init_capacity", "64"),
+          ("max_num_epochs", "3"), ("l1", "0.1"), ("V_threshold", "1"),
+          ("report_interval", "0")]
+
+    def run():
+        ln = SGDLearner(device="cuda")
+        ln.init(kw)
+        ln.run()
+        assert ln.device_cache_info()[3]["complete"]
+        return ln.store.state.VVg.clone(), ln.store._keys.copy()
+
+    counters = (fused.gather_rows_cuda, fused.fm_update_rows_cuda,
+                fused.scatter_rows_cuda)
+    before = [c.launches for c in counters]
+    t1, k1 = run()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    t2, k2 = run()
+    saved = (fused.gather_rows, fused.fm_update_rows, fused.scatter_rows)
+    fused.gather_rows = fused.gather_rows_ref
+    fused.fm_update_rows = (lambda table, slots, rows, gw, gV, vm, epi,
+                            epilogue: fused.fm_update_rows_ref(
+                                table, slots, rows, gw, gV, vm, epilogue))
+    fused.scatter_rows = fused.scatter_rows_ref
+    try:
+        mid = [c.launches for c in counters]
+        t3, k3 = run()
+        assert [c.launches for c in counters] == mid
+    finally:
+        fused.gather_rows, fused.fm_update_rows, fused.scatter_rows = saved
+    assert t1.shape[0] > 64
+    for t, k in ((t2, k2), (t3, k3)):
+        assert torch.equal(t.view(torch.int32), t1.view(torch.int32))
+        np.testing.assert_array_equal(k, k1)

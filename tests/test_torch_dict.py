@@ -1,0 +1,441 @@
+"""The port's dictionary (exact-id) store and flat V_dim=0 table against
+the JAX package's, on the CPU.
+
+- ``map_keys`` / ``map_keys_dedup`` give JAX's slots, remaps and counts
+  bit for bit over a stream of batches that inserts and grows the table,
+  and read-only lookups insert nothing;
+- ``grow_state`` gives JAX's table bit for bit when both draw new rows
+  from JAX's ``init_state``, in fp32, bf16 and int8 rows, also when the
+  growth crosses ``pad_v_rows_max_mb`` and the row layout changes;
+- the flat table's push, count push and evaluate equal JAX's bit for bit;
+- dictionary and flat checkpoints load in the other package, both ways;
+- learner runs (the dictionary growing from a small ``init_capacity``
+  while the replay cache stages, then repadded; the flat table on
+  Criteo panels and on the COO rcv1 sample) and the two example configs
+  that use these paths, ``examples/local.conf`` (flat, dictionary) and
+  ``examples/fm.conf`` (FM, dictionary), agree with JAX per epoch within
+  1e-5 relative;
+- a dictionary model scores the same through both packages'
+  ``task=pred``.
+"""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from difacto_tpu.store.local import SlotStore as JStore
+from difacto_tpu.updaters import sgd_updater as J
+from difacto_tpu_torch.config import parse_config_file
+from difacto_tpu_torch.learners import sgd as tsgd
+from difacto_tpu_torch.store.convert import (state_from_jax_table,
+                                             state_from_numpy)
+from difacto_tpu_torch.store.local import SlotStore, pad_slots_oob
+from difacto_tpu_torch.updaters import sgd_updater as T
+
+_TESTS = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_TESTS)
+sys.path.insert(0, _TESTS)
+from test_torch_replay import (HYPER, assert_runs_agree,  # noqa: E402
+                               defaults_kwargs, run_jax, run_port)
+
+RCV1 = os.path.join(_ROOT, "tests", "data", "rcv1_100.libsvm")
+
+
+@pytest.fixture(scope="module")
+def criteo(tmp_path_factory):
+    from chip_smoke import synthetic_criteo
+    d = tmp_path_factory.mktemp("criteo")
+    (d / "train.txt").write_bytes(synthetic_criteo(400, 21))
+    (d / "val.txt").write_bytes(synthetic_criteo(200, 22))
+    return str(d / "train.txt"), str(d / "val.txt")
+
+
+def _jax_provider(tparam, jparam):
+    if tparam.V_dim == 0:
+        return None                      # the flat table starts at zero
+    return lambda C: state_from_jax_table(
+        tparam, np.asarray(J.init_state(jparam, C).VVg), "cpu")
+
+
+def _params(**kw):
+    return T.SGDUpdaterParam(**kw), J.SGDUpdaterParam(**kw)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.int8:
+        return a.view(np.int16 if a.dtype.itemsize == 2 else np.int8)
+    return a.view(np.uint32) if a.dtype.itemsize == 4 else a
+
+
+# --------------------------------------------------------------- keys
+def test_map_keys_and_dedup_equal_jax_bit_for_bit():
+    tp, jp = _params(V_dim=2, init_capacity=16)
+    port = SlotStore(tp, device="cpu", init=_jax_provider(tp, jp))
+    ref = JStore(jp)
+    rng = np.random.RandomState(0)
+    pool = rng.randint(0, 2 ** 63, 400, dtype=np.int64).astype(np.uint64)
+    for step in range(12):
+        keys = np.unique(rng.choice(pool, rng.randint(5, 60)))
+        counts = rng.randint(1, 5, len(keys)).astype(np.float32)
+        got = port.map_keys_dedup(keys, counts)
+        want = ref.map_keys_dedup(keys, counts)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+        assert port.state.capacity == ref.state.capacity
+        assert port.num_features == ref.num_features
+    assert port.state.capacity > 16
+    np.testing.assert_array_equal(port._keys, ref._keys)
+    np.testing.assert_array_equal(port._slots, ref._slots)
+    # lookups without insert: unknown ids map to the trash slot
+    probe = np.concatenate([pool[:20], np.array([7, 9], np.uint64)])
+    n = port.num_features
+    np.testing.assert_array_equal(port.map_keys(probe, insert=False),
+                                  ref.map_keys(probe, insert=False))
+    assert port.num_features == n
+
+
+def test_read_only_dictionary_store_never_inserts():
+    tp, _ = _params(V_dim=0)
+    store = SlotStore(tp, device="cpu", read_only=True)
+    got = store.map_keys(np.array([5, 6, 7], np.uint64))
+    assert got.tolist() == [0, 0, 0] and store.num_features == 0
+
+
+def test_dictionary_and_flat_stores_construct():
+    for kw in (dict(V_dim=0), dict(V_dim=0, hash_capacity=64),
+               dict(V_dim=4)):
+        store = SlotStore(T.SGDUpdaterParam(**kw), device="cpu")
+        assert store.hashed == (kw.get("hash_capacity", 0) > 0)
+        penalty, nnz = store.evaluate()
+        assert (penalty, nnz) == (0.0, 0.0)
+
+
+# -------------------------------------------------------------- growth
+def _trained_like(jparam, C, seed):
+    rng = np.random.RandomState(seed)
+    k = jparam.V_dim
+    return J.build_rows(
+        jparam, C, (rng.randn(C, k) * 0.05).astype(np.float32),
+        np.abs(rng.randn(C, k)).astype(np.float32),
+        (rng.randn(C) * 0.05).astype(np.float32),
+        rng.randn(C).astype(np.float32), np.abs(rng.randn(C)).astype(
+            np.float32), rng.randint(0, 6, C).astype(np.float32),
+        rng.rand(C) < 0.6)
+
+
+@pytest.mark.parametrize("slot_dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("cross", [False, True])
+def test_grow_state_equals_jax_bit_for_bit(slot_dtype, cross):
+    """2048 -> 8192 rows; with ``pad_v_rows_max_mb=1`` the padded V16
+    layout stops fitting on the way (fp32 past 2048 rows, bf16 past 4096,
+    int8 past 8192 — so int8 crosses at 16384) and the old rows move to
+    the appended layout."""
+    kw = dict(V_dim=16, slot_dtype=slot_dtype)
+    if cross:
+        kw["pad_v_rows_max_mb"] = 1
+    tp, jp = _params(**kw)
+    old, new = 2048, 16384 if slot_dtype == "int8" else 8192
+    assert (T.row_layout(tp, old) != T.row_layout(tp, new)) == cross
+    jstate = J.init_state(jp, old)._replace(VVg=_trained_like(jp, old, 3))
+    tstate = state_from_jax_table(tp, np.asarray(jstate.VVg), "cpu")
+    got = T.grow_state(tp, tstate, new, _jax_provider(tp, jp))
+    want = J.grow_state(jp, jstate, new)
+    assert got.capacity == want.capacity == new
+    np.testing.assert_array_equal(_bits(got.VVg.view(
+        torch.int16 if got.VVg.dtype == torch.bfloat16 else got.VVg.dtype
+    ).numpy()), _bits(want.VVg))
+
+
+def test_grow_state_flat_table_appends_zero_rows():
+    tp, jp = _params(V_dim=0)
+    rng = np.random.RandomState(4)
+    cols = {f: rng.randn(64).astype(np.float32)
+            for f in ("w", "z", "sqrt_g", "cnt")}
+    tstate = state_from_numpy(tp, cols, "cpu")
+    got = T.grow_state(tp, tstate, 256, lambda C: T.init_state(
+        tp, C, torch.device("cpu")))
+    jstate = J.init_state(jp, 64)._replace(
+        **{f: jnp.asarray(a) for f, a in cols.items()})
+    want = J.grow_state(jp, jstate, 256)
+    for f in ("w", "z", "sqrt_g", "cnt", "v_live"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    assert got.VVg.shape == (256, 0)
+
+
+# ---------------------------------------------------------- flat table
+def test_flat_push_and_evaluate_equal_jax_bit_for_bit():
+    C = 512
+    tp, jp = _params(V_dim=0, hash_capacity=C, l1=0.1, l2=0.05, lr=0.3)
+    rng = np.random.RandomState(5)
+    cols = dict(w=(rng.randn(C) * 0.2).astype(np.float32),
+                z=rng.randn(C).astype(np.float32),
+                sqrt_g=np.abs(rng.randn(C)).astype(np.float32),
+                cnt=rng.randint(0, 9, C).astype(np.float32))
+    # the port pushes in place: its columns must not share memory with
+    # the arrays JAX reads
+    state = state_from_numpy(tp, {f: a.copy() for f, a in cols.items()},
+                             "cpu")
+    jstate = J.init_state(jp, C)._replace(
+        **{f: jnp.asarray(a) for f, a in cols.items()})
+    tf, jf = T.make_fns(tp), J.make_fns(jp)
+    slots = pad_slots_oob(np.sort(rng.choice(np.arange(1, C), 60, False))
+                          .astype(np.int32), 64, C)
+    counts = rng.randint(1, 4, 64).astype(np.float32)
+    gw = (rng.randn(64) * 0.5).astype(np.float32)
+    ts, js = torch.from_numpy(slots), jnp.asarray(slots)
+    state = tf.apply_count(state, ts, torch.from_numpy(counts))
+    jstate = jf.apply_count(jstate, js, jnp.asarray(counts))
+    state = tf.apply_grad(state, ts, torch.from_numpy(gw), None, None)
+    jstate = jf.apply_grad(jstate, js, jnp.asarray(gw), None, None)
+    for f in ("w", "z", "sqrt_g", "cnt"):
+        np.testing.assert_array_equal(
+            getattr(state, f).numpy().view(np.uint32),
+            np.asarray(getattr(jstate, f)).view(np.uint32))
+    w, _, _ = tf.get_rows(state, ts)
+    jw, _, _ = jf.get_rows(jstate, js)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    got, want = tf.evaluate(state), jf.evaluate(jstate)
+    assert float(got[1]) == float(want[1])
+    assert abs(float(got[0]) - float(want[0])) <= 1e-6 * abs(
+        float(want[0]))
+
+
+# ---------------------------------------------------------- checkpoints
+def _dict_stores(kw, n_keys, seed):
+    """A port and a JAX dictionary store with the same keys inserted and
+    the same trained-looking rows."""
+    tp, jp = _params(**kw)
+    port = SlotStore(tp, device="cpu", init=_jax_provider(tp, jp))
+    ref = JStore(jp)
+    rng = np.random.RandomState(seed)
+    keys = np.unique(rng.randint(0, 2 ** 62, n_keys, dtype=np.int64)
+                     .astype(np.uint64))
+    port.map_keys(keys)
+    ref.map_keys(keys)
+    C = ref.state.capacity
+    if tp.V_dim:
+        jt = _trained_like(jp, C, seed)
+        ref.state = ref.state._replace(VVg=jt)
+        port.state = state_from_jax_table(tp, np.asarray(jt), "cpu")
+    else:
+        cols = dict(w=(rng.randn(C) * 0.2).astype(np.float32),
+                    z=rng.randn(C).astype(np.float32),
+                    sqrt_g=np.abs(rng.randn(C)).astype(np.float32),
+                    cnt=rng.randint(0, 3, C).astype(np.float32))
+        cols["w"][rng.rand(C) < 0.3] = 0.0
+        ref.state = ref.state._replace(
+            **{f: jnp.asarray(a) for f, a in cols.items()})
+        port.state = state_from_numpy(
+            tp, {f: a.copy() for f, a in cols.items()}, "cpu")
+    return port, ref, tp, jp
+
+
+def _same_table(port, ref):
+    if port.param.V_dim:
+        np.testing.assert_array_equal(port.state.VVg.numpy().view(np.uint32),
+                                      np.asarray(ref.state.VVg).view(
+                                          np.uint32))
+    else:
+        for f in ("w", "z", "sqrt_g", "cnt", "v_live"):
+            np.testing.assert_array_equal(getattr(port.state, f).numpy(),
+                                          np.asarray(getattr(ref.state, f)))
+
+
+@pytest.mark.parametrize("V_dim", [0, 4])
+@pytest.mark.parametrize("aux", [False, True])
+def test_dictionary_checkpoints_cross_both_ways(tmp_path, V_dim, aux):
+    kw = dict(V_dim=V_dim, init_capacity=64)
+    port, ref, tp, jp = _dict_stores(kw, 300, seed=6)
+    port.save(str(tmp_path / "p_part-0"), save_aux=aux)
+    ref.save(str(tmp_path / "j_part-0"), save_aux=aux)
+    a = dict(np.load(str(tmp_path / "p_part-0")))
+    b = dict(np.load(str(tmp_path / "j_part-0")))
+    assert set(a) == set(b) and "keys" in a and "hash_capacity" not in a
+    for f in b:
+        np.testing.assert_array_equal(a[f], b[f])
+    # each package loads the other's file into a fresh store
+    jback = JStore(jp)
+    jback.load(str(tmp_path / "p_part-0"), weights_only=not aux)
+    pback = SlotStore(tp, device="cpu", init=_jax_provider(tp, jp))
+    pback.load(str(tmp_path / "j_part-0"), weights_only=not aux)
+    np.testing.assert_array_equal(pback._keys, jback._keys)
+    np.testing.assert_array_equal(pback._slots, jback._slots)
+    assert pback.state.capacity == jback.state.capacity
+    _same_table(pback, jback)
+
+
+@pytest.mark.parametrize("V_dim", [0, 4])
+def test_state_from_numpy_takes_a_dictionary_model(tmp_path, V_dim):
+    """The arrays of a JAX dictionary checkpoint (keys and their rows)
+    become the table JAX's own load builds: rows at slots 1..n of a
+    table doubled from init_capacity, fresh rows elsewhere."""
+    _, ref, tp, jp = _dict_stores(dict(V_dim=V_dim, init_capacity=64), 300,
+                                  seed=10)
+    ref.save(str(tmp_path / "j_part-0"), save_aux=True)
+    arrays = dict(np.load(str(tmp_path / "j_part-0")))
+    state = state_from_numpy(tp, arrays, "cpu", init=_jax_provider(tp, jp))
+    back = JStore(jp)
+    back.load(str(tmp_path / "j_part-0"))
+    port = SlotStore(tp, device="cpu")
+    port.state = state
+    _same_table(port, back)
+
+
+def test_flat_hashed_checkpoint_crosses_both_ways(tmp_path):
+    C = 256
+    tp, jp = _params(V_dim=0, hash_capacity=C)
+    rng = np.random.RandomState(7)
+    cols = dict(w=(rng.randn(C) * 0.2).astype(np.float32),
+                z=rng.randn(C).astype(np.float32),
+                sqrt_g=np.abs(rng.randn(C)).astype(np.float32),
+                cnt=rng.randint(0, 3, C).astype(np.float32))
+    port = SlotStore(tp, device="cpu")
+    port.state = state_from_numpy(tp, cols, "cpu")
+    port.save(str(tmp_path / "p_part-0"), save_aux=True)
+    ref = JStore(jp)
+    ref.load(str(tmp_path / "p_part-0"))
+    ref.save(str(tmp_path / "j_part-0"), save_aux=True)
+    back = SlotStore(tp, device="cpu")
+    back.load(str(tmp_path / "j_part-0"), weights_only=False)
+    _same_table(back, ref)
+    _same_table(port, ref)
+
+
+def test_store_mode_mismatch_raises(tmp_path):
+    port, _, tp, _ = _dict_stores(dict(V_dim=2), 50, seed=8)
+    port.save(str(tmp_path / "d_part-0"))
+    hashed = SlotStore(T.SGDUpdaterParam(V_dim=2, hash_capacity=64),
+                       device="cpu")
+    with pytest.raises(ValueError, match="mode mismatch"):
+        hashed.load(str(tmp_path / "d_part-0"))
+    hashed.save(str(tmp_path / "h_part-0"))
+    with pytest.raises(ValueError, match="mode mismatch"):
+        SlotStore(tp, device="cpu").load(str(tmp_path / "h_part-0"))
+
+
+# ------------------------------------------------------------- learners
+def test_dictionary_grows_while_staging_and_repads(tmp_path, criteo):
+    """From 64 rows the table doubles during epoch 0 while the cache
+    stages; the staged pads are rewritten before epoch 1 replays, and
+    every staged slot vector then pads out of bounds of the live capacity,
+    ascending from it (the JAX package's repad: ``capacity + j - nu``)."""
+    kw = defaults_kwargs(criteo, ("init_capacity", "64"))
+    port, jax_ln = assert_runs_agree(tmp_path, kw, "growth")
+    cap = port.store.state.capacity
+    assert cap == jax_ln.store.state.capacity >= 64 * 2 ** 6
+    cache = port._caches[tsgd.K_TRAINING]
+    assert cache.capacity == cap and not cache.stale_pads
+    for items in cache.entries.values():
+        for st in items:
+            off, u = st.slots_offset, st.u_cap
+            nu = int(st.i32[off + u + 1])
+            slots = st.i32[off:off + u].numpy()
+            assert (slots[:nu] < cap).all()
+            assert (np.diff(slots[:nu]) > 0).all()
+            np.testing.assert_array_equal(slots[nu:],
+                                          np.arange(cap, cap + u - nu))
+
+
+@pytest.mark.parametrize("data", ["criteo", "rcv1"])
+def test_flat_table_learner_matches_jax(tmp_path, criteo, data):
+    """loss=logit (V_dim forced to 0) on the dictionary store: Criteo
+    panels take the chunked backward of the flat table, rcv1 the COO
+    one; no count push, as in JAX."""
+    if data == "criteo":
+        kw = defaults_kwargs(criteo, ("loss", "logit"))
+    else:
+        kw = [("data_in", RCV1), ("loss", "logit"), ("batch_size", "20"),
+              ("max_num_epochs", "3"), ("stop_rel_objv", "0"),
+              ("report_interval", "0"), ("has_aux", "1"),
+              ("init_capacity", "128")] + HYPER
+    port, _ = assert_runs_agree(tmp_path, kw, f"flat {data}")
+    assert port.store.param.V_dim == 0
+
+
+@pytest.mark.parametrize("conf", ["local.conf", "fm.conf"])
+def test_example_config_matches_jax(tmp_path, conf):
+    """The example configs as the CLI reads them: per-epoch objective,
+    AUC, nnz and penalty of both learners."""
+    kw = parse_config_file(os.path.join(_ROOT, "examples", conf))
+    kw = [(k, os.path.join(_ROOT, v) if k == "data_in" else v)
+          for k, v in kw] + [("report_interval", "0")]
+    rows, _, _ = run_port(kw, str(tmp_path / "port"))
+    jrows, _, _ = run_jax(kw, str(tmp_path / "jax"))
+    assert len(rows) == len(jrows) >= 2
+    for r, j in zip(rows, jrows):
+        assert (r[0], r[3]) == (j[0], j[3])
+        for i in (1, 2, 4):
+            assert abs(r[i] - j[i]) <= 1e-5 * abs(j[i]), (conf, r, j)
+
+
+@pytest.mark.parametrize("conf", ["local.conf", "fm.conf"])
+def test_cli_trains_example_config_and_both_preds_agree(tmp_path, conf):
+    """``python -m difacto_tpu_torch examples/<conf> device=cpu`` trains
+    and saves a dictionary model; both packages' ``task=pred`` score it
+    alike (the port reads it through ``open_serving_store``)."""
+    from difacto_tpu.__main__ import main as jmain
+    from difacto_tpu_torch.__main__ import main
+    model = str(tmp_path / "m")
+    cwd = os.getcwd()
+    os.chdir(_ROOT)
+    try:
+        assert main([f"examples/{conf}", "device=cpu", "max_num_epochs=3",
+                     f"model_out={model}", "report_interval=0"]) == 0
+    finally:
+        os.chdir(cwd)
+    with np.load(model + "_part-0") as z:
+        assert "keys" in z.files and len(z["keys"]) > 0
+    V_dim = "2" if conf == "fm.conf" else "0"
+    tp, jp = str(tmp_path / "tp"), str(tmp_path / "jp")
+    assert main(["task=pred", "device=cpu", f"model_in={model}",
+                 f"data_in={RCV1}", f"pred_out={tp}"]) == 0
+    assert jmain(["task=pred", f"model_in={model}", f"data_in={RCV1}",
+                  f"V_dim={V_dim}", f"pred_out={jp}"]) == 0
+    got = np.loadtxt(tp + "_part-0")
+    want = np.loadtxt(jp + "_part-0")
+    assert got.shape == want.shape == (100, 2)
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    assert np.abs(got[:, 1] - want[:, 1]).max() <= 1e-6
+
+
+def test_serving_a_dictionary_model_maps_unknown_ids_to_trash(tmp_path):
+    from difacto_tpu_torch.data.rowblock import RowBlock
+    from difacto_tpu_torch.serve import PredictExecutor, open_serving_store
+    port, _, _, _ = _dict_stores(dict(V_dim=4, init_capacity=64), 200,
+                                 seed=9)
+    port.save(str(tmp_path / "m_part-0"))
+    store, meta, _ = open_serving_store(str(tmp_path / "m"), device="cpu")
+    assert not meta["hashed"] and store.read_only
+    n = store.num_features
+    known = np.asarray(port._keys[:5])
+    from difacto_tpu_torch.base import reverse_bytes
+    ids = reverse_bytes(np.concatenate([known, np.array([3, 5], np.uint64)]))
+    blk = RowBlock(offset=np.array([0, 5, 7]), label=np.zeros(2, np.float32),
+                   index=ids.astype(np.uint64), value=None)
+    scores = PredictExecutor(store).predict_scores(blk)
+    assert store.num_features == n
+    assert scores[1] == 0.0 and scores[0] != 0.0
+
+
+def test_cli_runs_criteo_dict_conf_with_mesh_keys_ignored(tmp_path, criteo,
+                                                          caplog):
+    import logging
+    from difacto_tpu_torch.__main__ import main
+    model = str(tmp_path / "d")
+    with caplog.at_level(logging.INFO, logger="difacto_tpu_torch"):
+        assert main([os.path.join(_ROOT, "examples", "criteo_dict.conf"),
+                     "device=cpu", f"data_in={criteo[0]}",
+                     "max_num_epochs=2", "init_capacity=1024",
+                     f"model_out={model}", "report_interval=0"]) == 0
+    assert "mesh_dp=2 mesh_fs=4 ignored" in caplog.text
+    with np.load(model + "_part-0") as z:
+        assert z["V"].shape[1] == 16 and len(z["keys"]) > 1024

@@ -6,7 +6,10 @@
 - An entry point called without ``device=`` on a box with no CUDA raises
   instead of running on the CPU, ``task=train`` included.
 - A CPU tensor takes the plain gather and the plain push, and the CUDA
-  kernels' launch counters stay 0.
+  kernels' launch counters stay 0, also through the replay cache.
+- The JAX package's default training (the dictionary store, the replay
+  cache with the chunked backward, the flat table), its checkpoints and
+  task=pred run in an interpreter where jax cannot be imported.
 """
 
 import os
@@ -22,6 +25,7 @@ from difacto_tpu_torch.ops import fused
 from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 
 def test_port_imports_without_jax_or_reference_package():
@@ -138,3 +142,65 @@ def test_cpu_table_takes_plain_push_and_counts_no_launch():
                                   torch.zeros(4, 4), torch.ones(4),
                                   T.epilogue_spec(param, 64))
     assert [c.launches for c in counters] == launched
+
+
+def test_default_training_runs_with_jax_poisoned(tmp_path):
+    """The slice's paths in an interpreter that cannot import jax or
+    difacto_tpu: the dictionary store growing from a small table, the
+    replay cache with its chunked panel backward, the flat V_dim=0 table,
+    checkpoints and task=pred, all on the CPU."""
+    from chip_smoke import synthetic_criteo
+    data = tmp_path / "criteo.txt"
+    data.write_bytes(synthetic_criteo(300, 3))
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        from difacto_tpu_torch.__main__ import main
+        from difacto_tpu_torch.learners.sgd import SGDLearner
+        ln = SGDLearner(device="cpu")
+        ln.init([("data_in", {str(data)!r}), ("data_format", "criteo"),
+                 ("V_dim", "4"), ("batch_size", "50"),
+                 ("init_capacity", "64"), ("max_num_epochs", "2"),
+                 ("report_interval", "0"),
+                 ("model_out", {str(tmp_path / 'm')!r})])
+        ln.run()
+        info = ln.device_cache_info()
+        assert info[3]["complete"], info
+        assert ln.store.state.capacity > 64
+        assert main(["task=pred", "device=cpu", "data_format=criteo",
+                     "model_in={tmp_path / 'm'}",
+                     "data_in={data}"]) == 0
+        assert main(["examples/local.conf", "device=cpu",
+                     "max_num_epochs=2"]) == 0
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_cpu_replay_run_counts_no_launch(tmp_path):
+    """A CPU run through the replay cache and the dictionary's growth
+    takes the plain versions only: every kernel counter stays 0."""
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    counters = (fused.gather_rows_cuda, fused.scatter_rows_cuda,
+                fused.fm_update_rows_cuda)
+    before = [c.launches for c in counters]
+    ln = SGDLearner(device="cpu")
+    ln.init([("data_in", _RCV1), ("V_dim", "2"), ("init_capacity", "32"),
+             ("max_num_epochs", "3"), ("report_interval", "0")])
+    ln.run()
+    assert ln.device_cache_info()[3]["complete"]
+    assert [c.launches for c in counters] == before == [0, 0, 0]

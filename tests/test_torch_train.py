@@ -20,9 +20,11 @@ Inputs are made from seeds with numpy and handed to both packages:
 - two port runs are bit-identical; checkpoints with aux cross both ways
   and continue to the same next step.
 
-The JAX learner runs with ``device_cache_mb=0 num_producers=1
-producer_mode=thread fused_kernel=jnp``: its streamed path, one step
-program per batch, as the port runs.
+The learner runs here take the streamed path on both sides
+(``device_cache_mb=0``; the JAX learner also ``num_producers=1
+producer_mode=thread fused_kernel=jnp``): one step program per batch.
+The replay cache's path, the JAX package's default, is held to JAX in
+tests/test_torch_replay.py.
 """
 
 import os
@@ -335,7 +337,8 @@ def _learner_kwargs(tmp_path, criteo, data):
             ("hash_capacity", str(C)), ("has_aux", "1"),
             ("max_num_epochs", "3"), ("batch_size", "50"),
             ("num_jobs_per_epoch", "2"), ("shuffle", "2"),
-            ("report_interval", "0"), ("model_in", init)] + \
+            ("report_interval", "0"), ("model_in", init),
+            ("device_cache_mb", "0")] + \
         [(a, str(b)) for a, b in HYPER.items()]
 
 
@@ -429,8 +432,7 @@ def test_cli_train_saves_a_model_jax_pred_scores(tmp_path):
     "stream_chunks=1", "device_dedup=1", "ckpt_interval=1", "auto_resume=1",
     "wal_flush_batches=4", "replica_peers=/tmp/x", "mesh_force=1",
     "bounded_delay=2", "metrics_path=/tmp/m.jsonl", "admit_min_count=2",
-    "evict_occupancy=0.5", "cold_tier_rows=64", "hash_capacity=0",
-    "loss=logit"])
+    "evict_occupancy=0.5", "cold_tier_rows=64"])
 def test_knobs_that_change_the_result_raise_when_not_ported(knob):
     k, v = knob.split("=")
     kwargs = dict([("data_in", RCV1), ("V_dim", "2"),
@@ -445,11 +447,11 @@ def test_speed_knobs_are_accepted_and_logged(caplog):
     with caplog.at_level(logging.INFO, logger="difacto_tpu_torch"):
         SGDLearner(device="cpu").init([
             ("data_in", RCV1), ("V_dim", "2"), ("hash_capacity", "4096"),
-            ("device_cache_mb", "512"), ("num_producers", "4"),
-            ("producer_mode", "process"), ("mesh_dp", "2")])
+            ("num_producers", "4"), ("producer_mode", "process"),
+            ("mesh_dp", "2")])
     text = caplog.text
-    assert "not ported, streams every epoch" in text
-    assert "device_cache_mb=512" in text and "ignored" in text
+    assert "not ported, parts are read serially" in text
+    assert "num_producers=4" in text and "ignored" in text
 
 
 @pytest.mark.parametrize("which", ["learner", "updater"])
