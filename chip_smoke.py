@@ -5,7 +5,8 @@
 
 Drives the port's serving and training paths at the full width of
 examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
-2.0 GiB fp32 table on the card) and of examples/criteo_dict.conf (the
+2.0 GiB fp32 table on the card), also streamed through the producer
+threads and worker processes, and of examples/criteo_dict.conf (the
 dictionary store at the JAX package's defaults), with random weights and
 synthetic Criteo rows made from a seed, and holds the CUDA kernels (the
 fused-row gather and the scatter with its FTRL/AdaGrad epilogue) against
@@ -80,7 +81,28 @@ their plain PyTorch versions. Phases:
     bit on the plain versions;
 11. examples/local.conf (logistic regression on the flat V_dim=0 table,
     the dictionary store): the objective falls over 5 epochs and
-    ``task=pred`` of the saved model is within 1e-4 of a float64 model.
+    ``task=pred`` of the saved model is within 1e-4 of a float64 model;
+12. the streamed pipeline at the full width of examples/criteo_hashed.conf
+    with ``device_cache_mb=0`` (phase 7's 50,000 train and 10,000
+    validation rows, 2 epochs, both streamed): (a) one producer thread,
+    (f) four threads, (b) four worker processes over the shared-memory
+    ring with ``device_dedup=1`` (engaged in epoch 1), (c) four threads
+    with ``stream_chunks=1``, twice, (d) run (b) on the plain versions,
+    (e) run (b) with ``ckpt_interval=1 ckpt_keep=2 metrics_path=...``
+    stopped after epoch 0 and rerun with ``auto_resume=1``. Runs (f),
+    (b), (d) and the resumed (e) leave (a)'s table bit for bit, (c)
+    agrees with (a) within 2e-5 and repeats bit for bit; each run's
+    launches match its batches; (b) reports ``producer_mode=process``
+    and no ring segment is left in /dev/shm; the metrics JSONL holds
+    every ``stage_seconds_total`` stage; (a)'s saved model scores within
+    1e-4 of a float64 FM. (g) the defaults (``producer_mode`` and
+    ``num_producers`` unset): process mode on a host with at least 4
+    cores, (a)'s table bit for bit; with ``--parent DIR`` each tree's
+    learner trains the same run in its own interpreter, in turns with
+    this tree's (parents, this, this, parents). Each run's epoch wall
+    times and ``stage_stats()`` are printed, and the producers' own rate
+    without a step behind them (one thread, four threads, four
+    processes: the seconds to the first batch and to the last).
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -89,8 +111,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9 and 10, each counted from 0 just before its
-own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10 and 12, each counted from 0 just before
+its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -1322,12 +1344,309 @@ def phase_local_conf(work: str) -> None:
     log("phase 11 ok: the flat table trains and scores on the card")
 
 
+def _ring_segments() -> set:
+    """This process's live shared-memory ring segments."""
+    from difacto_tpu_torch.data.shm_ring import RING_PREFIX
+    mine = f"{RING_PREFIX}{os.getpid()}_"
+    return {n for n in os.listdir("/dev/shm") if n.startswith(mine)}
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _time_producers(lp, data_in: str, hash_capacity: int) -> dict:
+    """The producers alone, with no step behind them: epoch 1's batches
+    of ``data_in`` through one thread, four threads and four worker
+    processes (``spec_iter``, the process mode's make_iter, in all
+    three). Seconds to the first batch (for the processes: spawn,
+    imports and the first part's first batch) and to the last."""
+    import functools
+    from difacto_tpu_torch.data.pack_stream import StreamSpec, spec_iter
+    from difacto_tpu_torch.data.producer_pool import (OrderedProducerPool,
+                                                      ProcessProducerPool)
+    from difacto_tpu_torch.ops.batch import bucket
+    n = lp.num_jobs_per_epoch
+    spec = StreamSpec(
+        parts=tuple(range(n)), n_jobs=n, data_in=data_in,
+        data_format=lp.data_format, batch_size=lp.batch_size,
+        shuffle=lp.shuffle, neg_sampling=lp.neg_sampling, epoch=1,
+        hash_capacity=hash_capacity, want_counts=False, fill_counts=False,
+        dim_min=8, job="train", b_cap=bucket(lp.batch_size, 8))
+    make = functools.partial(spec_iter, spec)
+    pools = {
+        "1 thread": lambda: OrderedProducerPool(n, make, n_workers=1,
+                                                depth=3),
+        "4 threads": lambda: OrderedProducerPool(n, make, n_workers=4,
+                                                 depth=3),
+        "4 processes": lambda: ProcessProducerPool(
+            n, make, n_workers=4, depth=3, slot_bytes=1 << 20)}
+    out = {}
+    for name, pool in pools.items():
+        t0 = time.perf_counter()
+        first, count = None, 0
+        for _ in pool():
+            if first is None:
+                first = time.perf_counter() - t0
+            count += 1
+        total = time.perf_counter() - t0
+        out[name] = (first, total, count)
+        log(f"  producers alone, {name}: first batch after {first:.3f} s, "
+            f"{count} batches in {total:.3f} s "
+            f"({1e3 * total / count:.2f} ms per batch)")
+    return out
+
+
+# one task=train run of another tree's learner, in its own interpreter
+# (that tree's difacto_tpu_torch first on sys.path, its kernels built
+# before the clock starts): prints [(epoch, job, wall s)]
+_TREE_TRAIN = r"""
+import json, sys, time
+import torch
+from difacto_tpu_torch.learners.sgd import SGDLearner
+from difacto_tpu_torch.ops import build
+for name in json.loads(sys.argv[2]) if sys.argv[3] == "cuda" else ():
+    build.library(name)
+ln = SGDLearner(device=sys.argv[3])
+ln.init([tuple(kv) for kv in json.loads(sys.argv[1])])
+walls, run_epoch = [], ln._run_epoch
+def timed(epoch, job_type, prog):
+    t0 = time.perf_counter()
+    run_epoch(epoch, job_type, prog)
+    if sys.argv[3] == "cuda":
+        torch.cuda.synchronize()
+    walls.append((epoch, job_type, time.perf_counter() - t0))
+ln._run_epoch = timed
+ln.run()
+print(json.dumps(walls))
+"""
+
+
+def _tree_train(tree: str, kwargs: list) -> list:
+    """[(epoch, job, wall s)] of one ``task=train`` run of ``tree``'s
+    learner (a checkout of another commit) on ``kwargs``."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    r = subprocess.run(
+        [sys.executable, "-c", _TREE_TRAIN, json.dumps(kwargs),
+         json.dumps(sorted(KERNELS)), DEV],
+        cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"the learner of {tree} failed:\n"
+                             f"{r.stderr[-3000:]}")
+    return [tuple(w) for w in json.loads(r.stdout.splitlines()[-1])]
+
+
+def phase_stream(work: str, conf: list, uparam,
+                 parents: tuple = ()) -> dict:
+    """Phase 12: the streamed pipeline (``device_cache_mb=0``) at the full
+    width of examples/criteo_hashed.conf, 50,000 train and 10,000
+    validation rows, 2 epochs: (a) one producer thread; (f) four
+    threads; (b) four worker processes over the shared-memory ring with
+    ``device_dedup=1`` (it engages in epoch 1, past the count push); (c)
+    four threads with ``stream_chunks=1``, twice; (d) run (b) on the
+    plain versions; (e) run (b) with interval checkpoints and
+    ``metrics_path``, stopped after epoch 0, then resumed with
+    ``auto_resume=1``; (g) the defaults (``producer_mode`` and
+    ``num_producers`` unset), which are process mode on a host with at
+    least 4 cores. With ``parents`` (checkouts of other commits), each
+    tree's learner trains the defaults run too, in turns with this
+    tree's (parents, this, this, parents), for the epoch times."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.learners.sgd import SGDLearnerParam
+    data_in = os.path.join(work, "train.txt")
+    data_val = os.path.join(work, "val.txt")
+    if not os.path.exists(data_in):
+        with open(data_in, "wb") as f:
+            f.write(synthetic_criteo(N_TRAIN, SEED + 2))
+    if not os.path.exists(data_val):
+        with open(data_val, "wb") as f:
+            f.write(synthetic_criteo(N_VAL, SEED + 3))
+    with open(data_val, "rb") as f:
+        val_text = f.read()
+    kwargs = conf + [("data_in", data_in), ("data_val", data_val),
+                     ("max_num_epochs", "2"), ("stop_rel_objv", "0"),
+                     ("stop_val_auc", "-2"), ("device_cache_mb", "0"),
+                     ("report_interval", "0")]
+    lp, _ = SGDLearnerParam.init_allow_unknown(kwargs)
+    train_b, val_b = _count_batches(lp, data_in, data_val, 2)
+    if train_b[0] != train_b[1]:
+        raise AssertionError(f"epochs cut {train_b} batches")
+    nb = train_b[0]
+    # one gather and one push per step, one more gather and a count push
+    # per epoch-0 batch, one gather per validation block and epoch
+    want = {"gather_rows_cuda": 2 * nb + nb + 2 * val_b,
+            "fm_update_rows_cuda": 2 * nb, "scatter_rows_cuda": nb}
+    log(f"  {nb} train batches per epoch (both epochs stream), {val_b} "
+        f"validation block(s); {os.cpu_count()} host cores")
+    total = {c: 0 for c in COUNTERS}
+
+    def run(name, extra, counted=True):
+        if counted:
+            _reset_counts()
+        ln, progress, walls, _ = _train(kwargs + list(extra))
+        if counted:
+            got = _counts()
+            for c in COUNTERS:
+                total[c] += got[c]
+        st = ln.stage_stats()
+        log(f"  run {name}: epoch wall s {_epoch_walls(walls)}; stages "
+            f"{st}")
+        bits = ln.store.state.VVg.clone()
+        loss = [t.loss / t.nrows for t, _ in progress]
+        del ln
+        gc.collect()
+        torch.cuda.empty_cache()
+        return bits, loss, st, walls
+
+    model = os.path.join(work, "stream_a")
+    bits_a, loss_a, st_a, walls_a = run(
+        "(a) 1 thread", [("num_producers", "1"),
+                         ("producer_mode", "thread"), ("has_aux", "1"),
+                         ("model_out", model)])
+    if total != want:
+        raise AssertionError(f"run (a) launches {total}, the batches need "
+                             f"{want}")
+    if not (np.isfinite(loss_a).all() and loss_a[1] < loss_a[0]):
+        raise AssertionError(f"objective per row did not fall: {loss_a}")
+    bits_f, _, st_f, walls_f = run(
+        "(f) 4 threads", [("num_producers", "4"),
+                          ("producer_mode", "thread")])
+    if not _bits_equal(bits_f, bits_a) or st_f["producer_mode"] != "thread":
+        raise AssertionError("4 producer threads left another table")
+    del bits_f
+    proc = [("num_producers", "4"), ("producer_mode", "process"),
+            ("device_dedup", "1")]
+    before = _ring_segments()
+    bits_b, _, st_b, walls_b = run("(b) 4 processes, device_dedup", proc)
+    if st_b["producer_mode"] != "process":
+        raise AssertionError(f"run (b) ran on {st_b['producer_mode']}")
+    if not _bits_equal(bits_b, bits_a):
+        raise AssertionError("run (b) left another table than run (a)")
+    del bits_b
+    chunked = [("num_producers", "4"), ("producer_mode", "thread"),
+               ("stream_chunks", "1")]
+    bits_c, loss_c, _, walls_c = run("(c) 4 threads, stream_chunks",
+                                     chunked)
+    bits_c2, loss_c2, _, _ = run("(c) again", chunked)
+    if not _bits_equal(bits_c, bits_c2) or loss_c != loss_c2:
+        raise AssertionError("stream_chunks=1 did not repeat bit for bit")
+    del bits_c2
+    ref = bits_a.view(torch.float32)
+    c_err = float((bits_c - ref).abs().max()) / float(ref.abs().max())
+    l_err = max(abs(x - y) / abs(y) for x, y in zip(loss_c, loss_a))
+    if not (c_err <= 2e-5 and l_err <= 2e-5):
+        raise AssertionError(f"stream_chunks=1 vs run (a): table {c_err}, "
+                             f"loss {l_err} (limit 2e-5)")
+    del bits_c
+    log(f"  run (c) vs (a): table within {c_err:.3g} of max|a|, loss per "
+        f"row within {l_err:.3g} (limit 2e-5)")
+    _reset_counts()
+    restore = _swap_plain()
+    try:
+        bits_d, _, _, _ = run("(d) run (b) on the plain versions", proc,
+                              counted=False)
+    finally:
+        restore()
+    if any(_counts().values()):
+        raise AssertionError("the run on the plain versions launched a "
+                             "kernel")
+    if not _bits_equal(bits_d, bits_a):
+        raise AssertionError("run (d) left another table than run (a)")
+    del bits_d
+    ck = os.path.join(work, "stream_e")
+    metrics = os.path.join(work, "stream_e.jsonl")
+    fault = proc + [("ckpt_interval", "1"), ("ckpt_keep", "2"),
+                    ("model_out", ck), ("metrics_path", metrics),
+                    ("metrics_interval_s", "1")]
+    run("(e) stopped after epoch 0", fault + [("max_num_epochs", "1")])
+    if not os.path.exists(ck + "_iter-0_part-0"):
+        raise AssertionError("run (e) left no interval checkpoint")
+    bits_e, _, st_e, walls_e = run("(e) resumed", fault + [
+        ("max_num_epochs", "2"), ("auto_resume", "1")])
+    if [e for e, j, _ in walls_e if j == 3] != [1]:
+        raise AssertionError(f"run (e) did not resume at epoch 1: "
+                             f"{walls_e}")
+    if not _bits_equal(bits_e, bits_a):
+        raise AssertionError("the resumed run (e) left another table than "
+                             "run (a)")
+    del bits_e
+    # (g) the defaults, in turns with the parents' learners on the same
+    # arguments
+    trees = {os.path.basename(os.path.normpath(d)): d for d in parents}
+    tree_walls = {n: [_tree_train(d, kwargs)] for n, d in trees.items()}
+    bits_g, _, st_g, walls_g = run("(g) the defaults", [])
+    auto = "process" if (os.cpu_count() or 1) >= 4 else "thread"
+    if st_g["producer_mode"] != auto:
+        raise AssertionError(f"the defaults ran on {st_g['producer_mode']}, "
+                             f"not {auto}")
+    if not _bits_equal(bits_g, bits_a):
+        raise AssertionError("run (g) left another table than run (a)")
+    del bits_g
+    walls_g = [walls_g]
+    if parents:
+        walls_g.append(run("(g) again", [], counted=False)[3])
+        for n, d in trees.items():
+            tree_walls[n].append(_tree_train(d, kwargs))
+    for name, turns in tree_walls.items():
+        for w in turns:
+            log(f"  the defaults on the learner of {name}: epoch wall s "
+                f"{_epoch_walls(w)}")
+    if total != {c: 7 * v for c, v in want.items()}:
+        raise AssertionError(f"runs (a), (f), (b), (c) x2, (e) and (g) "
+                             f"launched {total}, the batches need 7 x "
+                             f"{want}")
+    leaked = _ring_segments() - before
+    if leaked:
+        raise AssertionError(f"shared-memory segments left: {leaked}")
+    with open(metrics) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    stages = lines[-1]["metrics"]["counters"]["stage_seconds_total"]
+    need = {f"stage={s}" for s in ("parse", "pack", "ring_wait",
+                                   "transfer", "step")}
+    if not need <= set(stages):
+        raise AssertionError(f"metrics JSONL stages {sorted(stages)}")
+    log(f"  run (e): {len(lines)} metrics lines; the last one's stages "
+        f"{ {k: round(v, 3) for k, v in stages.items()} }")
+    # the saved model of run (a) through phase 3's pred path vs a float64
+    # FM over its arrays
+    with np.load(model + "_part-0") as z:
+        arrays = {f: z[f] for f in ("w", "V", "v_live")}
+    pred_out = os.path.join(work, "stream_pred")
+    run_pred(conf + [("model_in", model), ("data_in", data_val),
+                     ("pred_out", pred_out)], device=DEV)
+    with open(pred_out + "_part-0", "rb") as f:
+        probs = np.array([float(x.split(b"\t")[1])
+                          for x in f.read().splitlines()])
+    ref_m = reference_margins(val_text, arrays, uparam.hash_capacity)
+    p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref_m))).max())
+    if len(probs) != N_VAL or not p_err <= 1e-4:
+        raise AssertionError(f"run (a)'s model pred vs float64 FM: "
+                             f"{len(probs)} rows, prob err {p_err}")
+    log(f"  run (a)'s saved model: task=pred within {p_err:.3g} of the "
+        "float64 FM")
+    producers = _time_producers(lp, data_in, uparam.hash_capacity)
+    log("phase 12 ok: the streamed pipeline at full width; threads, "
+        "processes, device_dedup and the resumed run leave run (a)'s "
+        "table bit for bit, stream_chunks within 2e-5; no ring segment "
+        "left")
+    return {"launches": total,
+            "walls": {"a": walls_a, "f": walls_f, "b": walls_b,
+                      "c": walls_c, "e": walls_e, "g": walls_g,
+                      "parents": tree_walls},
+            "stages": {"a": st_a, "f": st_f, "b": st_b, "e": st_e,
+                       "g": st_g},
+            "producers": producers}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
                     help="a checkout of another commit whose "
-                         "scatter_epilogue.cu phase 8 times in turns with "
-                         "this tree's (may be given more than once)")
+                         "scatter_epilogue.cu phase 8 times, and whose "
+                         "learner phase 12 runs at the defaults, in turns "
+                         "with this tree's (may be given more than once)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1382,12 +1701,13 @@ def main(argv=None) -> int:
         td = phase_train_dict(work)
         tx = phase_layout_cross(work)
         phase_local_conf(work)
+        ts = phase_stream(work, conf, uparam, tuple(args.parent))
         if "jax" in sys.modules or "difacto_tpu" in sys.modules:
             raise AssertionError("the smoke imported JAX or difacto_tpu")
-        # launches on the main paths: phases 3, 4, 7, 9 and 10, each read
-        # just after its own run
+        # launches on the main paths: phases 3, 4, 7, 9, 10 and 12, each
+        # read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
-              for c in COUNTERS}
+              + ts["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

@@ -22,22 +22,42 @@ per-part ``RandomState(epoch)`` permutation with no host-to-device copy
 staged out-of-bounds pads stale; the replay entry rewrites them
 (``_repad_cache``).
 
+Streamed parts are read, parsed and packed off the dispatch thread
+(``_iterate_parts``): by ``num_producers`` producer threads
+(data/producer_pool.OrderedProducerPool) or, on the hashed store's
+streamed training pass, by spawned worker processes that ship each packed
+batch through a shared-memory ring (ProcessProducerPool,
+data/shm_ring.py). Parts are pulled from a WorkloadPool and consumed in
+canonical order, so every transport and producer count yields the same
+batches in the same order. A batch's buffers are copied to the device one
+iteration before its step runs; a ring slot goes back to its worker only
+after the step that read it has finished. ``stream_chunks`` builds the
+chunked-run backward layout on the producers; ``device_dedup`` ships raw
+hashed tokens and dedups them in the step (ops/fused.dedup_tokens).
+
 The scheduler is the JAX package's (RunScheduler, sgd_learner.cc:52-122):
 epoch loop with training and validation jobs, relative-objective and
-validation-AUC early stopping, model load and save, epoch-end callbacks,
-progress rows. Parts are read in a plain serial loop: this port has no
-producer pool, so the knobs that only set its speed are accepted and
-logged, and the knobs that change what is computed and are not ported
-raise when set.
+validation-AUC early stopping, model load and save, interval checkpoints
+with optimizer state (``ckpt_interval``, ``ckpt_keep``) and
+``auto_resume`` from the newest one that verifies, epoch-end callbacks,
+progress rows. ``self.obs`` is the run's metric registry under the JAX
+package's metric names (``stage_seconds_total{stage}`` and the rest,
+``stage_stats()``), flushed to ``metrics_path`` as JSONL. The knobs that
+change what is computed and are not ported raise when set.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import json
 import logging
+import os
+import re
 import time
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,15 +65,23 @@ import torch
 from ..config import KWArgs, Param
 from ..data.batch_reader import BatchReader
 from ..data.localizer import compact
-from ..data.pack_stream import (Payload, ShapeSchedule, pack_mapped,
-                                prepare_hashed)
+from ..data.pack_stream import (Payload, ShapeSchedule, StreamSpec,
+                                pack_mapped, prepare_hashed, spec_iter,
+                                timed_reader)
+from ..data.producer_pool import (HELD_LEASES, OrderedProducerPool,
+                                  ProcessProducerPool)
 from ..data.reader import Reader
 from ..losses import create as create_loss
+from ..obs import REGISTRY, MetricsFlusher, Registry, trace
 from ..ops.batch import (bucket, panel_chunk_tokens_flat, unpack_batch,
-                         unpack_panel)
+                         unpack_panel, unpack_panel_raw)
+from ..ops.fused import dedup_tokens
 from ..step import make_step_fns
 from ..store.local import SlotStore
-from ..updaters.sgd_updater import SGDUpdaterParam
+from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
+from ..updaters.sgd_updater import SGDUpdaterParam, gather_bytes
+from ..utils import manifest as mft
+from ..utils import stream
 from ..utils.progress import Progress, ReportProg
 from .base import Learner
 
@@ -114,29 +142,28 @@ class SGDLearnerParam(Param):
     replica_k: int = 1
 
 
-# knobs that only set the speed of the JAX package's producer pool:
-# accepted, and the port reads parts serially on the dispatch thread
-_SPEED_ONLY = ("num_producers", "producer_mode", "producer_depth",
-               "ring_slot_mb", "straggler_timeout")
 # knobs that change what is computed, with the ROADMAP.md item that ports
 # them; a non-default value raises
 _NOT_PORTED = {
-    "stream_chunks": "Queue 1: stream_chunks",
-    "device_dedup": "Queue 1: device_dedup",
-    "ckpt_interval": "Queue 1: interval checkpoints and auto_resume",
-    "auto_resume": "Queue 1: interval checkpoints and auto_resume",
     "wal_flush_batches": "Queue 1: durability",
     "replica_peers": "Queue 1: durability",
     "mesh_force": "Queue 1: sharding",
-    "metrics_path": "Queue 1: observability",
 }
+# the streamed pipeline's stages (stage_seconds_total{stage}):
+#   parse     read + parse, on the producers
+#   pack      hash / compact, dedup and pack, on the producers
+#   ring_wait a worker process blocked on a free ring slot
+#   transfer  host-to-device copies of the packed buffers
+#   step      step dispatch, and the metric fetches where device time
+#             surfaces
+_STAGES = ("parse", "pack", "ring_wait", "transfer", "step")
 
 
 class _Staged(NamedTuple):
     """One batch on the device: the packed buffers and their statics, and
     for a staged panel training batch its chunked-run layout (ci, cl,
     cv)."""
-    layout: str
+    layout: str           # "panel", "coo" or "panel_raw"
     i32: torch.Tensor
     f32: torch.Tensor
     b_cap: int
@@ -275,6 +302,7 @@ class SGDLearner(Learner):
         self._table_init = table_init
         self.param: Optional[SGDLearnerParam] = None
         self.store: Optional[SlotStore] = None
+        self._flusher: Optional[MetricsFlusher] = None
 
     # ----------------------------------------------------------- init
     def init(self, kwargs: KWArgs) -> KWArgs:
@@ -300,8 +328,6 @@ class SGDLearner(Learner):
         self.loss = create_loss(p.loss, uparam.V_dim)
         if uparam.V_dim != self.loss.V_dim:
             uparam = dataclasses.replace(uparam, V_dim=self.loss.V_dim)
-        log.info("%s: not ported, parts are read serially", ", ".join(
-            f"{k}={getattr(p, k)}" for k in _SPEED_ONLY))
         if p.mesh_fs * p.mesh_dp > 1:
             log.info("mesh_dp=%d mesh_fs=%d ignored: the port trains on one "
                      "card", p.mesh_dp, p.mesh_fs)
@@ -310,6 +336,25 @@ class SGDLearner(Learner):
         self._shapes = ShapeSchedule()
         self._caches: dict = {}
         self._cache_pool = {"used": 0}   # one budget across job types
+        # this run's own registry (two learners in one process must not
+        # blur); producer worker processes report into it through the
+        # pool's snapshot channel (obs/proc.py)
+        self.obs = Registry()
+        stage_c = self.obs.counter(
+            "stage_seconds_total",
+            "seconds spent per streamed-pipeline stage, summed over "
+            "threads")
+        self._stage_c = {k: stage_c.labels(stage=k) for k in _STAGES}
+        self._step_h = self.obs.histogram(
+            "train_step_seconds",
+            "host-side dispatch+wait time of one fused device step")
+        self._rows_c = self.obs.counter(
+            "train_rows_total", "examples consumed by dispatched steps")
+        self._gather_c = self.obs.counter(
+            "store_gather_bytes_total",
+            "slot-table row bytes gathered+scattered per dispatched "
+            "device program").labels(path="train")
+        self._last_producer_mode = "thread"
         _, self._train_step, self._eval_step = make_step_fns(
             self.store.fns, self.loss, train_auc=p.train_auc)
         return remain
@@ -319,12 +364,23 @@ class SGDLearner(Learner):
         """RunScheduler (sgd_learner.cc:52-122)."""
         p = self.param
         self._start_time = time.monotonic()
+        if p.metrics_path and self._flusher is None:
+            self._flusher = MetricsFlusher(
+                p.metrics_path, p.metrics_interval_s,
+                registries=[self.obs, REGISTRY],
+                max_mb=p.metrics_max_mb).start()
         self._report = ReportProg()
         self._last_nnz = 0.0
         self._last_row_t = time.monotonic()
         pre_loss, pre_val_auc = 0.0, 0.0
         k = 0
-        if p.model_in:
+        if p.auto_resume and p.model_out:
+            resumed = self._try_resume_base()
+            if resumed is not None:
+                k = resumed[0] + 1
+                log.info("auto-resumed from epoch %d checkpoint",
+                         resumed[0])
+        if k == 0 and p.model_in:
             if p.load_epoch >= 0:
                 log.info("loading model from epoch %d", p.load_epoch)
                 self.store.load(self._model_name(p.model_in, p.load_epoch),
@@ -347,6 +403,9 @@ class SGDLearner(Learner):
                 log.info("epoch[%d] validation: %s", k, val_prog.text())
             for cb in self.epoch_end_callbacks:
                 cb(k, train_prog, val_prog)
+            if p.ckpt_interval > 0 and p.model_out \
+                    and (k + 1) % p.ckpt_interval == 0:
+                self._save_checkpoint(k)
             # stop criteria (sgd_learner.cc:92-110): no zero guard on
             # pre_loss in the reference, so the first epoch never stops
             eps = abs(train_prog.loss - pre_loss) / pre_loss \
@@ -371,10 +430,70 @@ class SGDLearner(Learner):
             self.store.save(self._model_name(p.model_out, -1), p.has_aux)
         self.stop()
 
+    def stop(self) -> None:
+        if self._flusher is not None:
+            self._flusher.close()
+            self._flusher = None
+
     @staticmethod
     def _model_name(prefix: str, it: int) -> str:
         """``<prefix>[_iter-k]_part-0`` (ModelName, sgd_learner.h:65-69)."""
         return prefix + (f"_iter-{it}" if it >= 0 else "") + "_part-0"
+
+    # ----------------------------------------------------- checkpoints
+    def _meta_path(self) -> str:
+        return self.param.model_out + ".meta"
+
+    def _save_checkpoint(self, epoch: int) -> None:
+        """Commit one resumable generation: the table WITH its optimizer
+        state at ``<model_out>_iter-<epoch>_part-0`` (manifest stamped
+        with the epoch and the family's next generation), then the
+        ``.meta`` marker, written last, so a crash mid-save resumes from
+        the previous complete epoch; ``ckpt_keep`` > 0 prunes all but the
+        newest that many generations."""
+        p = self.param
+        path = self._model_name(p.model_out, epoch)
+        self.store.save(path, save_aux=True, epoch=epoch)
+        with stream.open_stream(self._meta_path(), "w") as f:
+            f.write(json.dumps({"last_epoch": epoch}))
+        if p.ckpt_keep > 0:
+            mft.prune_checkpoints(p.model_out, p.ckpt_keep)
+
+    def _try_resume_base(self) -> Optional[Tuple[int, str]]:
+        """Load the newest interval checkpoint that verifies: (completed
+        epoch, its path), or None. Candidates come from the ``.meta``
+        marker AND a scan of the ``_iter-*`` files (a crash can leave a
+        torn part behind the marker, or a marker naming bytes that never
+        finished); each load requires its manifest, and a corrupt
+        generation is logged and skipped, walking back to the newest good
+        one."""
+        base = self.param.model_out
+        epochs = set()
+        try:
+            with stream.open_stream(self._meta_path(), "r") as f:
+                epochs.add(int(json.loads(f.read())["last_epoch"]))
+        except (OSError, ValueError, KeyError):
+            pass
+        parts = [q for q in stream.glob(base + "_iter-*_part-*")
+                 if re.search(r"_iter-(\d+)_part-\d+$", q)]
+        for q in parts:
+            epochs.add(int(re.search(r"_iter-(\d+)_part-", q).group(1)))
+        for epoch in sorted(epochs, reverse=True):
+            for path in stream.glob(f"{base}_iter-{epoch}_part-*"):
+                if not re.search(r"_part-\d+$", path):
+                    continue
+                try:
+                    self.store.load(path, weights_only=False,
+                                    require_manifest=True)
+                    return epoch, path
+                except FileNotFoundError:
+                    continue
+                except mft.CheckpointCorrupt as e:
+                    log.warning("auto_resume: %s; walking back", e)
+        if epochs:
+            log.warning("checkpoint meta/parts found but no generation "
+                        "verified; starting fresh")
+        return None
 
     # ----------------------------------------------------------- epochs
     def _run_epoch(self, epoch: int, job_type: int, prog: Progress) -> None:
@@ -429,12 +548,43 @@ class SGDLearner(Learner):
                      "staged_mb": round(c.used / (1 << 20), 1)}
                 for jt, c in self._caches.items()}
 
+    # ------------------------------------------------ streamed pipeline
+    def stage_stats(self) -> dict:
+        """The streamed pipeline's seconds per stage over the run, read
+        from the registry (``stage_seconds_total{stage}``, producer
+        worker processes included), plus the transport the last streamed
+        training pass ran on."""
+        series = self.obs.snapshot().get("counters", {}).get(
+            "stage_seconds_total", {})
+        vals = {dict(k).get("stage", ""): v for k, v in series.items()}
+        out = {k + "_s": round(vals.get(k, 0.0), 3) for k in _STAGES}
+        out["producer_mode"] = self._last_producer_mode
+        return out
+
+    def _resolve_producer_mode(self) -> str:
+        """``auto`` -> process on hosts with >= 4 cores, thread below (the
+        spawn and the ring only pay where cores can overlap)."""
+        mode = self.param.producer_mode
+        if mode == "auto":
+            mode = "process" if (os.cpu_count() or 1) >= 4 else "thread"
+        return mode
+
+    def _absorb_payload_caps(self, job: str, payload: Payload) -> None:
+        """Fold the caps a worker process packed at into the consumer's
+        sticky schedule, so later epochs' workers start from them."""
+        wkey = ".w" if payload.layout in ("panel", "panel_raw") else ".nnz"
+        caps = {job + ".b": payload.b_cap, job + wkey: payload.d2,
+                job + ".u": payload.u_cap}
+        if payload.layout == "coo":
+            caps[job + ".row"] = payload.row_cap
+        self._shapes.absorb(caps)
+
     def _iterate_parts(self, job_type: int, epoch: int, n_jobs: int,
                        prog: Progress) -> None:
         """IterateData (sgd_learner.cc:201-317) over this epoch's parts in
         order: a ready replay cache replays its staged parts, and the
-        parts it does not hold are read, packed and dispatched one batch
-        at a time (and staged on the cache's first pass)."""
+        parts it does not hold stream through the producer pool (and are
+        staged on the cache's first pass)."""
         p = self.param
         cache = self._get_cache(job_type)
         stream_parts = list(range(n_jobs))
@@ -459,63 +609,209 @@ class SGDLearner(Learner):
         push_cnt = is_train and epoch == 0 and self.loss.V_dim > 0
         job = "train" if is_train else "eval"
         b_cap = bucket(p.batch_size, 8) if is_train else None
+        hashed = self.store.hashed
+        n_workers = p.num_producers or max(1, min(4, os.cpu_count() or 1))
+        # the producers' fast paths, engaged as in the JAX learner:
+        # stream_chunks only while no cache may stage (staging builds the
+        # same layout on the device); device_dedup only past the count
+        # push, while no cache may stage and stream_chunks is off (the
+        # chunked layout needs the host inverse)
+        cache_may_stage = (cache is not None and cache.alive
+                           and not cache.frozen)
+        stream_chunk = (is_train and hashed and p.stream_chunks
+                        and not cache_may_stage)
+        device_dedup = (is_train and hashed and p.device_dedup
+                        and not stream_chunk and not cache_may_stage
+                        and not push_cnt)
+        hash_capacity = self.store.param.hash_capacity
+        parse_c, pack_c = self._stage_c["parse"], self._stage_c["pack"]
+
+        def packed(part, fn, *args, **kw):
+            t0 = time.perf_counter()
+            with trace.span("producer.pack", part=part):
+                out = fn(*args, **kw)
+            pack_c.inc(time.perf_counter() - t0)
+            return out
+
+        def make_iter(part):
+            # the hashed store is stateless: hash, dedup and pack here;
+            # the dictionary inserts into host state, so only the compact
+            # runs here and the consumer maps the keys
+            reader = self._make_reader(job_type, epoch, part, n_jobs)
+            for blk in timed_reader(reader, parse_c, part):
+                if hashed:
+                    yield ("ready", blk, packed(
+                        part, prepare_hashed, self._shapes, hash_capacity,
+                        blk, push_cnt, push_cnt, 8, job, b_cap,
+                        stream_chunk=stream_chunk,
+                        device_dedup=device_dedup))
+                else:
+                    yield ("compact", blk, packed(
+                        part, compact, blk, need_counts=push_cnt))
+
+        wp = WorkloadPool(WorkloadPoolParam(
+            straggler_timeout=p.straggler_timeout))
+        # worker processes and the ring on the hashed store's training
+        # pass while no cache stages (a staged batch would pin its ring
+        # slot for good); producer threads otherwise
+        use_process = (self._resolve_producer_mode() == "process"
+                       and is_train and hashed and bool(stream_parts)
+                       and (cache is None or not cache.staging))
+        if is_train:
+            self._last_producer_mode = ("process" if use_process
+                                        else "thread")
+        if use_process:
+            spec = StreamSpec(
+                parts=tuple(stream_parts), n_jobs=n_jobs, data_in=p.data_in,
+                data_format=p.data_format, batch_size=p.batch_size,
+                shuffle=p.shuffle, neg_sampling=p.neg_sampling,
+                epoch=epoch, hash_capacity=hash_capacity,
+                want_counts=push_cnt, fill_counts=push_cnt, dim_min=8,
+                job=job, b_cap=b_cap, stream_chunk=stream_chunk,
+                device_dedup=device_dedup, caps=self._shapes.snapshot(),
+                trace_id=trace.trace_id())
+            slot_mb = p.ring_slot_mb or max(1, (p.batch_size * 320) >> 20)
+            pool = ProcessProducerPool(
+                len(stream_parts), functools.partial(spec_iter, spec),
+                n_workers=n_workers, depth=p.producer_depth, pool=wp,
+                slot_bytes=slot_mb << 20, obs_registry=self.obs)
+        else:
+            pool = OrderedProducerPool(
+                len(stream_parts), lambda i: make_iter(stream_parts[i]),
+                n_workers=n_workers, depth=p.producer_depth, pool=wp,
+                obs_registry=self.obs)
         pending: list = []
         cur_part = stream_parts[0] if stream_parts else 0
         before = Progress(nrows=prog.nrows, loss=prog.loss, auc=prog.auc)
-        for part in stream_parts:
-            if part != cur_part:
-                cur_part = part
-                if self._row_due(job_type):
-                    self._merge_pending(pending, prog)
-                    pending = []
-                    self._report_part(job_type, before, prog)
-                    before = Progress(nrows=prog.nrows, loss=prog.loss,
-                                      auc=prog.auc)
-            for blk in self._make_reader(job_type, epoch, part, n_jobs):
-                payload = self._prepare(blk, push_cnt, job, b_cap)
-                self._dispatch_prepared(job_type, blk, payload, push_cnt,
-                                        pending, cache, part)
+        # process mode: an item's arrays VIEW its ring slot, and on the
+        # CPU the staged tensors alias them too. Of the pool's
+        # HELD_LEASES, one is the staged lookahead batch's; the newest
+        # others are held past their steps' dispatch, and a lease is
+        # released only after the step that read its views has finished
+        # (a CUDA event recorded after the step is its fence; a CPU step
+        # has finished when its dispatch returns)
+        inflight: collections.deque = collections.deque()
+        dev_is_cuda = self.store.device.type == "cuda"
+
+        def retire(keep: int) -> None:
+            while len(inflight) > keep:
+                lease, fence = inflight.popleft()
+                if fence is not None:
+                    fence.synchronize()
+                lease.release()
+
+        # a ready batch's buffers go to the device when it arrives, its
+        # step one iteration later (part, item, lease)
+        lookahead: collections.deque = collections.deque()
+
+        def dispatch_entry(entry) -> None:
+            e_part, e_item, e_lease = entry
+            with trace.span("consumer.dispatch", part=e_part):
+                self._dispatch_item(job_type, e_item, push_cnt, pending,
+                                    cache, e_part)
+            if e_lease is not None:
+                fence = None
+                if dev_is_cuda:
+                    fence = torch.cuda.Event()
+                    fence.record()
+                inflight.append((e_lease, fence))
+                retire(keep=HELD_LEASES - 1)
+
+        items = iter(pool)
+        try:
+            for i, item in items:
+                part = stream_parts[i]
+                if part != cur_part:
+                    # drain the lookahead so the part's row counts all
+                    # of its batches
+                    while lookahead:
+                        dispatch_entry(lookahead.popleft())
+                    cur_part = part
+                    if self._row_due(job_type):
+                        self._merge_pending(pending, prog)
+                        pending = []
+                        self._report_part(job_type, before, prog)
+                        before = Progress(nrows=prog.nrows, loss=prog.loss,
+                                          auc=prog.auc)
+                lease = pool.pop_lease() if use_process else None
+                if item[0] == "ready":
+                    if use_process:
+                        self._absorb_payload_caps(job, item[2])
+                    staged = ("ready", item[1],
+                              self._stage_payload(item[2]))
+                    lookahead.append((part, staged, lease))
+                    while len(lookahead) > 1:
+                        dispatch_entry(lookahead.popleft())
+                else:
+                    # the dictionary maps on this thread, in receive order
+                    while lookahead:
+                        dispatch_entry(lookahead.popleft())
+                    dispatch_entry((part, item, lease))
                 if len(pending) >= self._MERGE_CAP:
                     self._merge_pending(pending, prog)
                     pending = []
-        self._final_merge(job_type, pending, prog)
+            while lookahead:
+                dispatch_entry(lookahead.popleft())
+            self._final_merge(job_type, pending, prog)
+            retire(keep=0)
+        finally:
+            items.close()
         self._report_part(job_type, before, prog)
         if cache is not None:
             cache.finish_pass()
 
-    def _prepare(self, blk, push_cnt: bool, job: str,
-                 b_cap: Optional[int]) -> Payload:
-        """Pack one raw-id block: the hashed store hashes; the dictionary
-        store maps (inserting, and so growing the table, before this
-        batch is padded) and packs the same layouts."""
-        if self.store.hashed:
-            return prepare_hashed(self._shapes,
-                                  self.store.param.hash_capacity, blk,
-                                  push_cnt, push_cnt, 8, job, b_cap)
-        cblk, uniq, cnts = compact(blk, need_counts=push_cnt)
-        slots, remap, cnts = self.store.map_keys_dedup(uniq, cnts)
-        if remap is not None:
-            cblk = dataclasses.replace(
-                cblk, index=remap[cblk.index].astype(np.uint32))
-        return pack_mapped(self._shapes, blk, cblk, slots, cnts,
-                           self.store.state.capacity, 8, job)
+    def _stage_payload(self, payload: Payload) -> Payload:
+        """Copy a packed payload's buffers to the device (the transfer
+        stage); the returned payload holds device tensors. On the CPU they
+        alias the host arrays."""
+        t0 = time.perf_counter()
+        dev = self.store.device
+
+        def to_dev(a):
+            return None if a is None else torch.from_numpy(a).to(dev)
+
+        out = payload._replace(
+            i32=to_dev(payload.i32), f32=to_dev(payload.f32),
+            chunks=None if payload.chunks is None
+            else tuple(to_dev(a) for a in payload.chunks))
+        self._stage_c["transfer"].inc(time.perf_counter() - t0)
+        return out
+
+    def _dispatch_item(self, job_type: int, item, push_cnt: bool,
+                       pending: list, cache: Optional[_DeviceBatchCache],
+                       part: int) -> None:
+        """Run one produced batch: a ready payload (already staged) steps
+        as it is; a dictionary block maps its keys here (inserting, and so
+        growing the table, before this batch is padded), packs the same
+        layouts and steps."""
+        kind, blk, payload = item
+        if kind == "compact":
+            cblk, uniq, cnts = payload
+            slots, remap, cnts = self.store.map_keys_dedup(uniq, cnts)
+            if remap is not None:
+                cblk = dataclasses.replace(
+                    cblk, index=remap[cblk.index].astype(np.uint32))
+            job = "train" if job_type == K_TRAINING else "eval"
+            payload = self._stage_payload(pack_mapped(
+                self._shapes, blk, cblk, slots, cnts,
+                self.store.state.capacity, 8, job))
+        self._dispatch_prepared(job_type, blk, payload, push_cnt, pending,
+                                cache, part)
 
     def _dispatch_prepared(self, job_type: int, blk, payload: Payload,
                            push_cnt: bool, pending: list,
                            cache: Optional[_DeviceBatchCache],
                            part: int) -> None:
-        """Copy one packed batch to the device and run its step; while the
-        cache stages, a panel training batch first gets its chunked-run
-        layout (built on the device) and takes the chunked backward, and
-        the batch is kept, its counts section zeroed so that a replay
-        never counts again."""
-        dev = self.store.device
+        """Run the step of one staged payload; while the cache stages, a
+        panel training batch first gets its chunked-run layout (built on
+        the device) and takes the chunked backward, and the batch is kept,
+        its counts section zeroed so that a replay never counts again."""
         is_train = job_type == K_TRAINING
-        i32 = torch.from_numpy(payload.i32).to(dev)
-        f32 = torch.from_numpy(payload.f32).to(dev)
+        i32, f32 = payload.i32, payload.f32
         staging = cache is not None and cache.staging
-        chunks = None
-        if staging and is_train and payload.layout == "panel":
+        chunks = payload.chunks
+        if staging and is_train and payload.layout == "panel" \
+                and chunks is None:
             cells = payload.b_cap * payload.d2
             chunks = panel_chunk_tokens_flat(
                 i32[:cells], None if payload.binary else f32[:cells],
@@ -534,11 +830,38 @@ class SGDLearner(Learner):
 
     def _dispatch_staged(self, job_type: int, st: _Staged, push_cnt: bool,
                          pending: list) -> None:
-        """Run the step of one batch already on the device; the epoch-0
-        count push goes first, as in the JAX step program
-        (sgd.py:651-654). The step reads the staged buffers and writes
-        only the table."""
-        if st.layout == "panel":
+        """Run the step of one batch already on the device, timed into the
+        step stage and ``train_step_seconds``; its table row traffic goes
+        to ``store_gather_bytes_total``."""
+        per_dir = gather_bytes(self.store.param, self.store.state.capacity,
+                               st.u_cap)
+        is_train = job_type == K_TRAINING
+        self._gather_c.inc(per_dir * (2 if is_train else 1))
+        t0 = time.perf_counter()
+        try:
+            self._dispatch_step(job_type, st, push_cnt, pending)
+        finally:
+            dt = time.perf_counter() - t0
+            self._stage_c["step"].inc(dt)
+            self._step_h.observe(dt)
+
+    def _dispatch_step(self, job_type: int, st: _Staged, push_cnt: bool,
+                       pending: list) -> None:
+        """The step: the epoch-0 count push goes first, as in the JAX step
+        program (sgd.py:651-654); a raw-token panel (device_dedup) derives
+        its slot vector and inverse map on the device first, as JAX's
+        ``packed_panel_train_raw`` (sgd.py:704-722). The step reads the
+        staged buffers and writes only the table."""
+        if st.layout == "panel_raw":
+            cells = st.b_cap * st.d2
+            batch = unpack_panel_raw(st.i32, st.f32, st.b_cap, st.d2,
+                                     binary=st.binary)
+            slots, inverse, n = dedup_tokens(st.i32[:cells], st.u_cap,
+                                             self.store.state.capacity)
+            batch = batch._replace(idx=inverse.view(st.b_cap, st.d2),
+                                   num_uniq=n)
+            counts = None
+        elif st.layout == "panel":
             batch, slots, counts = unpack_panel(
                 st.i32, st.f32, st.b_cap, st.d2, st.u_cap,
                 has_counts=push_cnt, binary=st.binary)
@@ -628,11 +951,14 @@ class SGDLearner(Learner):
         extra = list(extra)
         if not pending and not extra:
             return []
+        t0 = time.perf_counter()
         vals = torch.stack([s.to(torch.float32) for _, o, a in pending
                             for s in (o, a)]
                            + [e.to(torch.float32) for e in extra]).cpu()
         vals = vals.tolist()
+        self._stage_c["step"].inc(time.perf_counter() - t0)
         for i, (nrows, _, _) in enumerate(pending):
+            self._rows_c.inc(nrows)
             prog.merge(Progress(nrows=nrows, loss=vals[2 * i],
                                 auc=vals[2 * i + 1]))
         return vals[2 * len(pending):]

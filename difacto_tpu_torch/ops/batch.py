@@ -16,17 +16,27 @@ the slot vector's lanes) at the tail of the f32 buffer. Caps come from
 :func:`bucket` rungs, so a stream of batches reuses a few shapes.
 ``row_cap`` (the widest row's nonzeros, capped on the host) is a static
 of a COO batch that the deterministic segment sums need (ops/segment.py).
+
+The device-dedup panel (:func:`pack_panel_raw` / :func:`unpack_panel_raw`)
+ships raw hashed tokens in its index cells and no slot vector: the step
+derives both on the device (ops/fused.dedup_tokens).
+
+The host packers are numpy only and this module imports torch inside the
+functions that build device tensors, so producer worker processes pack
+without importing torch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import numpy as np
-import torch
 
 from ..base import REAL_DTYPE
 from ..data.rowblock import RowBlock
+
+if TYPE_CHECKING:
+    import torch
 
 
 class DeviceBatch(NamedTuple):
@@ -186,6 +196,59 @@ def unpack_panel(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
     return pb, slots, counts
 
 
+def pack_panel_raw(blk: RowBlock, num_uniq: int, batch_cap: int,
+                   width: int):
+    """Device-dedup panel payload: the block's index cells are RAW hashed
+    slot tokens (``hash_slots`` output, not positions in a slot vector)
+    and there is no slots section — the step derives the sorted-unique
+    slot vector and the inverse map on the device
+    (ops/fused.dedup_tokens), so the producer skips ``np.unique``.
+
+    i32 = [tok(B*F) | b, num_uniq]; f32 = [vals(B*F)? | labels(B) |
+    rweight(B) | row_mask(B)]. ``num_uniq`` is the host's distinct count
+    (pack_stream._count_distinct), which sizes the sticky u-cap. Pad
+    cells carry token 0 (the trash slot, whose row is all zeros) with
+    value 0. No counts section: the raw path runs only past the epoch-0
+    count push."""
+    idx, vals, labels, rweight, row_mask = _panel_arrays(blk, batch_cap,
+                                                         width)
+    binary = vals is None
+    cells = batch_cap * width
+    i32 = np.empty(cells + 2, dtype=np.int32)
+    i32[:cells] = idx.reshape(-1)
+    i32[cells:] = (blk.size, num_uniq)
+    vals_n = 0 if binary else cells
+    f32 = np.zeros(max(vals_n + 3 * batch_cap, 1), dtype=REAL_DTYPE)
+    o = 0
+    if not binary:
+        f32[:cells] = vals.reshape(-1)
+        o = cells
+    for a in (labels, rweight, row_mask):
+        f32[o:o + batch_cap] = a
+        o += batch_cap
+    return i32, f32, binary
+
+
+def unpack_panel_raw(i32, f32, batch_cap: int, width: int,
+                     binary: bool = False) -> PanelBatch:
+    """Inverse of :func:`pack_panel_raw` on device tensors -> a PanelBatch
+    whose ``idx`` cells are the raw tokens; the caller replaces them with
+    the inverse map of :func:`~difacto_tpu_torch.ops.fused.dedup_tokens`."""
+    cells = batch_cap * width
+    idx = i32[:cells].view(batch_cap, width)
+    meta = i32[cells:]
+    o, vals = 0, None
+    if not binary:
+        vals = f32[:cells].view(batch_cap, width)
+        o = cells
+    labels = f32[o:o + batch_cap]
+    rweight = f32[o + batch_cap:o + 2 * batch_cap]
+    row_mask = f32[o + 2 * batch_cap:o + 3 * batch_cap]
+    return PanelBatch(idx=idx, vals=vals, labels=labels, rweight=rweight,
+                      row_mask=row_mask, num_rows=meta[0],
+                      num_uniq=meta[1])
+
+
 # Chunk length of the chunked-run backward layout (the JAX package's
 # measured choice for the TPU; kept so that the layouts agree bit for bit).
 CHUNK_L = 16
@@ -216,6 +279,7 @@ def panel_chunk_tokens_flat(flat_idx: torch.Tensor,
     ``panel_chunk_tokens_flat`` bit for bit. Chunk numbers are counted
     from the tokens that open a chunk (position in run % L == 0), which
     gives the same numbering as the per-run bases of the JAX version."""
+    import torch
     cells = flat_idx.shape[0]
     C = chunk_cap(u_cap, cells, L)
     dev = flat_idx.device
@@ -337,6 +401,7 @@ def unpack_batch(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
                  binary: bool = False, has_counts: bool = False):
     """Inverse of :func:`pack_batch` on device tensors ->
     (DeviceBatch, slots, counts or None)."""
+    import torch
     rows = i32[:nnz_cap]
     cols = i32[nnz_cap:2 * nnz_cap]
     slots = i32[2 * nnz_cap:2 * nnz_cap + u_cap]

@@ -19,6 +19,9 @@
 
 There is no fallback between kernel and plain version: a CUDA table that
 a kernel cannot take raises.
+- :func:`dedup_tokens` — the device-dedup step's sort and run-length
+  dedup of a batch's raw hashed tokens (torch ops, as the JAX package's
+  is jnp: it is not a kernel of its own).
 - :func:`quant_half` / :func:`dequant_half` — the per-row symmetric
   int8/fp8 quantization of the embedding halves (fp8 codes are
   ``torch.float8_e4m3fn`` bit patterns viewed as int8), bit-exact with
@@ -38,6 +41,41 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import build
+
+# ------------------------------------------------------------------ dedup
+def dedup_tokens(tok: torch.Tensor, u_cap: int, capacity: int):
+    """The device twin of the producer's ``np.unique`` + ``pad_slots_oob``
+    (the JAX package's ``dedup_tokens``): stable-sort the batch's raw
+    int32 tokens, mark run starts, and the running count of starts gives
+    each token its segment, the inverse map. Returns ``(slots, inverse,
+    n_uniq)``:
+
+    - ``slots`` int32[u_cap]: the sorted unique tokens, then ascending
+      out-of-bounds pads ``capacity + j`` (the pad_slots_oob layout, so
+      the table kernels' sorted-unique contract holds);
+    - ``inverse`` int32[len(tok)]: each token's position in ``slots``;
+    - ``n_uniq`` int32[]: the count of real slots, on the device.
+
+    Each run's first token is written to its segment once; the other
+    tokens aim at lane ``u_cap`` of a ``u_cap + 1`` buffer that is sliced
+    off (torch has no drop mode), so there are no conflicting writes to a
+    kept lane and no atomics. The caller guarantees ``n_uniq <= u_cap``
+    (pack_stream.prepare_hashed sizes the cap)."""
+    dev = tok.device
+    cells = tok.shape[0]
+    st, order = torch.sort(tok, stable=True)
+    start = torch.ones(cells, dtype=torch.bool, device=dev)
+    start[1:] = st[1:] != st[:-1]
+    seg = torch.cumsum(start, dim=0, dtype=torch.int32) - 1
+    n = seg[-1] + 1
+    inverse = torch.empty(cells, dtype=torch.int32, device=dev)
+    inverse[order] = seg
+    first = torch.where(start, seg, u_cap).to(torch.int64)
+    slots = torch.zeros(u_cap + 1, dtype=torch.int32, device=dev)
+    slots[first] = st
+    j = torch.arange(u_cap, dtype=torch.int32, device=dev)
+    return torch.where(j < n, slots[:u_cap], capacity + j), inverse, n
+
 
 # ------------------------------------------------------- quantized slots
 _Q_MAX = {"int8": 127.0, "fp8": 448.0}  # fp8 = float8_e4m3fn finite max

@@ -50,21 +50,7 @@ from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
 from .convert import state_from_numpy, state_to_numpy
-
-
-def pad_slots_oob(slots: np.ndarray, cap: int, capacity: int) -> np.ndarray:
-    """int32[cap]: sorted unique ``slots`` followed by ascending
-    out-of-bounds padding (capacity, capacity+1, ...)."""
-    out = np.arange(capacity, capacity + cap, dtype=np.int64)
-    out[:len(slots)] = slots
-    return out.astype(np.int32)
-
-
-def hash_slots(rev_ids: np.ndarray, hash_capacity: int) -> np.ndarray:
-    """Byte-REVERSED uint64 ids -> int32 slots in [1, capacity)."""
-    cap = np.uint64(hash_capacity - 1)
-    return (np.asarray(rev_ids, FEAID_DTYPE) % cap
-            + np.uint64(1)).astype(np.int32)
+from .slots import hash_slots, pad_slots_oob  # noqa: F401
 
 
 class SlotStore:
@@ -199,11 +185,13 @@ class SlotStore:
         (store/convert.state_to_numpy)."""
         return state_to_numpy(self.param, self.state, keys)
 
-    def save(self, path: str, save_aux: bool = False) -> int:
+    def save(self, path: str, save_aux: bool = False,
+             epoch: Optional[int] = None) -> int:
         """Checkpoint as one uncompressed npz plus its manifest sidecar
-        (monotonic generation, written after the npz): the dense hashed
-        table, or the dictionary's sorted keys with their non-empty rows.
-        Returns the count of non-zero w (hashed) or of saved keys."""
+        (monotonic generation, written after the npz; ``epoch`` stamps an
+        interval checkpoint): the dense hashed table, or the dictionary's
+        sorted keys with their non-empty rows. Returns the count of
+        non-zero w (hashed) or of saved keys."""
         saved = ("w", "cnt", "v_live", "V") + (
             ("z", "sqrt_g", "Vg") if save_aux else ())
         st = self._state_np(saved)
@@ -234,10 +222,13 @@ class SlotStore:
             n = len(keys)
         man = {"learner": "sgd", "rows": n, "save_aux": bool(save_aux),
                "generation": mft.next_generation(path)}
+        if epoch is not None:
+            man["epoch"] = int(epoch)
         stream.save_npz(path, manifest=man, **arrays)
         return n
 
-    def load(self, path: str, weights_only: Optional[bool] = None) -> int:
+    def load(self, path: str, weights_only: Optional[bool] = None,
+             require_manifest: bool = False) -> int:
         """Restore a checkpoint (the counterpart of the JAX store's
         ``load`` + ``_assemble_state``). ``weights_only`` (default: the
         read_only flag) reads just w / cnt / v_live / V; the optimizer
@@ -245,14 +236,16 @@ class SlotStore:
         of a fresh table from the init provider, at the live capacity
         doubled until n + 1 rows fit. Members are digested as they load,
         and a corrupt file raises ``manifest.CheckpointCorrupt`` before
-        any state commits. Returns the count of non-zero w (hashed) or of
-        loaded keys."""
+        any state commits; so does a missing manifest with
+        ``require_manifest`` (a torn interval checkpoint). Returns the
+        count of non-zero w (hashed) or of loaded keys."""
         if weights_only is None:
             weights_only = self.read_only
         loaded = ("w", "cnt", "v_live", "V") + (
             () if weights_only else ("z", "sqrt_g", "Vg"))
         k = self.param.V_dim
-        with mft.open_verified(path) as z:
+        with mft.open_verified(path,
+                               require_manifest=require_manifest) as z:
             if self.hashed != ("hash_capacity" in z.files):
                 raise ValueError(
                     "checkpoint store mode mismatch: checkpoint is "

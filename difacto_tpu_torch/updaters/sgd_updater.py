@@ -168,6 +168,17 @@ def row_layout(param: SGDUpdaterParam, capacity: int
     return k, h, Wx, Wx - ns
 
 
+def gather_bytes(param: SGDUpdaterParam, capacity: int, u_cap: int) -> int:
+    """Bytes ONE direction of a fused-row gather (or scatter) of
+    ``u_cap`` rows moves at this capacity's row layout: the unit of the
+    learner's ``store_gather_bytes_total`` counter (a train step counts
+    it twice, pull and push)."""
+    if param.V_dim == 0:
+        return u_cap * 3 * 4
+    _, _, Wx, _ = row_layout(param, capacity)
+    return u_cap * Wx * v_dtype(param).itemsize
+
+
 def pack_scal(w, z, sqrt_g, cnt, live, dtype: torch.dtype,
               scale_V=None, scale_Vg=None) -> torch.Tensor:
     """f32 scalar columns + bool live -> [n, scal_lanes] of ``dtype``;

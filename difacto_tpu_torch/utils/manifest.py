@@ -32,6 +32,7 @@ log = logging.getLogger("difacto_tpu_torch")
 MANIFEST_SUFFIX = ".manifest.json"
 FORMAT = 1
 
+_ITER_RE = re.compile(r"_iter-(\d+)")
 _DECOR_RE = re.compile(
     r"(?:_iter-\d+)?(?:_part-\d+)?(?:_fs-\d+-of-\d+)?(?:\.npz)?$")
 
@@ -98,6 +99,16 @@ def read(uri: str) -> Optional[dict]:
         return man
     except (ValueError, OSError) as e:
         raise CheckpointCorrupt(uri, f"unreadable manifest: {e}") from e
+
+
+def verify(uri: str, require_manifest: bool = False) -> Optional[dict]:
+    """Verify checkpoint ``uri`` against its manifest: the manifest (None
+    for an accepted manifest-less file). FileNotFoundError when the npz
+    is missing; CheckpointCorrupt on any failure, and with
+    ``require_manifest`` on a missing sidecar (every save writes one, so
+    its absence means a torn save)."""
+    with open_verified(uri, require_manifest=require_manifest) as z:
+        return z.finish()
 
 
 class VerifiedNpz:
@@ -215,3 +226,32 @@ def next_generation(uri: str) -> int:
 def generation_paths(uri: str) -> List[str]:
     """Checkpoint paths of ``uri``'s family, newest generation first."""
     return [p for _, p in _family_manifests(uri)]
+
+
+def prune_checkpoints(model_prefix: str, keep: int) -> List[str]:
+    """Retire the interval checkpoints (``_iter-k`` files and their
+    manifests) of ``model_prefix``'s family older than the newest
+    ``keep`` epochs; the final undecorated model is never a candidate.
+    Returns the removed checkpoint paths."""
+    if keep <= 0:
+        return []
+    fam = family_prefix(model_prefix)
+    by_epoch: Dict[int, List[str]] = {}
+    for path in stream.glob(fam + "_iter-*"):
+        if path.endswith(MANIFEST_SUFFIX):
+            continue
+        m = _ITER_RE.search(path)
+        if m is None:
+            continue
+        by_epoch.setdefault(int(m.group(1)), []).append(path)
+    removed = []
+    for epoch in sorted(by_epoch)[:-keep]:
+        for path in by_epoch[epoch]:
+            for p in (path, manifest_path(path)):
+                try:
+                    stream.remove(p)
+                    if p == path:
+                        removed.append(p)
+                except OSError:
+                    pass
+    return removed

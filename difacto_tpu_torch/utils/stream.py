@@ -51,6 +51,10 @@ def glob(uri: str) -> List[str]:
     return sorted(_glob.glob(_local(uri)))
 
 
+def remove(uri: str) -> None:
+    os.remove(_local(uri))
+
+
 def save_npz(uri: str, manifest: Optional[dict] = None, **arrays) -> None:
     """Atomic uncompressed npz write (tmp + rename; a 4M-row table is
     ~300 MB, which zlib would write at a few MB/s). ``manifest`` (writer metadata:

@@ -5,7 +5,10 @@ their plain versions on the same card; the deterministic lane sum; the
 chunked-run layout (equal to the CPU's) and the chunked backward (which
 repeats bit for bit); and small training runs that repeat bit for bit,
 one through the dictionary store's growth and the replay cache that also
-equals its run on the plain versions.
+equals its run on the plain versions; the device dedup of raw tokens
+(equal to the CPU's), and streamed runs where ``device_dedup`` and the
+process producers leave the host-dedup, thread-producer table bit for
+bit.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -324,3 +327,70 @@ def test_dictionary_replay_run_repeats_and_equals_plain(cuda, tmp_path):
     for t, k in ((t2, k2), (t3, k3)):
         assert torch.equal(t.view(torch.int32), t1.view(torch.int32))
         np.testing.assert_array_equal(k, k1)
+
+
+@pytest.mark.parametrize("kind", ["random", "all_equal", "all_distinct"])
+def test_dedup_tokens_on_the_card_equal_the_cpu(cuda, kind):
+    """The device dedup of a main-path-sized batch of raw tokens (1000 x
+    39 cells, n_uniq = u_cap - 1) equals the CPU's bit for bit."""
+    rng = np.random.RandomState(3)
+    u_cap = 12288
+    if kind == "random":
+        vals = rng.choice(np.arange(1, 1 << 22), u_cap - 1, replace=False)
+        tok = np.concatenate([vals, rng.choice(vals, 39000 - len(vals))])
+        tok = rng.permutation(tok)
+    elif kind == "all_equal":
+        tok = np.full(39000, 12345)
+    else:
+        tok = rng.permutation(np.arange(1, u_cap))
+    tok = torch.from_numpy(tok.astype(np.int32))
+    cpu = fused.dedup_tokens(tok, u_cap, 1 << 22)
+    for _ in range(2):
+        got = fused.dedup_tokens(tok.to(cuda), u_cap, 1 << 22)
+        for g, c in zip(got, cpu):
+            assert torch.equal(g.cpu(), c)
+
+
+def _stream_run(cuda, data, *extra):
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    ln = SGDLearner(device="cuda")
+    ln.init([("data_in", data), ("data_format", "criteo"), ("V_dim", "4"),
+             ("hash_capacity", "65536"), ("batch_size", "100"),
+             ("num_jobs_per_epoch", "3"), ("max_num_epochs", "3"),
+             ("device_cache_mb", "0"), ("l1", "0.1"), ("V_threshold", "1"),
+             ("report_interval", "0")] + list(extra))
+    ln.run()
+    return ln.store.state.VVg.view(torch.int32).clone(), ln.stage_stats()
+
+
+@pytest.fixture(scope="module")
+def criteo_file(tmp_path_factory):
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import synthetic_criteo
+    path = tmp_path_factory.mktemp("criteo_card") / "train.txt"
+    path.write_bytes(synthetic_criteo(1500, 7))
+    return str(path)
+
+
+def test_device_dedup_on_the_card_equals_host_dedup(cuda, criteo_file):
+    """Streamed training on the card: device_dedup=1 (raw tokens, the
+    dedup in the step) leaves the host-dedup run's table bit for bit."""
+    host, _ = _stream_run(cuda, criteo_file, ("num_producers", "1"),
+                          ("producer_mode", "thread"))
+    dev, _ = _stream_run(cuda, criteo_file, ("num_producers", "1"),
+                         ("producer_mode", "thread"), ("device_dedup", "1"))
+    assert torch.equal(dev, host)
+
+
+def test_process_and_thread_producers_on_the_card_agree(cuda, criteo_file):
+    """Worker processes over the ring and producer threads leave the same
+    table on the card, bit for bit."""
+    thread, ts = _stream_run(cuda, criteo_file, ("num_producers", "2"),
+                             ("producer_mode", "thread"))
+    proc, ps = _stream_run(cuda, criteo_file, ("num_producers", "2"),
+                           ("producer_mode", "process"))
+    assert ts["producer_mode"] == "thread"
+    assert ps["producer_mode"] == "process"
+    assert torch.equal(proc, thread)

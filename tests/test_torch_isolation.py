@@ -204,3 +204,83 @@ def test_cpu_replay_run_counts_no_launch(tmp_path):
     ln.run()
     assert ln.device_cache_info()[3]["complete"]
     assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+_PROBE = '''
+import sys
+
+
+class Poison:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+            raise ImportError(f"poisoned import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Poison())
+
+
+def probe(spec, part):
+    from difacto_tpu_torch.data.pack_stream import spec_iter
+    n = sum(1 for _ in spec_iter(spec, part))
+    yield ("batches", n)
+    yield ("modules", sorted({m.split(".")[0] for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "difacto_tpu",
+                                                     "torch")}))
+'''
+
+
+def test_spawned_producer_workers_import_no_jax(tmp_path):
+    """A producer worker process runs the hashed pack pipeline
+    (``spec_iter``) with jax and difacto_tpu poisoned in its own
+    interpreter, and imports neither, nor torch: it packs with numpy and
+    never opens a CUDA context. The learner's process mode runs in a
+    parent where jax is poisoned as well."""
+    from chip_smoke import synthetic_criteo
+    data = tmp_path / "criteo.txt"
+    data.write_bytes(synthetic_criteo(300, 5))
+    (tmp_path / "worker_probe.py").write_text(_PROBE)
+    code = textwrap.dedent(f"""
+        import functools, sys
+        sys.path.insert(0, {str(tmp_path)!r})
+        import worker_probe  # poisons jax in this parent too
+        from difacto_tpu_torch.data.pack_stream import StreamSpec
+        from difacto_tpu_torch.data.producer_pool import ProcessProducerPool
+
+        if __name__ == "__main__":   # spawn re-runs this file in workers
+            from difacto_tpu_torch.learners.sgd import SGDLearner
+            spec = StreamSpec(parts=(0, 1), n_jobs=2, data_in={str(data)!r},
+                              data_format="criteo", batch_size=50,
+                              shuffle=10, neg_sampling=1.0, epoch=1,
+                              hash_capacity=4096, want_counts=False,
+                              fill_counts=False, dim_min=8, job="train",
+                              b_cap=56, device_dedup=True)
+            got = [item for _, item in ProcessProducerPool(
+                2, functools.partial(worker_probe.probe, spec), n_workers=2,
+                slot_bytes=1 << 20, join_timeout=60.0)]
+            assert [k for k, _ in got] == ["batches", "modules"] * 2, got
+            assert all(n > 0 for k, n in got if k == "batches"), got
+            assert all(m == [] for k, m in got if k == "modules"), got
+            ln = SGDLearner(device="cpu")
+            ln.init([("data_in", {str(data)!r}), ("data_format", "criteo"),
+                     ("V_dim", "2"), ("hash_capacity", "4096"),
+                     ("batch_size", "50"), ("num_jobs_per_epoch", "2"),
+                     ("max_num_epochs", "2"), ("device_cache_mb", "0"),
+                     ("device_dedup", "1"), ("num_producers", "2"),
+                     ("producer_mode", "process"),
+                     ("report_interval", "0")])
+            ln.run()
+            assert ln.stage_stats()["producer_mode"] == "process"
+            bad = [m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+            assert not bad, bad
+            print("ok")
+    """)
+    script = tmp_path / "run_probe.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, str(script)], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"

@@ -429,10 +429,9 @@ def test_cli_train_saves_a_model_jax_pred_scores(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    "stream_chunks=1", "device_dedup=1", "ckpt_interval=1", "auto_resume=1",
     "wal_flush_batches=4", "replica_peers=/tmp/x", "mesh_force=1",
-    "bounded_delay=2", "metrics_path=/tmp/m.jsonl", "admit_min_count=2",
-    "evict_occupancy=0.5", "cold_tier_rows=64"])
+    "bounded_delay=2", "admit_min_count=2", "evict_occupancy=0.5",
+    "cold_tier_rows=64"])
 def test_knobs_that_change_the_result_raise_when_not_ported(knob):
     k, v = knob.split("=")
     kwargs = dict([("data_in", RCV1), ("V_dim", "2"),
@@ -443,15 +442,25 @@ def test_knobs_that_change_the_result_raise_when_not_ported(knob):
 
 
 def test_speed_knobs_are_accepted_and_logged(caplog):
+    """The producer knobs take effect: a run with two producer threads
+    reads its parts through the pool (its parse and pack stages count
+    seconds) and reports the thread transport; the mesh knobs are
+    logged as ignored."""
     import logging
+    ln = SGDLearner(device="cpu")
     with caplog.at_level(logging.INFO, logger="difacto_tpu_torch"):
-        SGDLearner(device="cpu").init([
+        ln.init([
             ("data_in", RCV1), ("V_dim", "2"), ("hash_capacity", "4096"),
-            ("num_producers", "4"), ("producer_mode", "process"),
+            ("num_producers", "2"), ("producer_mode", "thread"),
+            ("producer_depth", "2"), ("straggler_timeout", "30"),
+            ("max_num_epochs", "1"), ("report_interval", "0"),
             ("mesh_dp", "2")])
-    text = caplog.text
-    assert "not ported, parts are read serially" in text
-    assert "num_producers=4" in text and "ignored" in text
+    assert "mesh_dp=2" in caplog.text and "ignored" in caplog.text
+    ln.run()
+    stats = ln.stage_stats()
+    assert stats["producer_mode"] == "thread"
+    assert stats["parse_s"] > 0 and stats["pack_s"] > 0
+    assert ln.obs.value("train_rows_total") == 100
 
 
 @pytest.mark.parametrize("which", ["learner", "updater"])
