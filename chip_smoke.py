@@ -6,14 +6,16 @@
 Drives the port's serving and training paths at the full width of
 examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
 2.0 GiB fp32 table on the card), also streamed through the producer
-threads and worker processes, and of examples/criteo_dict.conf (the
+threads and worker processes, from text and from the rec2 cache that
+task=convert writes, and of examples/criteo_dict.conf (the
 dictionary store at the JAX package's defaults), with random weights and
 synthetic Criteo rows made from a seed, and holds the CUDA kernels (the
 fused-row gather and the scatter with its FTRL/AdaGrad epilogue) against
 their plain PyTorch versions. Phases:
 
 1. the card's name and power limit; build the kernels with nvcc, one
-   thread (and one nvcc) per source, all started together;
+   thread (and one nvcc) per source, all started together, and the
+   native parsers with g++ beside them;
 2. the gather kernel against ``gather_rows_ref`` on the card, byte for
    byte: full-width fp32, bf16 and int8 containers, u_cap 8 / 12288 /
    49152 with out-of-bounds pad lanes, and an all-OOB slot vector;
@@ -102,7 +104,23 @@ their plain PyTorch versions. Phases:
     this tree's (parents, this, this, parents). Each run's epoch wall
     times and ``stage_stats()`` are printed, and the producers' own rate
     without a step behind them (one thread, four threads, four
-    processes: the seconds to the first batch and to the last).
+    processes: the seconds to the first batch and to the last);
+13. the rec2 cache at the same width: ``python -m difacto_tpu_torch
+    task=convert`` writes phase 12's train and validation rows as
+    1,000-row pre-localized members (serially, and the train rows again
+    with ``convert_procs`` at auto), its rows/s logged; the native
+    parsers (built with g++ in phase 1) must have loaded. 2 epochs train
+    from the cache: (h) four producer threads and (i) four worker
+    processes (``device_cache_mb=0``, 10 parts, shuffle 10), (j) rec2
+    and (k) text at one part with shuffle 0, (l) the defaults with the
+    replay cache, again, and on the plain versions. (i) leaves (h)'s
+    table, (k) (j)'s and the (l) runs each other's, bit for bit; each
+    run's launches match its batches; the gather and both push routes
+    equal their plain versions byte for byte on the slot vectors the
+    cache path packs; (l)'s model scored by ``task=pred`` from the
+    validation cache is within 1e-4 of a float64 FM, and ``task=dump``
+    writes one line per live row. The parse and pack stages per batch
+    are printed for rec2 and (from phase 12) for text on each transport.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -111,8 +129,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10 and 12, each counted from 0 just before
-its own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10, 12 and 13, each counted from 0 just
+before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -258,14 +276,16 @@ def phase_card(parents: list, work: str):
         f"device {torch.cuda.get_device_name(0)}")
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
+    from difacto_tpu_torch import native
     from difacto_tpu_torch.ops import build, fused
     names = {os.path.basename(os.path.normpath(d)): d for d in parents}
     if len(names) != len(parents) or set(names) & {"kernel"}:
         raise ValueError(f"--parent trees need distinct directory names "
                          f"other than 'kernel': {parents}")
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNELS) + len(names)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + len(names) + 1) as pool:
         builds = [pool.submit(build.library, name) for name in KERNELS]
+        builds.append(pool.submit(native.get_lib))
         others = {n: pool.submit(
             build.compile_source, Path(d) / KERNELS["scatter_epilogue"],
             Path(work) / f"{n}_scatter_epilogue.so")
@@ -273,7 +293,8 @@ def phase_card(parents: list, work: str):
         for b in builds:
             b.result()
         logs = {n: f.result() for n, f in others.items()}
-    log(f"phase 1 ok: kernels built in {time.monotonic() - t0:.2f} s"
+    log(f"phase 1 ok: kernels (and the native parsers, g++) built in "
+        f"{time.monotonic() - t0:.2f} s"
         + (f" (and the scatter_epilogue.cu of {', '.join(names)})"
            if names else ""))
     logs.update((name, build.build_log(name)) for name in KERNELS)
@@ -1631,13 +1652,254 @@ def phase_stream(work: str, conf: list, uparam,
         "processes, device_dedup and the resumed run leave run (a)'s "
         "table bit for bit, stream_chunks within 2e-5; no ring segment "
         "left")
-    return {"launches": total,
+    return {"launches": total, "batches": nb,
             "walls": {"a": walls_a, "f": walls_f, "b": walls_b,
                       "c": walls_c, "e": walls_e, "g": walls_g,
                       "parents": tree_walls},
             "stages": {"a": st_a, "f": st_f, "b": st_b, "e": st_e,
                        "g": st_g},
             "producers": producers}
+
+
+def _cli(args: list) -> float:
+    """``python -m difacto_tpu_torch args...`` in its own interpreter
+    from this tree; returns its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "difacto_tpu_torch", *args],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"difacto_tpu_torch {args[0]} failed:\n"
+                             f"{r.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _cache_batches(uri: str, batch_size: int, n_jobs: int) -> int:
+    """Batches per epoch the cached reader cuts from ``uri`` over
+    ``n_jobs`` parts (members are batch-aligned, so shuffling the rows
+    within them moves no batch boundary)."""
+    from difacto_tpu_torch.data.cached import CachedBatchReader
+    return sum(1 for part in range(n_jobs) for _ in CachedBatchReader(
+        uri, part, n_jobs, batch_size))
+
+
+def _kernels_on_cache_payloads(table, uri: str, uparam) -> None:
+    """The gather and both push routes on the slot vectors the cache path
+    packs (prepare_from_uniq of the first three members, epoch 0), on the
+    trained table: each kernel equals its plain version byte for byte."""
+    import torch
+    from difacto_tpu_torch.data.cached import CachedBatchReader
+    from difacto_tpu_torch.data.pack_stream import (ShapeSchedule,
+                                                    prepare_from_uniq)
+    from difacto_tpu_torch.ops import fused
+    from difacto_tpu_torch.updaters import sgd_updater as T
+    C = table.shape[0]
+    epi = T.epilogue_spec(uparam, C)
+    plain = functools.partial(T.row_epilogue, uparam, C)
+    shapes = ShapeSchedule()
+    for i, (sub, uniq, cnts) in enumerate(CachedBatchReader(
+            uri, batch_size=1000, need_counts=True)):
+        if i == 3:
+            break
+        pl = prepare_from_uniq(shapes, C, sub, uniq, cnts, True, True, 8,
+                               "train", 1024)
+        off = pl.b_cap * pl.d2 if pl.layout == "panel" else 2 * pl.d2
+        slots = torch.from_numpy(pl.i32[off:off + pl.u_cap].copy()).to(DEV)
+        rows = fused.gather_rows(table, slots)
+        same = torch.equal(rows.view(torch.uint8), fused.gather_rows_ref(
+            table, slots).view(torch.uint8))
+        gw, gV, vm = _step_inputs(uparam.V_dim, pl.u_cap, SEED + 13 + i)
+        for on in (True, False):
+            got, want = table.clone(), table.clone()
+            if on:
+                fused.fm_update_rows(got, slots, rows, gw, gV, vm, epi,
+                                     plain)
+                fused.fm_update_rows_ref(want, slots, rows, gw, gV, vm,
+                                         plain)
+            else:
+                fused.scatter_rows(got, slots, rows)
+                fused.scatter_rows_ref(want, slots, rows)
+            sync()
+            same &= torch.equal(got.view(torch.uint8),
+                                want.view(torch.uint8))
+            del got, want
+        if not same:
+            raise AssertionError(f"a kernel != its plain version on cached "
+                                 f"batch {i} (u_cap {pl.u_cap})")
+        log(f"  cached batch {i}: {pl.layout}, {sub.size} rows, u_cap "
+            f"{pl.u_cap} ({int(pl.i32[-1])} real): gather, push and count "
+            "push bit-exact with their plain versions")
+
+
+def phase_cache(work: str, conf: list, uparam, text: dict) -> dict:
+    """Phase 13: the rec2 cache at the full width of
+    examples/criteo_hashed.conf. ``task=convert`` writes phase 12's
+    50,000 train and 10,000 validation rows as 1,000-row pre-localized
+    members (serially, then the train rows again with ``convert_procs``
+    at auto); 2 epochs train from the serial cache: (h) four producer
+    threads and (i) four worker processes (``device_cache_mb=0``, 10
+    parts, shuffle 10), (j) rec2 and (k) text at one part with shuffle 0
+    (threads), (l) the defaults with the replay cache, twice, and once
+    on the plain versions. (i) equals (h), (k) equals (j), and the three
+    (l) runs equal each other, bit for bit; launches match the batches;
+    (l)'s model scores through phase 3's pred path, reading the
+    validation cache, within 1e-4 of a float64 FM, and ``task=dump``
+    writes one line per live row. ``text`` is phase 12's result: its
+    stage_stats of the same runs from text on threads (f) and processes
+    (g) are printed per batch beside the cache's."""
+    import torch
+    from difacto_tpu_torch import native
+    from difacto_tpu_torch.__main__ import main as cli_main
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.learners.sgd import SGDLearnerParam
+    from difacto_tpu_torch.updaters.sgd_updater import TRASH_SLOT
+    t_phase = time.monotonic()
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("the native parsers did not build or load")
+    log(f"  native parsers loaded: {native.library_path().name} "
+        "(libsvm, criteo, adfea; g++ at first use)")
+    data_in = os.path.join(work, "train.txt")
+    data_val = os.path.join(work, "val.txt")
+    with open(data_val, "rb") as f:
+        val_text = f.read()
+    cache, cache_val, cache_auto = (os.path.join(work, n) for n in (
+        "train.rec", "val.rec", "train_auto.rec"))
+    secs = {}
+    for name, src, out, procs in (("serial", data_in, cache, "1"),
+                                  ("val", data_val, cache_val, "1"),
+                                  ("auto", data_in, cache_auto, "0")):
+        secs[name] = _cli(["task=convert", f"data_in={src}",
+                           "data_format=criteo", f"data_out={out}",
+                           "data_out_format=rec", "batch_size=1000",
+                           f"convert_procs={procs}"])
+    from difacto_tpu_torch.data.reader import Reader
+    n_auto = sum(b.size for b in Reader(cache_auto, "rec"))
+    if n_auto != N_TRAIN:
+        raise AssertionError(f"the auto convert holds {n_auto} rows")
+    log(f"  task=convert (CLI wall, interpreter start included): "
+        f"{N_TRAIN} rows serially in {secs['serial']:.2f} s "
+        f"({N_TRAIN / secs['serial']:.0f} rows/s), with convert_procs "
+        f"auto ({len(os.listdir(cache_auto))} members over "
+        f"{min(os.cpu_count() or 1, 8)} workers) in {secs['auto']:.2f} s "
+        f"({N_TRAIN / secs['auto']:.0f} rows/s); {N_VAL} validation rows "
+        f"in {secs['val']:.2f} s")
+    base = conf + [("data_in", cache), ("data_val", cache_val),
+                   ("data_format", "rec"), ("max_num_epochs", "2"),
+                   ("stop_rel_objv", "0"), ("stop_val_auc", "-2"),
+                   ("report_interval", "0")]
+    lp, _ = SGDLearnerParam.init_allow_unknown(base)
+    val_b = _cache_batches(cache_val, lp.batch_size, 1)
+    total = {c: 0 for c in COUNTERS}
+
+    def run(name, kwargs, nb, nv, counted=True):
+        _reset_counts()
+        ln, progress, walls, _ = _train(kwargs)
+        got = _counts()
+        want = ({"gather_rows_cuda": 3 * nb + 2 * nv,
+                 "fm_update_rows_cuda": 2 * nb, "scatter_rows_cuda": nb}
+                if counted else {c: 0 for c in COUNTERS})
+        if got != want:
+            raise AssertionError(f"run {name} launches {got}, the batches "
+                                 f"need {want}")
+        for c in COUNTERS:
+            total[c] += got[c]
+        st = ln.stage_stats()
+        per = {k: round(1e3 * st[k + "_s"] / (2 * nb), 3)
+               for k in ("parse", "pack")}
+        log(f"  run {name}: epoch wall s {_epoch_walls(walls)}; parse "
+            f"{per['parse']} ms and pack {per['pack']} ms per batch; "
+            f"stages {st}; launches {got}")
+        loss = [t.loss / t.nrows for t, _ in progress]
+        if not (np.isfinite(loss).all() and loss[1] < loss[0]):
+            raise AssertionError(f"run {name}: loss per row {loss}")
+        bits = ln.store.state.VVg.clone()
+        del ln
+        gc.collect()
+        torch.cuda.empty_cache()
+        return bits, st, per
+
+    streamed = [("device_cache_mb", "0"), ("num_producers", "4")]
+    nb = _cache_batches(cache, lp.batch_size, lp.num_jobs_per_epoch)
+    bits_h, st_h, _ = run("(h) rec2, 4 threads", base + streamed + [
+        ("producer_mode", "thread")], nb, val_b)
+    bits_i, st_i, _ = run("(i) rec2, 4 processes", base + streamed + [
+        ("producer_mode", "process")], nb, val_b)
+    if st_i["producer_mode"] != "process" or not _bits_equal(bits_i,
+                                                             bits_h):
+        raise AssertionError("run (i) left another table than run (h)")
+    del bits_i
+    one = streamed + [("num_jobs_per_epoch", "1"), ("shuffle", "0"),
+                      ("producer_mode", "thread")]
+    nb1 = _cache_batches(cache, lp.batch_size, 1)
+    bits_j, _, per_j = run("(j) rec2, one part", base + one, nb1, val_b)
+    from_text = conf + [("data_in", data_in), ("data_val", data_val),
+                        ("max_num_epochs", "2"), ("stop_rel_objv", "0"),
+                        ("stop_val_auc", "-2"), ("report_interval", "0")]
+    bits_k, _, per_k = run("(k) text, one part", from_text + one, nb1, 1)
+    if not _bits_equal(bits_k, bits_j):
+        raise AssertionError("text and rec2 at one part left two tables")
+    del bits_j, bits_k, bits_h
+    model = os.path.join(work, "cache_l")
+    bits_l, st_l, _ = run("(l) rec2, the defaults", base + [
+        ("has_aux", "1"), ("model_out", model)], nb, val_b)
+    bits_l2, _, _ = run("(l) again", base, nb, val_b)
+    restore = _swap_plain()
+    try:
+        bits_l3, _, _ = run("(l) on the plain versions", base, nb, val_b,
+                            counted=False)
+    finally:
+        restore()
+    if not (_bits_equal(bits_l2, bits_l) and _bits_equal(bits_l3, bits_l)):
+        raise AssertionError("the replayed runs (l) left different tables")
+    del bits_l2, bits_l3
+    _kernels_on_cache_payloads(bits_l, cache, uparam)
+    del bits_l
+    torch.cuda.empty_cache()
+    for name, key in (("4 threads", "f"), ("4 processes", "g")):
+        st = text["stages"][key]
+        per = {k: round(1e3 * st[k + "_s"] / (2 * text["batches"]), 3)
+               for k in ("parse", "pack")}
+        log(f"  text, {name} (phase 12 run ({key})): parse {per['parse']} "
+            f"ms and pack {per['pack']} ms per batch")
+    with np.load(model + "_part-0") as z:
+        arrays = {f: z[f] for f in ("w", "V", "v_live")}
+    pred_out = os.path.join(work, "cache_pred")
+    run_pred(conf + [("model_in", model), ("data_in", cache_val),
+                     ("data_format", "rec"), ("pred_out", pred_out)],
+             device=DEV)
+    with open(pred_out + "_part-0", "rb") as f:
+        probs = np.array([float(x.split(b"\t")[1])
+                          for x in f.read().splitlines()])
+    ref_m = reference_margins(val_text, arrays, uparam.hash_capacity)
+    p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref_m))).max())
+    if len(probs) != N_VAL or not p_err <= 1e-4:
+        raise AssertionError(f"run (l)'s model pred (from the validation "
+                             f"cache) vs float64 FM: {len(probs)} rows, "
+                             f"prob err {p_err}")
+    dump = os.path.join(work, "cache_l.tsv")
+    t0 = time.perf_counter()
+    cli_main(["task=dump", f"device={DEV}", f"model_in={model}_part-0",
+              f"hash_capacity={uparam.hash_capacity}", f"name_dump={dump}"])
+    dump_s = time.perf_counter() - t0
+    live = (arrays["w"] != 0) | arrays["v_live"]
+    live[TRASH_SLOT] = False
+    with open(dump, "rb") as f:
+        n_lines = sum(1 for _ in f)
+    if n_lines != int(live.sum()):
+        raise AssertionError(f"task=dump wrote {n_lines} lines for "
+                             f"{int(live.sum())} live rows")
+    log(f"  run (l)'s model: task=pred over the validation cache within "
+        f"{p_err:.3g} of the float64 FM; task=dump {n_lines} lines (the "
+        f"live rows) in {dump_s:.2f} s")
+    log(f"phase 13 ok in {time.monotonic() - t_phase:.1f} s: the rec2 cache "
+        "at full width; threads = processes, text = rec2 at one part, the "
+        "replayed runs repeat and equal the plain versions, bit for bit")
+    return {"launches": total, "convert_s": secs,
+            "stages": {"h": st_h, "i": st_i, "j": per_j, "k": per_k,
+                       "l": st_l}}
 
 
 def main(argv=None) -> int:
@@ -1702,12 +1964,13 @@ def main(argv=None) -> int:
         tx = phase_layout_cross(work)
         phase_local_conf(work)
         ts = phase_stream(work, conf, uparam, tuple(args.parent))
+        tc = phase_cache(work, conf, uparam, ts)
         if "jax" in sys.modules or "difacto_tpu" in sys.modules:
             raise AssertionError("the smoke imported JAX or difacto_tpu")
-        # launches on the main paths: phases 3, 4, 7, 9, 10 and 12, each
-        # read just after its own run
+        # launches on the main paths: phases 3, 4, 7, 9, 10, 12 and 13,
+        # each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
-              + ts["launches"][c] for c in COUNTERS}
+              + ts["launches"][c] + tc["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

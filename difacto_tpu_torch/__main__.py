@@ -14,9 +14,14 @@
   ``examples/local.conf``, ``examples/fm.conf`` and the Criteo configs
   run as they are (mesh keys are ignored: one card).
 
+- ``task=dump`` — a saved model as readable TSV (``name_dump``; the
+  reference's src/reader/dump.h, the JAX package's bytes).
+- ``task=convert`` — text or rec input to libsvm text or the binary rec
+  cache (data/converter.py), which ``data_format=rec`` trains from.
+
 ``device=cuda`` (the default) runs on the card and raises when there is
-none; ``device=cpu`` runs on the CPU. The other tasks (dump, convert,
-online) are not ported yet and raise.
+none; ``device=cpu`` runs on the CPU (convert runs on the host alone).
+``task=online`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -82,6 +87,41 @@ class PredWriter:
         self._f.close()
 
 
+@dataclass
+class DumpParam(Param):
+    """src/reader/dump.h:12-31."""
+    updater: str = "sgd"
+    model_in: str = ""
+    name_dump: str = "dump.txt"
+    need_reverse: bool = False
+    dump_aux: bool = False
+
+
+def run_dump(kwargs: KWArgs, device="cuda") -> KWArgs:
+    """task=dump: open ``model_in`` in a store of its own ``V_dim`` (read
+    from the checkpoint) with its optimizer state, and write the TSV."""
+    import dataclasses
+
+    from .store.local import SlotStore
+    from .updaters.sgd_updater import SGDUpdaterParam
+    from .utils import stream
+
+    param, remain = DumpParam.init_allow_unknown(kwargs)
+    if not param.model_in:
+        raise ValueError("please set model_in")
+    if param.updater != "sgd":
+        raise ValueError(f"unknown updater: {param.updater}")
+    with stream.load_npz(param.model_in) as z:
+        v_dim = int(z["V_dim"]) if "V_dim" in z.files else 0
+    uparam, remain = SGDUpdaterParam.init_allow_unknown(remain)
+    store = SlotStore(dataclasses.replace(uparam, V_dim=v_dim),
+                      device=device)
+    store.load(param.model_in)
+    n = store.dump(param.name_dump, param.dump_aux, param.need_reverse)
+    log.info("dumped %d features to %s", n, param.name_dump)
+    return remain
+
+
 def run_pred(kwargs: KWArgs, device="cuda", store=None) -> KWArgs:
     """task=pred: slice the reader's blocks into ``batch_size`` windows
     and score each through the predict executor (the JAX learner's
@@ -128,7 +168,8 @@ def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m difacto_tpu_torch [config_file] "
-              "task=train|pred|serve key1=val1 ...", file=sys.stderr)
+              "task=train|pred|serve|dump|convert key1=val1 ...",
+              file=sys.stderr)
         return 1
     param, remain = DifactoParam.init_allow_unknown(parse_cli_args(argv))
     if param.task == "pred":
@@ -148,10 +189,17 @@ def main(argv: Optional[list] = None) -> int:
         learner = SGDLearner(device=param.device)
         warn_unknown(learner.init(remain))
         learner.run()
+    elif param.task == "dump":
+        warn_unknown(run_dump(remain, device=param.device))
+    elif param.task == "convert":
+        from .data.converter import Converter
+        conv = Converter()
+        warn_unknown(conv.init(remain))
+        conv.run()
     else:
         raise NotImplementedError(
-            f"task={param.task} is not ported yet: the port runs "
-            "task=train, task=pred and task=serve (ROADMAP.md, Queue 1)")
+            f"task={param.task} is not ported yet (ROADMAP.md, Queue 1: "
+            "the online log)")
     return 0
 
 

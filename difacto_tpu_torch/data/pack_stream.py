@@ -15,12 +15,15 @@ difacto_tpu/data/pack_stream.py).
   ``stream_chunk`` adds the chunked-run backward layout built on the
   host (:func:`chunk_host`), ``device_dedup`` ships the raw hashed tokens
   (``ops/batch.pack_panel_raw``) and leaves the dedup to the step.
+- :func:`prepare_from_uniq`: the same payload for a block the rec cache
+  already localized (data/cached.py), from its sorted reversed ids.
 - :func:`pack_mapped`: the same payloads for a block the dictionary store
   has already mapped (the JAX learner's ``_pack_mapped``), padded at the
   table's capacity after this block's inserts.
 - :class:`StreamSpec` / :func:`spec_iter`: the picklable recipe a spawned
   worker rebuilds the hashed training stream from, yielding the same
-  items the learner's producer threads yield; :func:`timed_reader`
+  items the learner's producer threads yield, from text or from a
+  pre-localized cache (``cached_uri``); :func:`timed_reader`
   accounts the read + parse half in both transports.
 
 Nothing here imports torch: worker processes run this module alone.
@@ -209,6 +212,35 @@ def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,
                         counts=counts, stream_chunk=stream_chunk)
 
 
+def prepare_from_uniq(shapes: ShapeSchedule, hash_capacity: int, cblk,
+                      uniq: np.ndarray, counts: Optional[np.ndarray],
+                      want_counts: bool, fill_counts: bool, dim_min: int,
+                      job: str, b_cap: Optional[int] = None,
+                      stream_chunk: bool = False) -> Payload:
+    """:func:`prepare_hashed` for a block the rec cache already localized
+    (data/cached.py): ``cblk.index`` addresses ``uniq``, the sorted
+    reversed ids. The slot map and its dedup are O(uniq); colliding
+    lanes merge through ``np.unique``'s inverse, and their ``counts``
+    (per uniq lane) add up in slot space. The O(nnz) gather of the index
+    through that map runs here, on the producer. The payload equals
+    prepare_hashed's for the same rows."""
+    from ..store.slots import hash_slots, pad_slots_oob
+    slots, remap = np.unique(hash_slots(uniq, hash_capacity),
+                             return_inverse=True)
+    cblk = dataclasses.replace(
+        cblk, index=remap[cblk.index].astype(np.uint32))
+    n_lanes = len(slots)
+    u_cap = shapes.cap(job + ".u", n_lanes)
+    b_cap = b_cap or shapes.cap(job + ".b", cblk.size, dim_min)
+    scounts = np.zeros(0, np.float32) if want_counts else None
+    if fill_counts and counts is not None:
+        scounts = np.bincount(remap, weights=counts,
+                              minlength=n_lanes).astype(np.float32)
+    padded = pad_slots_oob(slots.astype(np.int32), u_cap, hash_capacity)
+    return pack_payload(shapes, cblk, n_lanes, padded, b_cap, dim_min, job,
+                        counts=scounts, stream_chunk=stream_chunk)
+
+
 # ------------------------------------------------------------------ spec
 @dataclass
 class StreamSpec:
@@ -232,6 +264,8 @@ class StreamSpec:
     stream_chunk: bool = False
     device_dedup: bool = False
     need_label: bool = False
+    # a pre-localized rec cache to read instead of data_in (cached.py)
+    cached_uri: Optional[str] = None
     # the consumer's sticky caps, so workers start from its schedule
     caps: dict = field(default_factory=dict)
     # the consumer's trace id: workers' spans join its timeline
@@ -263,7 +297,6 @@ def spec_iter(spec: StreamSpec, part_i: int) -> Iterator:
     batches produced in the worker's process-global registry, which the
     pool ships to the consumer (obs/proc.py)."""
     from ..obs import REGISTRY, trace
-    from .batch_reader import BatchReader
     if spec.trace_id:
         trace.set_trace_id(spec.trace_id)
     stage = REGISTRY.counter(
@@ -277,20 +310,42 @@ def spec_iter(spec: StreamSpec, part_i: int) -> Iterator:
     shapes = ShapeSchedule()
     shapes.absorb(spec.caps)
     part = spec.parts[part_i]
+    seed = spec.epoch * max(spec.n_jobs, 1) + part
+
+    def info(blk) -> BlkInfo:
+        return BlkInfo(size=blk.size,
+                       label=blk.label if spec.need_label else None)
+
+    def packed(fn, *args, **kw) -> Payload:
+        t0 = time.perf_counter()
+        with trace.span("producer.pack", part=part):
+            out = fn(*args, **kw)
+        pack_c.inc(time.perf_counter() - t0)
+        return out
+
+    if spec.cached_uri is not None:
+        from .cached import CachedBatchReader
+        rdr = CachedBatchReader(
+            spec.cached_uri, part, spec.n_jobs, spec.batch_size,
+            shuffle=spec.shuffle > 0, neg_sampling=spec.neg_sampling,
+            seed=seed, need_counts=spec.fill_counts)
+        for sub, uniq, cnts in timed_reader(rdr, parse_c, part):
+            rows_c.inc(sub.size)
+            batches_c.inc()
+            yield ("ready", info(sub), packed(
+                prepare_from_uniq, shapes, spec.hash_capacity, sub, uniq,
+                cnts, spec.want_counts, spec.fill_counts, spec.dim_min,
+                spec.job, spec.b_cap, stream_chunk=spec.stream_chunk))
+        return
+    from .batch_reader import BatchReader
     reader = BatchReader(spec.data_in, spec.data_format, part, spec.n_jobs,
                          spec.batch_size, spec.batch_size * spec.shuffle,
-                         spec.neg_sampling,
-                         seed=spec.epoch * max(spec.n_jobs, 1) + part)
+                         spec.neg_sampling, seed=seed)
     for blk in timed_reader(reader, parse_c, part):
         rows_c.inc(blk.size)
         batches_c.inc()
-        t0 = time.perf_counter()
-        with trace.span("producer.pack", part=part):
-            payload = prepare_hashed(
-                shapes, spec.hash_capacity, blk, spec.want_counts,
-                spec.fill_counts, spec.dim_min, spec.job, spec.b_cap,
-                stream_chunk=spec.stream_chunk,
-                device_dedup=spec.device_dedup)
-        pack_c.inc(time.perf_counter() - t0)
-        yield ("ready", BlkInfo(size=blk.size, label=blk.label
-                                if spec.need_label else None), payload)
+        yield ("ready", info(blk), packed(
+            prepare_hashed, shapes, spec.hash_capacity, blk,
+            spec.want_counts, spec.fill_counts, spec.dim_min, spec.job,
+            spec.b_cap, stream_chunk=spec.stream_chunk,
+            device_dedup=spec.device_dedup))

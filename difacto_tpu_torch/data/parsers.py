@@ -1,13 +1,14 @@
-"""Text format parsers: libsvm and criteo (counterpart of
+"""Text format parsers: libsvm, criteo and adfea (counterpart of
 difacto_tpu/data/parsers.py).
 
-Bulk-numpy forms only: one ``np.frombuffer`` over the chunk, single-pass
-delimiter scans, exact uint64 digit accumulation for feature ids, a
-correctly-rounded float path for labels and values, and a lane-parallel
-MurmurHash64A for the criteo categorical hashing. They produce the same
-RowBlocks as the JAX package's parsers (and its native ctypes parsers,
-which are held to the same bytes there), so both packages slot a row
-identically.
+libsvm and criteo in bulk numpy: one ``np.frombuffer`` over the chunk,
+single-pass delimiter scans, exact uint64 digit accumulation for feature
+ids, a correctly-rounded float path for labels and values, and a
+lane-parallel MurmurHash64A for the criteo categorical hashing; adfea is
+a token loop. They are the fallback of the native C++ parsers
+(data/native_parsers.py), which :func:`get_parser` hands out, and all
+give the same RowBlocks as the JAX package's parsers, so both packages
+slot a row identically.
 
 Implicit-value tokens (``idx`` with no ``:val``) parse as value 1.0; the
 value array is elided (None) when every value is 1.0.
@@ -415,13 +416,59 @@ def parse_criteo(chunk: bytes, is_train: bool = True) -> RowBlock:
     )
 
 
+def parse_adfea(chunk: bytes) -> RowBlock:
+    """Parse adfea: ``lineid count label idx:gid idx:gid ...``, a
+    whitespace token stream. Tokens without ``:`` cycle through (lineid,
+    count, label), the third starting a row labelled 1 iff it begins with
+    ``1``; an ``idx:gid`` token is a feature ``idx << 12 | gid % 4096``
+    of the current row (adfea_parser.h:54-77)."""
+    labels = []
+    counts = []
+    ids: list = []
+    i = 0
+    cur = -1
+    for tok in chunk.split():
+        head, sep, tail = tok.partition(b":")
+        if sep:
+            idx = int(head)
+            if not 0 <= idx <= _U64_MAX:
+                raise OverflowError(f"adfea feature id {idx} is not a "
+                                    "uint64")
+            ids.append((idx << 12 | int(tail) % 4096) & _U64_MAX)
+            if cur >= 0:
+                counts[cur] += 1
+        elif i == 2:
+            i = 0
+            labels.append(1.0 if head.startswith(b"1") else 0.0)
+            counts.append(0)
+            cur += 1
+        else:
+            i += 1
+    if not labels:
+        return empty_block()
+    offset = np.zeros(len(labels) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offset[1:])
+    return RowBlock(
+        offset=offset,
+        label=np.array(labels, dtype=REAL_DTYPE),
+        index=np.array(ids, dtype=FEAID_DTYPE),
+        value=None,
+    )
+
+
 def get_parser(fmt: str):
+    """The chunk parser of a text format: the native C++ parsers
+    (data/native_parsers.py), which fall back to the Python ones above
+    when the library cannot be built."""
+    from . import native_parsers as nat
     fmt = fmt.lower()
     if fmt == "libsvm":
-        return parse_libsvm
+        return nat.parse_libsvm_native
     if fmt == "criteo":
-        return parse_criteo
+        return nat.parse_criteo_native
     if fmt == "criteo_test":
-        return lambda chunk: parse_criteo(chunk, is_train=False)
+        return lambda chunk: nat.parse_criteo_native(chunk, is_train=False)
+    if fmt == "adfea":
+        return nat.parse_adfea_native
     raise ValueError(f"unknown data format: {fmt} (the port parses libsvm, "
-                     "criteo and criteo_test)")
+                     "criteo, criteo_test, adfea and the rec cache)")

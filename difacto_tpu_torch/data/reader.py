@@ -7,36 +7,45 @@ contract: the total span is cut evenly, a part starts at the first line
 start at or after its begin offset and ends with the line that straddles
 its end, so every line belongs to exactly one part. Records come as
 RowBlocks of whole-line chunks of ``chunk_bytes``, the JAX reader's
-chunking, so both packages cut the same batches.
+chunking, so both packages cut the same batches. ``data_format="rec"``
+reads a binary cache (rec.py) by whole members, in the original id
+space.
 """
 
 from __future__ import annotations
 
-import glob
-import os
 from typing import Iterator, List, Tuple
 
+from ..utils import stream
 from .parsers import get_parser
 from .rowblock import RowBlock
 
 
-def expand_uri(uri: str) -> List[str]:
-    """Sorted files behind a uri; ';' separates multiple uris."""
+def expand_uri(uri: str, with_sizes: bool = False):
+    """Sorted files behind a uri; ';' separates multiple uris.
+    ``with_sizes`` returns (files, sizes)."""
     files: List[str] = []
+    sizes: List[int] = []
     for part in uri.split(";"):
         part = part.strip()
         if not part:
             continue
-        if os.path.isdir(part):
-            files.extend(sorted(e.path for e in os.scandir(part)
-                                if e.is_file()))
-        elif os.path.isfile(part):
+        if stream.isdir(part):
+            for f, sz in stream.listdir_files(part):
+                files.append(f)
+                sizes.append(sz)
+        elif stream.isfile(part):
             files.append(part)
+            sizes.append(stream.getsize(part) if with_sizes else -1)
         else:
-            hits = [h for h in sorted(glob.glob(part)) if os.path.isfile(h)]
+            hits = [h for h in stream.glob(part) if stream.isfile(h)]
             if not hits:
                 raise FileNotFoundError(f"no files match data uri: {part!r}")
             files.extend(hits)
+            sizes.extend(stream.getsize(h) if with_sizes else -1
+                         for h in hits)
+    if with_sizes:
+        return files, sizes
     return files
 
 
@@ -60,7 +69,7 @@ def _iter_text_chunks(path: str, begin: int, end: int,
     """Whole-line chunks covering [begin, end) of ``path``: the line that
     straddles ``begin`` belongs to the previous part, the one that
     straddles ``end`` to this one."""
-    with open(path, "rb") as f:
+    with stream.open_stream(path, "rb") as f:
         pos = begin
         if begin > 0:
             f.seek(begin - 1)
@@ -85,12 +94,16 @@ class Reader:
         self.data_format = data_format.lower()
         self.part_idx, self.num_parts = part_idx, num_parts
         self.chunk_bytes = chunk_bytes
-        self.files = expand_uri(uri)
+        self.files, self._sizes = expand_uri(uri, with_sizes=True)
         if not self.files:
             raise FileNotFoundError(f"empty data uri: {uri!r}")
-        self._sizes = [os.path.getsize(f) for f in self.files]
 
     def __iter__(self) -> Iterator[RowBlock]:
+        if self.data_format == "rec":
+            from .rec import iter_rec_blocks
+            yield from iter_rec_blocks(self.files, self.part_idx,
+                                       self.num_parts, sizes=self._sizes)
+            return
         parse = get_parser(self.data_format)
         for path, b, e in _byte_ranges(self.files, self._sizes,
                                        self.part_idx, self.num_parts):

@@ -4,7 +4,9 @@ src/sgd/sgd_learner.{h,cc}).
 
 Per batch: host read + localize + slot map + pack (data/pack_stream.py;
 the hashed store hashes, the dictionary store maps and inserts on this
-thread, growing the table), one copy of the two packed buffers to the
+thread, growing the table; a pre-localized rec cache, ``data_format=rec``,
+arrives compacted, data/cached.py, and skips the parse and the
+sort/unique), one copy of the two packed buffers to the
 device, on epoch 0 the count push, then the train step (step.py: one
 gather kernel, FM forward and backward, one scatter kernel with the
 FTRL/AdaGrad epilogue, in place on the table; the flat V_dim=0 table
@@ -64,10 +66,11 @@ import torch
 
 from ..config import KWArgs, Param
 from ..data.batch_reader import BatchReader
+from ..data.cached import CachedBatchReader, cache_probe
 from ..data.localizer import compact
 from ..data.pack_stream import (Payload, ShapeSchedule, StreamSpec,
-                                pack_mapped, prepare_hashed, spec_iter,
-                                timed_reader)
+                                pack_mapped, prepare_from_uniq,
+                                prepare_hashed, spec_iter, timed_reader)
 from ..data.producer_pool import (HELD_LEASES, OrderedProducerPool,
                                   ProcessProducerPool)
 from ..data.reader import Reader
@@ -336,6 +339,7 @@ class SGDLearner(Learner):
         self._shapes = ShapeSchedule()
         self._caches: dict = {}
         self._cache_pool = {"used": 0}   # one budget across job types
+        self._cache_probe: dict = {}     # rec uri -> pre-localized
         # this run's own registry (two learners in one process must not
         # blur); producer worker processes report into it through the
         # pool's snapshot channel (obs/proc.py)
@@ -513,6 +517,32 @@ class SGDLearner(Learner):
         return Reader(p.data_val or p.data_in, p.data_format, g_idx, g_num,
                       chunk_bytes=256 << 20)
 
+    def _cached_uri(self, job_type: int) -> Optional[str]:
+        """The job's pre-localized rec cache (``data_format=rec`` whose
+        members carry ``uniq``), or None: a cache that is not localized
+        reads through the Reader like text. Warns once per uri when its
+        members dwarf the batch, since every batch then pays a
+        re-compaction (data/cached.py)."""
+        p = self.param
+        if p.data_format.lower() != "rec":
+            return None
+        uri = p.data_in if job_type == K_TRAINING \
+            else (p.data_val or p.data_in)
+        if uri not in self._cache_probe:
+            try:
+                ok, member_rows = cache_probe(uri)
+            except FileNotFoundError:
+                ok, member_rows = False, 0
+            if ok and member_rows > 4 * p.batch_size:
+                log.warning(
+                    "rec cache %s has %d-row members but batch_size=%d: "
+                    "every batch pays an O(nnz) re-compaction; re-convert "
+                    "with batch_size=%d (or rec_batch_size=%d) for "
+                    "batch-aligned members", uri, member_rows,
+                    p.batch_size, p.batch_size, p.batch_size)
+            self._cache_probe[uri] = ok
+        return uri if self._cache_probe[uri] else None
+
     def _part_reports(self, job_type: int) -> bool:
         return job_type == K_TRAINING and self.param.report_interval > 0
 
@@ -633,10 +663,30 @@ class SGDLearner(Learner):
             pack_c.inc(time.perf_counter() - t0)
             return out
 
+        cached_uri = self._cached_uri(job_type)
+
         def make_iter(part):
             # the hashed store is stateless: hash, dedup and pack here;
             # the dictionary inserts into host state, so only the compact
-            # runs here and the consumer maps the keys
+            # runs here (a cache's members come compacted) and the
+            # consumer maps the keys
+            if cached_uri is not None:
+                rdr = CachedBatchReader(
+                    cached_uri, part, n_jobs, p.batch_size,
+                    shuffle=is_train and p.shuffle > 0,
+                    neg_sampling=p.neg_sampling if is_train else 1.0,
+                    seed=epoch * max(n_jobs, 1) + part,
+                    need_counts=push_cnt)
+                for sub, uniq, cnts in timed_reader(rdr, parse_c, part):
+                    if hashed:
+                        yield ("ready", sub, packed(
+                            part, prepare_from_uniq, self._shapes,
+                            hash_capacity, sub, uniq, cnts, push_cnt,
+                            push_cnt, 8, job, b_cap,
+                            stream_chunk=stream_chunk))
+                    else:
+                        yield ("compact", sub, (sub, uniq, cnts))
+                return
             reader = self._make_reader(job_type, epoch, part, n_jobs)
             for blk in timed_reader(reader, parse_c, part):
                 if hashed:
@@ -669,7 +719,7 @@ class SGDLearner(Learner):
                 want_counts=push_cnt, fill_counts=push_cnt, dim_min=8,
                 job=job, b_cap=b_cap, stream_chunk=stream_chunk,
                 device_dedup=device_dedup, caps=self._shapes.snapshot(),
-                trace_id=trace.trace_id())
+                trace_id=trace.trace_id(), cached_uri=cached_uri)
             slot_mb = p.ring_slot_mb or max(1, (p.batch_size * 320) >> 20)
             pool = ProcessProducerPool(
                 len(stream_parts), functools.partial(spec_iter, spec),

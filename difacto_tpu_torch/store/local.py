@@ -25,7 +25,8 @@ v_live, V and, with aux, z, sqrt_g, Vg as f32 arrays) plus geometry
 stamps; a dictionary save writes the sorted ``keys`` with the rows of
 the entries that are non-empty (w, cnt or a live embedding), and a load
 gives them slots 1..n. Loads rebuild the fused rows through
-``build_rows`` (requantizing when the stamp says int8/fp8).
+``build_rows`` (requantizing when the stamp says int8/fp8). ``dump``
+writes the readable TSV of ``task=dump``.
 
 A trainable store (``read_only=False``) carries the optimizer state in
 its fused rows and saves it with ``save_aux``; the learner pushes through
@@ -43,7 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..base import FEAID_DTYPE
+from ..base import FEAID_DTYPE, reverse_bytes
 from ..updaters.sgd_updater import (TRASH_SLOT, SGDState, SGDUpdaterParam,
                                     grow_state, init_state, make_fns)
 from ..utils import manifest as mft
@@ -286,3 +287,54 @@ class SlotStore:
         self._slots = np.arange(1, n + 1, dtype=np.int64)
         self._next_slot = n + 1
         return n
+
+    def dump(self, path: str, dump_aux: bool = False,
+             need_reverse: bool = True) -> int:
+        """Human-readable TSV (Updater::Dump, sgd_updater.h:108-139), the
+        JAX store's ``dump`` byte for byte: ``feaid size w [sqrt_g z]
+        V... [Vg...]`` per non-empty entry (w != 0 or a live embedding),
+        each value ``repr`` of the f32 read as a float64; 8-bit and bf16
+        tables dump their dequantized values. ``need_reverse`` un-reverses
+        a dictionary's ids back to the original space; the hashed store
+        has no ids, so its first column is the slot and ``need_reverse``
+        is ignored. The table comes to the host once. Returns the count
+        of lines."""
+        k = self.param.V_dim
+        st = self._state_np(("w", "v_live", "V") + (
+            ("sqrt_g", "z", "Vg") if dump_aux else ()))
+        if self.hashed:
+            keep = st["w"] != 0
+            if k > 0:
+                keep |= st["v_live"]
+            keep[TRASH_SLOT] = False
+            slots = np.nonzero(keep)[0]
+            keys = slots.astype(FEAID_DTYPE)
+        else:
+            keys, slots = self._keys, self._slots
+            keep = st["w"][slots] != 0
+            if k > 0:
+                keep |= st["v_live"][slots]
+            keys, slots = keys[keep], slots[keep]
+            if need_reverse:
+                keys = reverse_bytes(keys)
+        live = (st["v_live"][slots] if k > 0
+                else np.zeros(len(slots), dtype=bool)).tolist()
+
+        def col(name):
+            return st[name][slots].astype(np.float64).tolist()
+
+        w = col("w")
+        aux = list(zip(col("sqrt_g"), col("z"))) if dump_aux else None
+        V = col("V") if k > 0 else None
+        Vg = col("Vg") if k > 0 and dump_aux else None
+        with stream.open_stream(path, "w") as f:
+            for i, key in enumerate(keys.tolist()):
+                cols = [str(key), str(1 + k if live[i] else 1), repr(w[i])]
+                if dump_aux:
+                    cols += [repr(aux[i][0]), repr(aux[i][1])]
+                if live[i]:
+                    cols += map(repr, V[i])
+                    if dump_aux:
+                        cols += map(repr, Vg[i])
+                f.write("\t".join(cols) + "\n")
+        return len(slots)

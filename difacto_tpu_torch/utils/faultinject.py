@@ -1,0 +1,164 @@
+"""Fault-injection registry: named failure points, armed by environment
+(counterpart of difacto_tpu/utils/faultinject.py, the same grammar, seed
+and kinds).
+
+    DIFACTO_FAULTS="point:kind@prob[:after_n][,point:kind@prob...]"
+
+- ``point`` — a dotted site name. The port wires one so far:
+  ``rec.read`` (every rec2 data-cache member open, data/rec2.py — ``err``
+  is a failed disk read, ``truncate`` reads a half-length view which the
+  per-section CRCs must reject as a typed ``RecCorrupt``, never a crash
+  or a silent short read). The JAX package's other points are listed in
+  ROADMAP.md (Queue 1, fault injection).
+- ``kind`` — what happens when the fault fires:
+    - ``err``      raise :class:`FaultInjected` (an OSError, so IO call
+                   sites treat it exactly like a real IO failure);
+    - ``truncate`` the call site tears its artifact;
+    - ``close``    the call site drops its connection mid-stream;
+    - ``delay_ms`` sleep; the value rides on the kind: ``delay_ms=20``;
+    - ``kill``     SIGKILL the current process.
+- ``prob`` — firing probability in (0, 1] once armed (seeded RNG:
+  deterministic per-process sequence).
+- ``after_n`` — skip the first N traversals of the point, fire on the
+  (N+1)-th, then re-arm (the counter resets). Omitted = eligible at once.
+
+``fire(point)`` is the one call sites make. Unarmed it is one truthiness
+check on an empty dict. Armed, it handles ``err``/``delay_ms`` itself and
+returns the kinds the call site must sequence (``truncate``/``close``/
+``kill``); sites with no special handling pass the returned kind to
+:func:`act_default`. Tests arm and disarm with :func:`configure`; the
+environment variable is read once at import, which is how armed
+subprocesses inherit the faults.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import signal
+import threading
+import time
+from typing import Dict, List, Optional
+
+KINDS = ("err", "truncate", "close", "delay_ms", "kill")
+
+
+class FaultInjected(OSError):
+    """An injected failure. Derives OSError so IO call sites handle it
+    through the same paths a real disk/socket failure takes."""
+
+
+class _Fault:
+    __slots__ = ("kind", "arg", "prob", "after", "hits", "fired")
+
+    def __init__(self, kind: str, arg: float, prob: float, after: int):
+        self.kind = kind
+        self.arg = arg
+        self.prob = prob
+        self.after = after
+        self.hits = 0
+        self.fired = 0
+
+
+_armed: Dict[str, List[_Fault]] = {}
+_mu = threading.Lock()
+_rng = random.Random()
+
+
+def parse(spec: str) -> Dict[str, List[_Fault]]:
+    """Parse a DIFACTO_FAULTS spec; raises ValueError on a malformed
+    entry (a chaos run with a typo'd spec must fail loudly, not silently
+    run fault-free)."""
+    out: Dict[str, List[_Fault]] = {}
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        try:
+            point, rest = entry.split(":", 1)
+            if "@" not in rest:
+                raise ValueError("missing @prob")
+            kindspec, probspec = rest.split("@", 1)
+            after = 0
+            if ":" in probspec:
+                probspec, afterspec = probspec.split(":", 1)
+                after = int(afterspec)
+            prob = float(probspec)
+            kind, arg = kindspec, 0.0
+            if "=" in kindspec:
+                kind, argspec = kindspec.split("=", 1)
+                arg = float(argspec)
+            if kind not in KINDS:
+                raise ValueError(f"unknown kind {kind!r} (one of {KINDS})")
+            if not (0.0 < prob <= 1.0):
+                raise ValueError(f"prob {prob} outside (0, 1]")
+        except ValueError as e:
+            raise ValueError(
+                f"bad DIFACTO_FAULTS entry {entry!r} "
+                f"(want point:kind@prob[:after_n]): {e}") from e
+        out.setdefault(point, []).append(_Fault(kind, arg, prob, after))
+    return out
+
+
+def configure(spec: Optional[str] = None, seed: int = 0xD1FAC70) -> None:
+    """(Re)arm the registry. ``spec=None`` reads DIFACTO_FAULTS from the
+    environment; ``spec=""`` disarms everything."""
+    global _armed
+    if spec is None:
+        spec = os.environ.get("DIFACTO_FAULTS", "")
+    _rng.seed(seed)
+    _armed = parse(spec)
+
+
+def fire(point: str) -> Optional[str]:
+    """Traverse injection point ``point``. Returns None (no fault), or
+    the kind the call site must sequence (``truncate``/``close``/
+    ``kill``). ``err`` raises FaultInjected, ``delay_ms`` sleeps."""
+    if not _armed:
+        return None
+    faults = _armed.get(point)
+    if not faults:
+        return None
+    for f in faults:
+        with _mu:
+            f.hits += 1
+            if f.hits <= f.after:
+                continue
+            if f.prob < 1.0 and _rng.random() >= f.prob:
+                continue
+            f.fired += 1
+            f.hits = 0  # re-arm: after_n skips apply to the next cycle too
+        from ..obs import REGISTRY
+        REGISTRY.counter(
+            "faults_fired_total",
+            "injected faults that actually fired, per point and kind"
+        ).labels(point=point, kind=f.kind).inc()
+        if f.kind == "delay_ms":
+            time.sleep(f.arg / 1e3)
+            continue
+        if f.kind == "err":
+            raise FaultInjected(f"injected fault at {point}")
+        return f.kind
+    return None
+
+
+def act_default(kind: Optional[str]) -> None:
+    """Fallback for call sites without site-specific handling of a
+    returned kind: ``kill`` dies here; tear/drop kinds degrade to an
+    injected error (never silently ignored)."""
+    if kind is None:
+        return
+    if kind == "kill":  # pragma: no cover - the process dies
+        os.kill(os.getpid(), signal.SIGKILL)
+    raise FaultInjected(f"injected fault kind {kind!r} (unhandled here)")
+
+
+def stats() -> Dict[str, int]:
+    """Fired counts per point: a chaos test asserts the fault actually
+    fired."""
+    with _mu:
+        return {p: sum(f.fired for f in fs) for p, fs in _armed.items()}
+
+
+# arm from the environment at import: subprocesses inherit DIFACTO_FAULTS
+configure()

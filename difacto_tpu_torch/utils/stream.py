@@ -1,10 +1,11 @@
-"""Checkpoint file IO (counterpart of difacto_tpu/utils/stream.py).
+"""File IO (counterpart of difacto_tpu/utils/stream.py), local paths only.
 
-The local-path subset the serving slice needs: atomic npz writes (tmp +
-rename) with the manifest sidecar written strictly after the npz
-finalizes, and npz reads. The files are byte-compatible with the JAX
-package's ``save_npz``/``load_npz`` in both directions. Remote
-(``scheme://``) URIs are not ported yet and raise.
+Atomic npz writes (tmp + rename) with the manifest sidecar written
+strictly after the npz finalizes, npz reads, and the directory helpers
+the data readers, the rec cache and the converter call (listing with
+sizes, ``makedirs``, ``join``). The files are byte-compatible with the
+JAX package's in both directions. Remote (``scheme://``) URIs are not
+ported yet and raise; ``file://`` is a local path.
 """
 
 from __future__ import annotations
@@ -47,6 +48,28 @@ def isfile(uri: str) -> bool:
     return os.path.isfile(_local(uri))
 
 
+def isdir(uri: str) -> bool:
+    return os.path.isdir(_local(uri))
+
+
+def listdir_files(uri: str) -> List[tuple]:
+    """Sorted [(path, size)] of the regular files in a directory."""
+    return sorted((e.path, e.stat().st_size)
+                  for e in os.scandir(_local(uri)) if e.is_file())
+
+
+def getsize(uri: str) -> int:
+    return os.path.getsize(_local(uri))
+
+
+def makedirs(uri: str) -> None:
+    os.makedirs(_local(uri), exist_ok=True)
+
+
+def join(uri: str, *parts: str) -> str:
+    return os.path.join(_local(uri), *parts)
+
+
 def glob(uri: str) -> List[str]:
     return sorted(_glob.glob(_local(uri)))
 
@@ -55,16 +78,18 @@ def remove(uri: str) -> None:
     os.remove(_local(uri))
 
 
-def save_npz(uri: str, manifest: Optional[dict] = None, **arrays) -> None:
-    """Atomic uncompressed npz write (tmp + rename; a 4M-row table is
-    ~300 MB, which zlib would write at a few MB/s). ``manifest`` (writer metadata:
-    learner/rows/generation) turns on the ``<path>.manifest.json``
-    sidecar with per-array sha256 digests, written AFTER the npz
-    finalizes so it doubles as the commit marker (utils/manifest.py)."""
+def save_npz(uri: str, manifest: Optional[dict] = None,
+             compress: bool = False, **arrays) -> None:
+    """Atomic npz write (tmp + rename), uncompressed unless ``compress``
+    (a 4M-row table is ~300 MB, which zlib would write at a few MB/s).
+    ``manifest`` (writer metadata: learner/rows/generation) turns on the
+    ``<path>.manifest.json`` sidecar with per-array sha256 digests,
+    written AFTER the npz finalizes so it doubles as the commit marker
+    (utils/manifest.py)."""
     path = _local(uri)
     _ensure_parent(path)
     tmp = path + ".tmp.npz"  # .npz suffix stops savez appending its own
-    np.savez(tmp, **arrays)
+    (np.savez_compressed if compress else np.savez)(tmp, **arrays)
     os.replace(tmp, path)
     if manifest is not None:
         from . import manifest as _mft

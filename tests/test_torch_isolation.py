@@ -9,7 +9,10 @@
   kernels' launch counters stay 0, also through the replay cache.
 - The JAX package's default training (the dictionary store, the replay
   cache with the chunked backward, the flat table), its checkpoints and
-  task=pred run in an interpreter where jax cannot be imported.
+  task=pred run in an interpreter where jax cannot be imported; so do
+  task=convert, training from the rec cache on worker processes and
+  task=dump, and the convert and producer worker processes import
+  neither jax nor torch, and load the native parsers.
 """
 
 import os
@@ -228,6 +231,18 @@ def probe(spec, part):
                               if m.split(".")[0] in ("jax", "jaxlib",
                                                      "difacto_tpu",
                                                      "torch")}))
+
+
+def probe_convert(spec, part):
+    from difacto_tpu_torch.data.converter import convert_part_iter
+    from difacto_tpu_torch.native import get_lib
+    n = sum(1 for _ in convert_part_iter(spec, part))
+    yield ("members", n)
+    yield ("native", get_lib() is not None)
+    yield ("modules", sorted({m.split(".")[0] for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "difacto_tpu",
+                                                     "torch")}))
 '''
 
 
@@ -278,6 +293,85 @@ def test_spawned_producer_workers_import_no_jax(tmp_path):
             print("ok")
     """)
     script = tmp_path / "run_probe.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, str(script)], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_convert_cache_and_dump_run_with_jax_poisoned(tmp_path):
+    """The slice's new paths in a parent that cannot import jax or
+    difacto_tpu: convert workers (``convert_part_iter``) and producer
+    workers reading the cache (``spec_iter`` with ``cached_uri``) import
+    neither, nor torch, and load the native parsers; the learner trains
+    from the cache on worker processes; task=convert (two workers) and
+    task=dump run."""
+    from chip_smoke import synthetic_criteo
+    data = tmp_path / "criteo.txt"
+    data.write_bytes(synthetic_criteo(300, 6))
+    (tmp_path / "worker_probe.py").write_text(_PROBE)
+    cache, model = str(tmp_path / "c.rec"), str(tmp_path / "m")
+    code = textwrap.dedent(f"""
+        import dataclasses, functools, os, sys
+        sys.path.insert(0, {str(tmp_path)!r})
+        import worker_probe  # poisons jax in this parent too
+        from difacto_tpu_torch.data.converter import _ConvertSpec
+        from difacto_tpu_torch.data.pack_stream import StreamSpec
+        from difacto_tpu_torch.data.producer_pool import ProcessProducerPool
+
+        def run(fn, spec):
+            return [item for _, item in ProcessProducerPool(
+                2, functools.partial(fn, spec), n_workers=2,
+                slot_bytes=1 << 20, join_timeout=60.0)]
+
+        if __name__ == "__main__":   # spawn re-runs this file in workers
+            from difacto_tpu_torch.__main__ import main
+            from difacto_tpu_torch.learners.sgd import SGDLearner
+            os.makedirs({cache!r})
+            got = run(worker_probe.probe_convert, _ConvertSpec(
+                data_in={str(data)!r}, data_format="criteo",
+                out_dir={cache!r}, member_suffix=".rec2", member_rows=50,
+                rec_localize=True, rec_compress=False,
+                chunk_bytes=1 << 20, n_parts=2))
+            assert [k for k, _ in got] == ["members", "native",
+                                           "modules"] * 2, got
+            assert all(v for k, v in got if k in ("members", "native"))
+            assert all(m == [] for k, m in got if k == "modules"), got
+            spec = StreamSpec(parts=(0, 1), n_jobs=2, data_in="",
+                              data_format="rec", batch_size=50,
+                              shuffle=10, neg_sampling=1.0, epoch=0,
+                              hash_capacity=4096, want_counts=True,
+                              fill_counts=True, dim_min=8, job="train",
+                              b_cap=56, cached_uri={cache!r})
+            got = run(worker_probe.probe, spec)
+            assert all(n > 0 for k, n in got if k == "batches"), got
+            assert all(m == [] for k, m in got if k == "modules"), got
+            assert main(["task=convert", "data_in={data}",
+                         "data_format=criteo", "data_out={cache}2",
+                         "data_out_format=rec", "convert_procs=2",
+                         "batch_size=50"]) == 0
+            ln = SGDLearner(device="cpu")
+            ln.init([("data_in", {cache + "2"!r}), ("data_format", "rec"),
+                     ("V_dim", "2"), ("hash_capacity", "4096"),
+                     ("batch_size", "50"), ("num_jobs_per_epoch", "2"),
+                     ("max_num_epochs", "2"), ("device_cache_mb", "0"),
+                     ("num_producers", "2"), ("producer_mode", "process"),
+                     ("report_interval", "0"), ("has_aux", "1"),
+                     ("model_out", {model!r})])
+            ln.run()
+            assert ln.stage_stats()["producer_mode"] == "process"
+            assert main(["task=dump", "device=cpu", "model_in={model}_part-0",
+                         "hash_capacity=4096",
+                         "name_dump={model}.tsv"]) == 0
+            assert os.path.getsize({model + ".tsv"!r}) > 0
+            bad = [m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+            assert not bad, bad
+            print("ok")
+    """)
+    script = tmp_path / "run_cache_probe.py"
     script.write_text(code)
     env = dict(os.environ, PYTHONPATH=_ROOT)
     out = subprocess.run([sys.executable, str(script)], cwd=_ROOT, env=env,
