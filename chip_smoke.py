@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--parent DIR]...
 
-Drives the port's serving and training paths at the full width of
-examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
+Drives the port's serving and training paths (and the batch learners,
+phase 14) at the full width of examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
 task=convert writes, and of examples/criteo_dict.conf (the
@@ -120,7 +120,29 @@ their plain PyTorch versions. Phases:
     cache path packs; (l)'s model scored by ``task=pred`` from the
     validation cache is within 1e-4 of a float64 FM, and ``task=dump``
     writes one line per live row. The parse and pack stages per batch
-    are printed for rec2 and (from phase 12) for text on each transport.
+    are printed for rec2 and (from phase 12) for text on each transport;
+14. the batch learners on the card (TF32 must be off): (a)
+    ``python -m difacto_tpu_torch examples/bcd.conf`` and
+    ``examples/lbfgs.conf`` as they are, on the default device: BCD at the
+    reference's optimum (objective summed over rcv1's 100 rows within
+    1e-3 relative of 15.884923, 47 nonzeros), L-BFGS's 19 objectives
+    within 1e-5 of the reference's; (b) BCD's diag-Newton run within
+    1e-5 relative and L-BFGS with V (V_dim 5, the reference's
+    deterministic init) within 2e-4 of their goldens, through
+    ``Learner.create``; (c) at full width, phase 12's 50,000 train and
+    10,000 validation rows (the same fields, labelled from a planted
+    model of two fields, so that a validation AUC means something) in 5
+    training tiles: BCD with examples/bcd.conf's learner keys, 3 epochs,
+    and L-BFGS as an FM (``V_dim 16 l2 0.1 V_l2 0.01 m 5``), 5 epochs.
+    Each: the objective falls (BCD's training loss + l1 |w|_1), the
+    validation AUC exceeds 0.5, a second run and a run whose tile cache
+    evicts (BCD: 2 slices, 1 MB; L-BFGS: 1 MB) give the same progress
+    and weights bit for bit, and the card's checkpoint warm-starts the
+    same first epoch on the card and on the CPU within 1e-5 relative.
+    Printed: blocks, tiles, N, per-epoch wall, median host ms per BCD
+    block and per ``_calc_grad`` pass, device busy ms, idle share and the
+    top device entries of one BCD epoch and one pass (torch.profiler),
+    peak allocated memory. Neither kernel of the port launches.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -143,6 +165,7 @@ import functools
 import gc
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -201,15 +224,21 @@ def synthetic_model(C: int, k: int, seed: int) -> dict:
             "V": ((rng.rand(C, k) - 0.5) * 0.2).astype(np.float32)}
 
 
-def synthetic_criteo(n: int, seed: int) -> bytes:
+def synthetic_criteo(n: int, seed: int, planted: bool = False) -> bytes:
     """Criteo-format text: label, 13 integer fields, 26 categorical hex
-    fields; zipf-distributed values, ~2% empty fields."""
+    fields; zipf-distributed values, ~2% empty fields. The labels are
+    Bernoulli(0.25) draws independent of the fields, or with ``planted``
+    (the same rows) draws from a planted logistic model of two fields,
+    which a learner can find."""
     rng = np.random.RandomState(seed)
     ints = np.minimum(rng.zipf(1.5, (n, 13)), 10 ** 6) - 1
     cats = np.minimum(rng.zipf(1.2, (n, 26)), 1 << 24) \
         + np.arange(26) * (1 << 25)
     empty = rng.rand(n, 39) < 0.02
     labels = (rng.rand(n) < 0.25).astype(int)
+    if planted:
+        score = 1.5 * (cats[:, 0] % 4 == 0) + (ints[:, 1] % 3 == 0) - 1.8
+        labels = (rng.rand(n) < 1 / (1 + np.exp(-score))).astype(int)
     lines = []
     for i in range(n):
         f = [str(v) for v in ints[i]] + [format(v, "08x") for v in cats[i]]
@@ -1661,9 +1690,9 @@ def phase_stream(work: str, conf: list, uparam,
             "producers": producers}
 
 
-def _cli(args: list) -> float:
+def _cli(args: list) -> tuple:
     """``python -m difacto_tpu_torch args...`` in its own interpreter
-    from this tree; returns its wall seconds."""
+    from this tree; returns (its wall seconds, its log)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     t0 = time.perf_counter()
@@ -1673,7 +1702,7 @@ def _cli(args: list) -> float:
     if r.returncode != 0:
         raise AssertionError(f"difacto_tpu_torch {args[0]} failed:\n"
                              f"{r.stderr[-3000:]}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, r.stderr
 
 
 def _cache_batches(uri: str, batch_size: int, n_jobs: int) -> int:
@@ -1771,10 +1800,10 @@ def phase_cache(work: str, conf: list, uparam, text: dict) -> dict:
     for name, src, out, procs in (("serial", data_in, cache, "1"),
                                   ("val", data_val, cache_val, "1"),
                                   ("auto", data_in, cache_auto, "0")):
-        secs[name] = _cli(["task=convert", f"data_in={src}",
-                           "data_format=criteo", f"data_out={out}",
-                           "data_out_format=rec", "batch_size=1000",
-                           f"convert_procs={procs}"])
+        secs[name], _ = _cli(["task=convert", f"data_in={src}",
+                              "data_format=criteo", f"data_out={out}",
+                              "data_out_format=rec", "batch_size=1000",
+                              f"convert_procs={procs}"])
     from difacto_tpu_torch.data.reader import Reader
     n_auto = sum(b.size for b in Reader(cache_auto, "rec"))
     if n_auto != N_TRAIN:
@@ -1902,6 +1931,353 @@ def phase_cache(work: str, conf: list, uparam, text: dict) -> dict:
                        "l": st_l}}
 
 
+# the reference's goldens (tests/cpp/bcd_learner_test.cc,
+# tests/cpp/lbfgs_learner_test.cc), copied: the smoke imports no tests
+BCD_OPTIMUM = (15.884923, 47)   # objv summed over rcv1's 100 rows, nnz(w)
+OBJV_DIAG_NEWTON = [
+    34.877064, 33.885559, 29.572740, 27.458964, 25.317689, 23.917098,
+    22.855843, 22.099876, 21.552682, 21.137216,
+]
+OBJV_BASIC = [
+    34.603421, 12.655075, 5.224232, 2.713903, 1.290586, 0.645131, 0.317889,
+    0.156723, 0.075331, 0.032091, 0.018044, 0.008562, 0.004336, 0.002132,
+    0.001051, 0.000506, 0.000227, 0.000119, 0.000059,
+]
+OBJV_WITHV = [
+    35.224265, 21.631514, 18.394319, 16.077692, 12.389012, 8.888516,
+    8.446880, 8.146090, 8.023501, 7.981967, 7.955119, 7.937092, 7.922456,
+    7.880596, 7.861660, 7.838057, 7.807892, 7.784401, 7.756756, 7.728613,
+    7.724718, 7.709527, 7.705667,
+]
+
+
+def _det_init(lens, weights):
+    """The reference's deterministic V init (lbfgs_learner_test.cc:128-140):
+    V[j] = (j - V_dim/2) * .01."""
+    n = 0
+    for ln in lens:
+        for i in range(ln):
+            if i > 0:
+                weights[n] = (i - (ln - 1) / 2) * 0.01
+            n += 1
+    return weights
+
+
+def _batch_run(name: str, kwargs: list, device=None, init=None,
+               callback=None):
+    """One run of a batch learner through ``Learner.create``: (learner,
+    per-epoch progress, per-epoch wall s, host s per BCD block or per
+    L-BFGS ``_calc_grad`` pass). The first epoch's wall includes reading
+    the data and building the tiles; ``callback(learner, epoch, prog)``
+    runs after each epoch's wall is taken."""
+    from difacto_tpu_torch.learners.base import Learner
+    ln = Learner.create(name, device=device or DEV)
+    rest = ln.init(list(kwargs))
+    if rest:
+        raise AssertionError(f"{name}: unknown keys {rest}")
+    if init is not None:
+        ln.set_weight_initializer(init)
+    progs, walls, steps = [], [], []
+    mark = [time.perf_counter()]
+
+    def cb(epoch, prog):
+        sync()
+        now = time.perf_counter()
+        walls.append(now - mark[0])
+        progs.append(prog)
+        if callback is not None:
+            callback(ln, epoch, prog)
+        mark[0] = time.perf_counter()
+
+    ln.add_epoch_end_callback(cb)
+    attr = "_iterate_block" if name == "bcd" else "_calc_grad"
+    inner = getattr(ln, attr)
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        sync()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    setattr(ln, attr, timed)
+    ln.run()
+    sync()
+    delattr(ln, attr)         # later calls (the profiles) are not timed
+    return ln, progs, walls, steps
+
+
+def _np_bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def _rel_close(a, b, tol: float) -> bool:
+    return all(abs(x - y) <= tol * max(abs(y), 1e-30)
+               for x, y in zip(a, b))
+
+
+def _peak_reset() -> int:
+    """Reset the card's peak-memory count; returns the bytes allocated
+    now (earlier phases' tensors), which the peak is read above."""
+    import torch
+    if DEV != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _busy_idle(fn) -> tuple:
+    """(device busy ms, host wall ms, idle share, top device entries,
+    device events per pass) of one ``fn()``: the median device time of
+    three one-pass profiles against the median wall of three passes timed
+    without the profiler, and the five entries with the most device time
+    in one more profile (name, ms, calls). A pass here launches thousands
+    of kernels, and the card's profiler may lose a few of them (a BCD
+    epoch's count was seen to move between 7,836 and 7,840 on an H100),
+    so ``device_ms``'s exact-count rule does not apply; the counts are
+    returned instead."""
+    fn()
+    sync()
+    profs = [_profile(fn, [()], 1) if DEV == "cuda" else
+             (device_ms(fn, [()], 1) * 1e3, 0, []) for _ in range(3)]
+    busy = float(np.median([us for us, _, _ in profs])) / 1e3
+    events = [n for _, n, _ in profs]
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    top = []
+    if DEV == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ev = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+        top = [(e.key[:48], e.self_device_time_total / 1e3, e.count)
+               for e in ev[:5]]
+    return busy, wall, 1.0 - busy / wall, top, events
+
+
+def _top_text(top) -> str:
+    return "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top)
+
+
+def phase_batch_learners(work: str, smi: str) -> dict:
+    """Phase 14: the batch learners on the card. (a) examples/bcd.conf and
+    examples/lbfgs.conf through the CLI on the default device; (b) BCD's
+    diag-Newton and L-BFGS's with-V goldens through the learner API; (c)
+    full width: phase 12's 50,000 train and 10,000 validation rows (the
+    same fields, labelled from a planted model), BCD with bcd.conf's
+    learner keys and L-BFGS as an FM (V_dim 16), each repeated, with a
+    tile cache small enough to evict, and warm-started on the card and on
+    the CPU from its card checkpoint. Neither path launches a kernel of
+    the port."""
+    import torch
+    from difacto_tpu_torch.config import parse_config_file
+    t_phase = time.monotonic()
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on: the L-BFGS Gram matrix "
+                             "and direction must run in full float32")
+    root = os.path.dirname(os.path.abspath(__file__))
+    rcv1 = os.path.join(root, "tests", "data", "rcv1_100.libsvm")
+    dev_args = ["device=cpu"] if DEV == "cpu" else []
+    _reset_counts()
+
+    # (a) the examples as they are, through the CLI
+    bcd_cli_s, err = _cli([os.path.join("examples", "bcd.conf")]
+                          + dev_args)
+    rows = re.findall(r"epoch: (\d+), objv: (\S+), auc: \S+, acc: \S+, "
+                      r"nnz\(w\): (\d+), rows: (\d+)", err)
+    objv = float(rows[-1][1]) * int(rows[-1][3])
+    nnz = int(rows[-1][2])
+    if len(rows) != 50 or abs(objv - BCD_OPTIMUM[0]) / objv >= 1e-3 \
+            or nnz != BCD_OPTIMUM[1]:
+        raise AssertionError(f"examples/bcd.conf: {len(rows)} epochs, objv "
+                             f"{objv}, nnz {nnz}; want {BCD_OPTIMUM}")
+    lbfgs_cli_s, err = _cli([os.path.join("examples", "lbfgs.conf")]
+                            + dev_args)
+    got = np.array([float(v) for v in re.findall(
+        r"epoch \d+: objv = ([^,]+),", err)])
+    cli_err = float(np.abs(got - OBJV_BASIC).max()) \
+        if len(got) == len(OBJV_BASIC) else float("inf")
+    if not cli_err < 1e-5:
+        raise AssertionError(f"examples/lbfgs.conf objv {got.tolist()} vs "
+                             f"{OBJV_BASIC}")
+    log(f"  (a) CLI: bcd.conf objv {objv:.6f} nnz {nnz} after 50 epochs "
+        f"({bcd_cli_s:.1f} s); lbfgs.conf 19 epochs within {cli_err:.3g} "
+        f"of the golden ({lbfgs_cli_s:.1f} s)")
+
+    # (b) the other goldens through the learner API
+    _, dn, _, _ = _batch_run("bcd", [
+        ("data_in", rcv1), ("l1", ".1"), ("lr", ".05"),
+        ("block_ratio", "0.001"), ("tail_feature_filter", "0"),
+        ("max_num_epochs", "10")])
+    dn_err = max(abs(p.objv - g) / p.objv
+                 for p, g in zip(dn, OBJV_DIAG_NEWTON))
+    _, wv, _, _ = _batch_run("lbfgs", [
+        ("data_in", rcv1), ("m", "5"), ("V_dim", "5"), ("l2", "0.1"),
+        ("V_l2", "0.01"), ("V_threshold", "0"), ("rho", "0.5"),
+        ("init_alpha", "1"), ("tail_feature_filter", "0"),
+        ("max_num_epochs", str(len(OBJV_WITHV)))], init=_det_init)
+    wv_err = max(abs(p.objv - g) for p, g in zip(wv, OBJV_WITHV))
+    if len(dn) != 10 or not dn_err < 1e-5 or len(wv) != len(OBJV_WITHV) \
+            or not wv_err < 2e-4:
+        raise AssertionError(f"goldens: diag-Newton rel {dn_err}, with-V "
+                             f"abs {wv_err}")
+    log(f"  (b) diag-Newton 10 epochs within {dn_err:.3g} relative, "
+        f"L-BFGS with V 23 epochs within {wv_err:.3g}")
+
+    # (c) full width
+    data_in = os.path.join(work, "bl_train.txt")
+    data_val = os.path.join(work, "bl_val.txt")
+    with open(data_in, "wb") as f:
+        f.write(synthetic_criteo(N_TRAIN, SEED + 2, planted=True))
+    with open(data_val, "wb") as f:
+        f.write(synthetic_criteo(N_VAL, SEED + 3, planted=True))
+    chunk = os.path.getsize(data_in) // 5     # >= 5 training tiles
+    data = [("data_in", data_in), ("data_val", data_val),
+            ("data_format", "criteo")]
+    out = {"smi": smi}
+
+    bcd_conf = [(k, v) for k, v in parse_config_file(
+        os.path.join(root, "examples", "bcd.conf"))
+        if k not in ("data_in", "learner", "max_num_epochs")]
+    bkw = data + bcd_conf + [("data_chunk_size", str(chunk)),
+                             ("max_num_epochs", "3")]
+    model = os.path.join(work, "bcd_model")
+    base = _peak_reset()
+    from difacto_tpu_torch.losses.metrics import (auc_times_n_np,
+                                                  logit_objv_np)
+
+    def split(tiles, is_train):
+        """(labels, preds) of the training or the validation tiles."""
+        ts = [t for t in tiles if t["is_train"] == is_train]
+        return (np.concatenate([t["label_np"] for t in ts]),
+                torch.cat([t["pred"][:t["size"]] for t in ts]).cpu().numpy())
+
+    # the progress sums the loss over training and validation rows
+    # (UpdtPred); the sweeps minimize the training loss + l1 |w|_1
+    def objective(out):
+        return lambda ln, e, p: out.append(
+            (logit_objv_np(*split(ln.tiles, True))
+             + ln.uparam.l1 * np.abs(ln.w.astype(np.float64)).sum())
+            / ln.ntrain)
+
+    objv = []
+    ln, pa, walls, steps = _batch_run("bcd", bkw + [("model_out", model)],
+                                      callback=objective(objv))
+    peak = torch.cuda.max_memory_allocated() - base if DEV == "cuda" else 0
+    vlab, vpred = split(ln.tiles, False)
+    val_auc = auc_times_n_np(vlab, vpred) / len(vlab)
+    ntr = sum(t["is_train"] for t in ln.tiles)
+    if not (objv[-1] < objv[0] and val_auc > 0.5 and ntr >= 4):
+        raise AssertionError(f"bcd at full width: training objective/row "
+                             f"{objv}, val auc "
+                             f"{val_auc}, {ntr} train tiles")
+    _, pb, _, _ = _batch_run("bcd", bkw)
+    lc, pc, _, _ = _batch_run("bcd", bkw + [("tile_cache_items", "2"),
+                                            ("tile_cache_mb", "1")])
+    if pb != pa or pc != pa or not _np_bits_equal(lc.w, ln.w):
+        raise AssertionError("bcd: a repeat or the small-cache run left "
+                             "another trajectory")
+    if lc._tile_cache.misses <= 3 * len(ln.tiles) * len(ln.blocks):
+        raise AssertionError("bcd: the small slice cache did not evict")
+    warm = bkw + [("max_num_epochs", "1"), ("model_in", model)]
+    wobj = []
+    _, wc, _, _ = _batch_run("bcd", warm, callback=objective(wobj))
+    _, wh, _, _ = _batch_run("bcd", warm, device="cpu")
+    if not _rel_close(wh[0], wc[0], 1e-5) or not wobj[0] < objv[0]:
+        raise AssertionError(f"bcd warm start, card {wc[0]} vs CPU {wh[0]}, "
+                             f"objective {wobj} against a cold {objv[0]}")
+    busy, wall, idle, top, events = _busy_idle(
+        lambda: [ln._iterate_block(f) for f in range(len(ln.blocks))])
+    out["bcd"] = dict(blocks=len(ln.blocks), tiles=len(ln.tiles),
+                      nf=len(ln.feaids), walls=walls,
+                      block_ms=1e3 * float(np.median(steps)),
+                      busy_ms=busy, wall_ms=wall, idle=idle, peak=peak,
+                      objv=objv, val_auc=val_auc,
+                      misses=lc._tile_cache.misses)
+    log(f"  (c) bcd: {len(ln.blocks)} blocks, {len(ln.tiles)} tiles "
+        f"({ntr} train), {len(ln.feaids)} features; training loss + l1 "
+        f"|w|_1 per row "
+        f"{' -> '.join(f'{o:.6f}' for o in objv)}, validation AUC "
+        f"{val_auc:.4f}; epoch wall s {', '.join(f'{w:.3f}' for w in walls)} "
+        f"(epoch 0 with the read); host ms per block, median "
+        f"{out['bcd']['block_ms']:.3f}; one epoch: device busy "
+        f"{busy:.3f} ms of {wall:.3f} ms wall, idle {idle:.1%}; peak "
+        f"allocated {peak / 2**20:.1f} MiB over the run's start; repeat "
+        f"and small cache "
+        f"({lc._tile_cache.misses} slice builds) bit-identical; CPU warm "
+        f"start within 1e-5 ({smi})")
+    log(f"    bcd epoch: device events per profile {events}; top device "
+        f"entries: {_top_text(top)}")
+
+    lkw = data + [("V_dim", "16"), ("l2", "0.1"), ("V_l2", "0.01"),
+                  ("m", "5"), ("max_num_epochs", "5"),
+                  ("data_chunk_size", repr(chunk / 2 ** 20))]
+    model = os.path.join(work, "lbfgs_model")
+    base = _peak_reset()
+    ln, pa, walls, steps = _batch_run("lbfgs", lkw + [("model_out", model)])
+    peak = torch.cuda.max_memory_allocated() - base if DEV == "cuda" else 0
+    if not (pa[-1].objv < pa[0].objv and pa[-1].val_auc > 0.5
+            and ln._n_tiles["train"] >= 4):
+        raise AssertionError(f"lbfgs at full width: {pa}")
+    lb, pb, _, _ = _batch_run("lbfgs", lkw)
+    lc, pc, _, _ = _batch_run("lbfgs", lkw + [("tile_cache_mb", "1")])
+    if pb != pa or pc != pa or not _bits_equal(lb.weights, ln.weights) \
+            or not _bits_equal(lc.weights, ln.weights):
+        raise AssertionError("lbfgs: a repeat or the small-cache run left "
+                             "another trajectory")
+    # a tile outgrows the 1 MB budget alone, so every fetch rebuilds
+    if lc._tile_cache.misses < len(steps) * ln._n_tiles["train"]:
+        raise AssertionError("lbfgs: the small tile cache did not evict")
+    warm = lkw + [("max_num_epochs", "1"), ("model_in", model)]
+    _, wc, _, _ = _batch_run("lbfgs", warm)
+    _, wh, _, _ = _batch_run("lbfgs", warm, device="cpu")
+    if not _rel_close(wh[0], wc[0], 1e-5) or not wc[0].objv < pa[0].objv:
+        raise AssertionError(f"lbfgs warm start, card {wc[0]} vs CPU "
+                             f"{wh[0]}")
+    busy, wall, idle, top, events = _busy_idle(
+        lambda: ln._calc_grad(ln.weights))
+    out["lbfgs"] = dict(tiles=ln._n_tiles, N=ln.N, walls=walls,
+                        grad_ms=1e3 * float(np.median(steps)),
+                        passes=len(steps), busy_ms=busy, wall_ms=wall,
+                        idle=idle, peak=peak,
+                        objv=[p.objv for p in pa],
+                        val_auc=[p.val_auc for p in pa],
+                        misses=lc._tile_cache.misses)
+    log(f"  (c) lbfgs FM V_dim 16: {ln._n_tiles} tiles, N {ln.N}; objv "
+        f"{' -> '.join(f'{p.objv:.3f}' for p in pa)}, validation AUC "
+        f"{' -> '.join(f'{p.val_auc:.4f}' for p in pa)}; epoch wall s "
+        f"{', '.join(f'{w:.3f}' for w in walls)} (epoch 0 with the read); "
+        f"host ms per _calc_grad pass, median "
+        f"{out['lbfgs']['grad_ms']:.3f} "
+        f"({len(steps)} passes); one pass: device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms wall, idle {idle:.1%}; peak allocated "
+        f"{peak / 2**20:.1f} MiB over the run's start; repeat and small "
+        f"cache "
+        f"({lc._tile_cache.misses} tile builds) bit-identical; CPU warm "
+        f"start within 1e-5 ({smi})")
+    log(f"    lbfgs _calc_grad pass: device events per profile {events}; "
+        f"top device entries: {_top_text(top)}")
+    if any(_counts().values()):
+        raise AssertionError(f"the batch learners launched a kernel of the "
+                             f"port: {_counts()}")
+    log(f"phase 14 ok in {time.monotonic() - t_phase:.1f} s: the batch "
+        "learners at the goldens and at full width, bit-identical repeats "
+        "and evicting caches, checkpoints read on the CPU")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -1931,7 +2307,7 @@ def main(argv=None) -> int:
     T_START = time.monotonic()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        _, parent_fns = phase_card(args.parent, work)
+        smi, parent_fns = phase_card(args.parent, work)
         conf = parse_config_file(CONF)
         if DEV == "cpu":        # a rehearsal's table: the CPU holds less
             conf.append(("hash_capacity", "8192"))
@@ -1965,6 +2341,7 @@ def main(argv=None) -> int:
         phase_local_conf(work)
         ts = phase_stream(work, conf, uparam, tuple(args.parent))
         tc = phase_cache(work, conf, uparam, ts)
+        phase_batch_learners(work, smi)
         if "jax" in sys.modules or "difacto_tpu" in sys.modules:
             raise AssertionError("the smoke imported JAX or difacto_tpu")
         # launches on the main paths: phases 3, 4, 7, 9, 10, 12 and 13,

@@ -6,9 +6,11 @@ on) but imports nothing from it and nothing of jax: the host-only pieces it
 needs (config, parsers, row blocks, checkpoint streams and manifests) are
 kept as its own copies.
 
-This slice ports the serving path: ``task=pred`` and ``task=serve`` over a
-hashed slot table, with the fused-row gather as a hand-written CUDA kernel
-(``ops/csrc/gather_rows.cu``). Entry points take an explicit ``device=``
-and run on ``cuda`` unless the caller asks for ``cpu``; without a visible
-GPU a ``cuda`` request raises instead of falling back.
+It serves (``task=pred``, ``task=serve``), trains with the SGD learner
+(the fused-row gather and the FTRL/AdaGrad push as hand-written CUDA
+kernels, ``ops/csrc/``) and with the batch learners, ``learner=bcd`` and
+``learner=lbfgs`` (torch ops), converts and dumps. Entry points take an
+explicit ``device=`` and run on ``cuda`` unless the caller asks for
+``cpu``; without a visible GPU a ``cuda`` request raises instead of
+falling back.
 """

@@ -7,11 +7,15 @@
   (``label\\tprob`` per row, ``%g``).
 - ``task=serve`` — the online scoring server over ``model_in``
   (serve/__init__.py run_serve).
-- ``task=train`` (the default) — the sgd learner (learners/sgd.py): FM
-  or logistic regression (the flat ``V_dim=0`` table), on the hashed or
-  the dictionary store, with the replay cache, saving
-  ``<model_out>_part-0`` (with the optimizer state when ``has_aux=1``).
-  ``examples/local.conf``, ``examples/fm.conf`` and the Criteo configs
+- ``task=train`` (the default) — the learner named by ``learner``
+  (``Learner.create``): ``sgd`` (learners/sgd.py: FM or logistic
+  regression on the flat ``V_dim=0`` table, on the hashed or the
+  dictionary store, with the replay cache, saving ``<model_out>_part-0``
+  with the optimizer state when ``has_aux=1``), ``bcd`` (learners/bcd.py,
+  ℓ1 block coordinate descent) or ``lbfgs`` (learners/lbfgs.py,
+  vector-free L-BFGS, linear or FM), the batch learners saving
+  ``<model_out>.npz``. ``examples/local.conf``, ``examples/fm.conf``,
+  ``examples/bcd.conf``, ``examples/lbfgs.conf`` and the Criteo configs
   run as they are (mesh keys are ignored: one card).
 
 - ``task=dump`` — a saved model as readable TSV (``name_dump``; the
@@ -44,6 +48,28 @@ class DifactoParam(Param):
         enum=["train", "dump", "pred", "convert", "serve", "online"]))
     learner: str = "sgd"
     device: str = "cuda"
+
+
+def _pred_routing_error(learner: str, kwargs: KWArgs) -> ValueError:
+    """task=pred with a non-sgd learner: the JAX package's message, which
+    names the learner that produced ``model_in`` (from the checkpoint's
+    own marker) and points at the tasks that exist."""
+    model_in = next((v for k, v in reversed(kwargs) if k == "model_in"), "")
+    produced = ""
+    if model_in:
+        try:
+            from .serve.model import model_meta
+            meta = model_meta(model_in)
+            if meta["learner"]:
+                produced = (f"; model_in={model_in!r} was produced by "
+                            f"learner={meta['learner']!r}")
+        except Exception as e:  # an unreadable model keeps the base text
+            log.debug("model meta unreadable for %s: %s", model_in, e)
+    return ValueError(
+        f"task=pred runs the bucketed sgd predict executor and is not "
+        f"implemented by learner={learner!r}{produced}. Batch-score sgd "
+        f"models with learner=sgd, or use task=serve for online scoring "
+        f"(docs/serving.md)")
 
 
 @dataclass
@@ -174,19 +200,14 @@ def main(argv: Optional[list] = None) -> int:
     param, remain = DifactoParam.init_allow_unknown(parse_cli_args(argv))
     if param.task == "pred":
         if param.learner != "sgd":
-            raise ValueError(f"task=pred runs the sgd predict executor; "
-                             f"learner={param.learner!r} is not supported")
+            raise _pred_routing_error(param.learner, remain)
         warn_unknown(run_pred(remain, device=param.device))
     elif param.task == "serve":
         from .serve import run_serve
         warn_unknown(run_serve(remain, device=param.device))
     elif param.task == "train":
-        if param.learner != "sgd":
-            raise NotImplementedError(
-                f"learner={param.learner!r} is not ported; the port trains "
-                "with learner=sgd (ROADMAP.md, Queue 1)")
-        from .learners.sgd import SGDLearner
-        learner = SGDLearner(device=param.device)
+        from .learners.base import Learner
+        learner = Learner.create(param.learner, device=param.device)
         warn_unknown(learner.init(remain))
         learner.run()
     elif param.task == "dump":

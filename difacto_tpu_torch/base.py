@@ -5,6 +5,8 @@
 - ``reverse_bytes`` is the vectorised nibble reversal of feature ids
   (include/difacto/base.h:39-51) that makes ascending dense ids span the
   uint64 space uniformly; the hashed store slots the reversed ids.
+- ``encode_fea_grp_id`` / ``decode_fea_grp_id`` pack a feature-group id
+  into an id's low bits (the BCD learner's feature partition).
 """
 
 from __future__ import annotations
@@ -30,3 +32,21 @@ def reverse_bytes(x: np.ndarray | int) -> np.ndarray | int:
     x = ((x & np.uint64(0x0F0F0F0F0F0F0F0F)) << np.uint64(4)) | \
         ((x & np.uint64(0xF0F0F0F0F0F0F0F0)) >> np.uint64(4))
     return x.item() if scalar else x
+
+
+def encode_fea_grp_id(x, gid: int, nbits: int):
+    """Pack a feature-group id into the low ``nbits`` bits of a feature id
+    (``EncodeFeaGrpID``, include/difacto/base.h:60-63)."""
+    if not 0 <= gid < (1 << nbits):
+        raise ValueError(f"gid {gid} out of range for {nbits} bits")
+    x = np.asarray(x, dtype=np.uint64)
+    out = (x << np.uint64(nbits)) | np.uint64(gid)
+    return out.item() if out.ndim == 0 else out
+
+
+def decode_fea_grp_id(x, nbits: int):
+    """The group id in the low ``nbits`` bits: the inverse of
+    :func:`encode_fea_grp_id` (include/difacto/base.h:71-73)."""
+    x = np.asarray(x, dtype=np.uint64)
+    out = x & np.uint64((1 << nbits) - 1)
+    return out.item() if out.ndim == 0 else out

@@ -86,7 +86,7 @@ from ..updaters.sgd_updater import SGDUpdaterParam, gather_bytes
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.progress import Progress, ReportProg
-from .base import Learner
+from .base import Learner, register
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -291,6 +291,7 @@ class _DeviceBatchCache:
                 yield part, items[i]
 
 
+@register("sgd")
 class SGDLearner(Learner):
     # dispatched batches whose metrics are held on the device before a
     # merge fetches them

@@ -1,14 +1,22 @@
 """Binary classification metrics (counterpart of
-difacto_tpu/losses/metrics.py, the device AUCs: exact for validation and
-serving, binned for the training step).
+difacto_tpu/losses/metrics.py): the device AUCs (exact for validation and
+serving, binned for the training step) and the host (numpy) helpers of
+the BCD learner's progress.
 
 The reference's conventions (src/loss/bin_class_metric.h:35-57): AUC is
 returned as area * n with the < 0.5 flip, not divided by the example
 count (progress merging sums it across jobs).
+
+Names: the JAX package calls its numpy AUC ``auc_times_n`` and its device
+one ``auc_times_n_jnp``. Here the device (torch) AUC has held the name
+``auc_times_n`` since the serving slice, so the numpy one is
+``auc_times_n_np``, beside ``logit_objv_np``; ``accuracy_times_n`` keeps
+its name.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -59,3 +67,35 @@ def auc_times_n_binned(label: torch.Tensor, pred: torch.Tensor,
     area = torch.where(area < 0.5, 1.0 - area, area) * n
     return torch.where((npos == 0) | (nneg == 0), torch.ones_like(area),
                        area)
+
+
+def auc_times_n_np(label: np.ndarray, pred: np.ndarray) -> float:
+    """Rank-sum AUC x n on the host (the JAX package's numpy
+    ``auc_times_n``)."""
+    n = len(label)
+    if n == 0:
+        return 0.0
+    order = np.argsort(pred, kind="stable")
+    lab = label[order] > 0
+    cum_tp = np.cumsum(lab)
+    npos = cum_tp[-1]
+    if npos == 0 or npos == n:
+        return 1.0
+    area = float(cum_tp[~lab].sum())
+    area /= npos * (n - npos)
+    return (1.0 - area if area < 0.5 else area) * n
+
+
+def accuracy_times_n(label: np.ndarray, pred: np.ndarray,
+                     threshold: float = 0.0) -> float:
+    """Correct predictions at ``threshold``, with the reference's flip
+    when fewer than half are right."""
+    correct = float(np.sum((label > 0) == (pred > threshold)))
+    n = len(label)
+    return correct if correct > 0.5 * n else n - correct
+
+
+def logit_objv_np(label: np.ndarray, pred: np.ndarray) -> float:
+    """sum log(1 + exp(-y pred)) in float64."""
+    y = np.where(label > 0, 1.0, -1.0)
+    return float(np.sum(np.log1p(np.exp(-y * pred.astype(np.float64)))))

@@ -425,3 +425,40 @@ def unpack_batch(i32: torch.Tensor, f32: torch.Tensor, batch_cap: int,
                         rweight=rweight, row_mask=row_mask,
                         num_rows=meta[0], num_uniq=meta[1], row_cap=row_cap)
     return batch, slots, counts
+
+
+def pad_batch(blk: RowBlock, num_uniq: int,
+              batch_cap: Optional[int] = None,
+              nnz_cap: Optional[int] = None,
+              device="cpu") -> DeviceBatch:
+    """A *localized* row block (uint32 indices) as a DeviceBatch on
+    ``device``: the JAX package's ``pad_batch`` field for field. Pad
+    entries point at row ``b - 1`` with value 0, so the rows stay
+    ascending for ops/segment.segment_sum; ``row_cap`` is the widest
+    row's nonzeros."""
+    import torch
+    b, nnz = blk.size, blk.nnz
+    bc = batch_cap or bucket(b)
+    nc = nnz_cap or bucket(nnz)
+    if b > bc or nnz > nc:
+        raise ValueError(f"batch ({b},{nnz}) exceeds caps ({bc},{nc})")
+    rows = np.zeros(nc, dtype=np.int32)
+    rows[:nnz] = blk.row_ids()
+    rows[nnz:] = max(b - 1, 0)
+    cols = np.zeros(nc, dtype=np.int32)
+    cols[:nnz] = blk.index.astype(np.int32)
+    vals = np.zeros(nc, dtype=REAL_DTYPE)
+    vals[:nnz] = blk.values_or_ones()
+    rowf = np.zeros((3, bc), dtype=REAL_DTYPE)   # labels, rweight, mask
+    rowf[0, :b] = blk.label
+    rowf[1, :b] = blk.weight if blk.weight is not None else 1.0
+    rowf[2, :b] = 1.0
+    i32 = torch.from_numpy(np.concatenate(
+        [rows, cols, np.array([b, num_uniq], dtype=np.int32)])).to(device)
+    f32 = torch.from_numpy(np.concatenate(
+        [vals, rowf.reshape(-1)])).to(device)
+    return DeviceBatch(rows=i32[:nc], cols=i32[nc:2 * nc], vals=f32[:nc],
+                       labels=f32[nc:nc + bc],
+                       rweight=f32[nc + bc:nc + 2 * bc],
+                       row_mask=f32[nc + 2 * bc:], num_rows=i32[2 * nc],
+                       num_uniq=i32[2 * nc + 1], row_cap=max_row_nnz(blk))

@@ -13,6 +13,9 @@
   task=convert, training from the rec cache on worker processes and
   task=dump, and the convert and producer worker processes import
   neither jax nor torch, and load the native parsers.
+- The batch learners (BCD, L-BFGS, their tile cache and checkpoints) run
+  there too, launch no kernel, and raise without a device on a box with
+  no CUDA.
 """
 
 import os
@@ -378,3 +381,60 @@ def test_convert_cache_and_dump_run_with_jax_poisoned(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "ok"
+
+
+def test_batch_learners_run_with_jax_poisoned_and_count_no_launch(
+        tmp_path):
+    """The batch learners (examples/bcd.conf, examples/lbfgs.conf, an FM
+    L-BFGS warm-started from its own checkpoint, the tile builder and
+    cache, logit_delta, kv, twoloop) in an interpreter that cannot import
+    jax or difacto_tpu, on the CPU; neither path launches a kernel of the
+    port."""
+    m = str(tmp_path / "fm")
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        from difacto_tpu_torch.__main__ import main
+        from difacto_tpu_torch.ops import fused
+        assert main(["examples/bcd.conf", "device=cpu",
+                     "max_num_epochs=3"]) == 0
+        assert main(["examples/lbfgs.conf", "device=cpu",
+                     "max_num_epochs=3"]) == 0
+        fm = ["examples/lbfgs.conf", "device=cpu", "V_dim=3", "l2=0.1",
+              "max_num_epochs=2", "tile_cache_mb=1"]
+        assert main(fm + ["model_out={m}"]) == 0
+        assert main(fm + ["model_in={m}"]) == 0
+        assert (fused.gather_rows_cuda.launches
+                + fused.fm_update_rows_cuda.launches
+                + fused.scatter_rows_cuda.launches) == 0
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+@pytest.mark.parametrize("learner", ["bcd", "lbfgs"])
+def test_batch_learner_without_device_raises_on_a_box_without_cuda(
+        monkeypatch, learner):
+    from difacto_tpu_torch.__main__ import main
+    from difacto_tpu_torch.learners.base import Learner
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = os.path.join(_ROOT, "examples", f"{learner}.conf")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([conf])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Learner.create(learner).init([("data_in", _RCV1), ("V_dim", "0")])
+    assert main([conf, "device=cpu", "max_num_epochs=1"]) == 0
