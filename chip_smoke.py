@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--parent DIR]...
 
 Drives the port's serving and training paths (and the batch learners,
-phase 14) at the full width of examples/criteo_hashed.conf (FM, V_dim 16, 4,194,304 hashed rows: a
-2.0 GiB fp32 table on the card), also streamed through the producer
+phase 14, and the capacity tier and the durable training state, phase
+15) at the full width of examples/criteo_hashed.conf (FM, V_dim 16,
+4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
 task=convert writes, and of examples/criteo_dict.conf (the
 dictionary store at the JAX package's defaults), with random weights and
@@ -142,7 +143,35 @@ their plain PyTorch versions. Phases:
     Printed: blocks, tiles, N, per-epoch wall, median host ms per BCD
     block and per ``_calc_grad`` pass, device busy ms, idle share and the
     top device entries of one BCD epoch and one pass (torch.profiler),
-    peak allocated memory. Neither kernel of the port launches.
+    peak allocated memory. Neither kernel of the port launches;
+15. the capacity tier and the durable training state at the width of
+    phase 12, on its rows (four producer threads, ``device_cache_mb=0``,
+    2 epochs): (m) ``cold_tier_rows`` leaving a 524,288-row device table
+    (256 MiB of fp32 rows for the logical 4,194,304), with
+    ``admit_min_count=2`` and ``evict_occupancy=0.05`` (evicting at epoch
+    0's end): the tier's hit, miss, promote and demote counters, the
+    evictions and the admission's drops above 0; the launches equal the
+    steps plus the tier's own promote, demote and eviction calls; a
+    second run and a run on the plain versions leave the same device
+    table, residency maps, clock and host rows bit for bit; the gather and
+    the scatter with its epilogue off equal their plain versions byte for
+    byte on the padded slot vectors of the run's largest promote, demote
+    and eviction; the saved model holds the logical rows and scores by
+    ``task=pred`` within 1e-4 of a float64 FM; one int8 epoch on the
+    kernels equals its run on the plain versions. Printed: the objective
+    per epoch beside phase 12 (f)'s, the host ms per batch in
+    ``route_payload``, the epoch walls and the peak allocated memory
+    beside (f)'s. (n) ``wal_flush_batches=10 ckpt_interval=1 ckpt_keep=2``,
+    two peer directories with ``replica_k=2`` and ``auto_resume=1``:
+    phase 12 (f)'s table bit for bit, one gather more per flush, every
+    segment verifies, ``Replicator.scrub`` repairs nothing. (o) run (n)
+    again in a child ``python -m difacto_tpu_torch`` armed with
+    ``DIFACTO_FAULTS=wal.append:kill`` at epoch 1's second window (after a
+    wait, so its replica pushes have landed), its local directory deleted,
+    then rerun with ``auto_resume=1``: the recovery stamp's rungs hold
+    ``peer`` and ``wal`` with ``0 < skip_batches <= 10``, the launches
+    match the resumed steps and the replayed segments, and the run ends
+    on (n)'s table bit for bit; the recovery's seconds are printed.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -151,7 +180,7 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10, 12 and 13, each counted from 0 just
+paths of phases 3, 4, 7, 9, 10, 12, 13 and 15, each counted from 0 just
 before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
@@ -1531,11 +1560,16 @@ def phase_stream(work: str, conf: list, uparam,
     log(f"  {nb} train batches per epoch (both epochs stream), {val_b} "
         f"validation block(s); {os.cpu_count()} host cores")
     total = {c: 0 for c in COUNTERS}
+    peaks = {}
 
     def run(name, extra, counted=True):
         if counted:
             _reset_counts()
+        base = _peak_reset()
         ln, progress, walls, _ = _train(kwargs + list(extra))
+        # the run's own peak, above what earlier phases hold
+        peaks[name] = (torch.cuda.max_memory_allocated() - base
+                       if DEV == "cuda" else 0)
         if counted:
             got = _counts()
             for c in COUNTERS:
@@ -1560,7 +1594,7 @@ def phase_stream(work: str, conf: list, uparam,
                              f"{want}")
     if not (np.isfinite(loss_a).all() and loss_a[1] < loss_a[0]):
         raise AssertionError(f"objective per row did not fall: {loss_a}")
-    bits_f, _, st_f, walls_f = run(
+    bits_f, loss_f, st_f, walls_f = run(
         "(f) 4 threads", [("num_producers", "4"),
                           ("producer_mode", "thread")])
     if not _bits_equal(bits_f, bits_a) or st_f["producer_mode"] != "thread":
@@ -1681,7 +1715,9 @@ def phase_stream(work: str, conf: list, uparam,
         "processes, device_dedup and the resumed run leave run (a)'s "
         "table bit for bit, stream_chunks within 2e-5; no ring segment "
         "left")
-    return {"launches": total, "batches": nb,
+    return {"launches": total, "batches": nb, "val_blocks": val_b,
+            "loss_f": loss_f, "peak_f": peaks["(f) 4 threads"],
+            "walls_f": walls_f, "bits_f": bits_a.cpu(),
             "walls": {"a": walls_a, "f": walls_f, "b": walls_b,
                       "c": walls_c, "e": walls_e, "g": walls_g,
                       "parents": tree_walls},
@@ -2278,6 +2314,404 @@ def phase_batch_learners(work: str, smi: str) -> dict:
     return out
 
 
+# phase 15: the device table under the cold tier, and the WAL's kill point
+CAP_HOT_ROWS = 524_288      # 256 MiB of fp32 rows instead of 2 GiB
+EVICT_OCCUPANCY = "0.05"    # under epoch 0's occupancy, so it evicts there
+KILL_DELAY_MS = 10_000      # the killed run waits this long first, so its
+#                             replica pushes have landed on the peers
+
+
+def _tier_state(tier) -> tuple:
+    """What the cold tier holds (residency maps, clock, host rows as
+    sorted slots and a digest of their bits), for exact comparisons."""
+    import hashlib
+    slots = np.fromiter(tier._rows.keys(), np.int64, len(tier._rows))
+    slots.sort()
+    h = hashlib.sha256()
+    for sl in slots.tolist():
+        h.update(tier._rows[sl].tobytes())
+    return (tier._resident.copy(), tier._owner.copy(), tier._clock.copy(),
+            slots, h.hexdigest())
+
+
+def _same_tier(a: tuple, b: tuple) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4])) \
+        and a[4] == b[4]
+
+
+def _recording(cls, name: str, keep):
+    """Wrap method ``name`` of ``cls`` so each call's (args, result) that
+    ``keep`` accepts is recorded; returns (records, restore)."""
+    orig = getattr(cls, name)
+    records = []
+
+    def wrapped(self, *args):
+        out = orig(self, *args)
+        if keep(args, out):
+            records.append(out)
+        return out
+
+    setattr(cls, name, wrapped)
+    return records, lambda: setattr(cls, name, orig)
+
+
+def _timing(cls, names) -> tuple:
+    """Wrap methods ``names`` of ``cls`` to sum their host seconds;
+    returns ({name: [seconds, calls]}, restore)."""
+    spent = {n: [0.0, 0] for n in names}
+    origs = {n: getattr(cls, n) for n in names}
+
+    def wrap(n, orig):
+        def timed(self, *args, **kw):
+            t = time.perf_counter()
+            try:
+                return orig(self, *args, **kw)
+            finally:
+                spent[n][0] += time.perf_counter() - t
+                spent[n][1] += 1
+        return timed
+
+    for n, orig in origs.items():
+        setattr(cls, n, wrap(n, orig))
+
+    def restore():
+        for n, orig in origs.items():
+            setattr(cls, n, orig)
+    return spent, restore
+
+
+def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
+    """Phase 15: the capacity tier and the durable training state at the
+    full width of examples/criteo_hashed.conf, on phase 12's rows with four
+    producer threads and ``device_cache_mb=0``, 2 epochs. (m) the cold
+    tier (``cold_tier_rows`` leaves a 524,288-row device table) with
+    admission and eviction: a second run and a run on the plain versions
+    leave the same device table, residency and host rows; the gather and
+    the scatter with its epilogue off equal their plain versions on the
+    largest promote, demote and eviction vectors; the saved model is
+    logical and scores within 1e-4 of a float64 FM; one epoch at int8
+    against the plain versions. (n) the WAL (``wal_flush_batches=10``),
+    interval checkpoints and two peer replicas: phase 12 (f)'s table bit
+    for bit, one gather more per flush, every segment verifies, the scrub
+    repairs nothing. (o) run (n) in a child ``python -m
+    difacto_tpu_torch``, SIGKILLed at a WAL append of epoch 1, its local
+    directory deleted, rerun with ``auto_resume=1``: the ladder climbs
+    ``peer`` and ``wal`` and the run ends on (n)'s table."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.capacity.tier import ColdTier
+    from difacto_tpu_torch.durability import wal
+    from difacto_tpu_torch.durability.replicate import Replicator
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.obs import REGISTRY
+    from difacto_tpu_torch.ops import fused
+    from difacto_tpu_torch.store.local import SlotStore
+    t_phase = time.monotonic()
+    C = uparam.hash_capacity
+    hot = CAP_HOT_ROWS if DEV == "cuda" else C // 8
+    data_in = os.path.join(work, "train.txt")
+    data_val = os.path.join(work, "val.txt")
+    with open(data_val, "rb") as f:
+        val_text = f.read()
+    base = conf + [("data_in", data_in), ("data_val", data_val),
+                   ("max_num_epochs", "2"), ("stop_rel_objv", "0"),
+                   ("stop_val_auc", "-2"), ("device_cache_mb", "0"),
+                   ("report_interval", "0"), ("num_producers", "4"),
+                   ("producer_mode", "thread")]
+    nb, val_b = ts["batches"], ts["val_blocks"]
+    total = {c: 0 for c in COUNTERS}
+    names = ("store_tier_hits_total", "store_tier_misses_total",
+             "store_tier_promotes_total", "store_tier_demotes_total",
+             "store_evictions_total", "store_admit_drops_total")
+
+    def reg():
+        return {n: REGISTRY.counter(n).value() for n in names}
+
+    def want(epochs, calls, epoch0=True, skip=0, wal_gathers=0,
+             replayed=0):
+        """Launches of a run: a gather and a push per step, a gather and a
+        count push per epoch-0 batch, a gather per validation block and
+        epoch, and the tier's, the WAL's and the replay's own moves."""
+        steps = epochs * nb - skip
+        first = nb if epoch0 else 0
+        return {"gather_rows_cuda": steps + first + epochs * val_b
+                + calls.get("demote", 0) + calls.get("evict", 0)
+                + wal_gathers,
+                "fm_update_rows_cuda": steps,
+                "scatter_rows_cuda": first + calls.get("promote", 0)
+                + replayed}
+
+    # ------------------------------------------------------ (m) the tier
+    tier_kw = base + [("cold_tier_rows", str(C - hot)),
+                      ("admit_min_count", "2"),
+                      ("evict_occupancy", EVICT_OCCUPANCY)]
+    model = os.path.join(work, "tier_m")
+
+    def tier_run(name, extra, counted=True, epochs=2):
+        before = reg()
+        _reset_counts()
+        evicted, restore_ev = _recording(SlotStore, "maybe_evict",
+                                         lambda a, n: True)
+        # where the routing's host time goes: the LRU choice and the
+        # demote (its gather, the copy to the host, the dict inserts), the
+        # promote's host rows (dict pops, virgin rows) and the rest
+        spent, restore_t = _timing(ColdTier, ("route", "_demote_lru",
+                                              "_demote", "_tier_values",
+                                              "_promote"))
+        pk = _peak_reset()
+        try:
+            ln, progress, walls, _ = _train(tier_kw + list(extra))
+        finally:
+            restore_ev()
+            restore_t()
+        got = _counts()
+        peak = (torch.cuda.max_memory_allocated() - pk
+                if DEV == "cuda" else 0)
+        delta = {n: REGISTRY.counter(n).value() - before[n] for n in names}
+        tier = ln.store.tier
+        route = ln.obs.snapshot()["hists"]["tier_route_seconds"][()]
+        out = dict(launches=got, delta=delta, calls=dict(tier.calls),
+                   largest=dict(tier.largest), state=_tier_state(tier),
+                   bits=ln.store.state.VVg.clone(), walls=walls, peak=peak,
+                   loss=[t.loss / t.nrows for t, _ in progress],
+                   route_ms=1e3 * route["sum"] / max(route["count"], 1),
+                   routes=route["count"], evicted=list(evicted),
+                   stats=ln.store.capacity_stats(),
+                   spent={n: round(1e3 * v[0] / max(route["count"], 1), 3)
+                          for n, v in spent.items()})
+        if counted:
+            w = want(epochs, tier.calls)
+            if got != w:
+                raise AssertionError(f"run {name} launches {got}, the steps "
+                                     f"and the tier's moves need {w}")
+            for c in COUNTERS:
+                total[c] += got[c]
+        elif any(got.values()):
+            raise AssertionError(f"run {name} on the plain versions "
+                                 f"launched {got}")
+        log(f"  run {name}: epoch wall s {_epoch_walls(walls)}; loss/row "
+            f"{[round(x, 6) for x in out['loss']]}; tier calls "
+            f"{out['calls']}; evicted per epoch {out['evicted']}; "
+            f"route {out['route_ms']:.2f} ms per batch over "
+            f"{out['routes']} batches (ms per batch in {out['spent']}); "
+            f"peak "
+            f"{peak / 2 ** 20:.1f} MiB; counters "
+            f"{ {n[:-6]: int(v) for n, v in delta.items()} }")
+        del ln
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    m1 = tier_run("(m) 1", [("has_aux", "1"), ("model_out", model)])
+    zero = [n for n, v in m1["delta"].items() if not v > 0]
+    if zero:
+        raise AssertionError(f"run (m): counters not above 0: {zero}")
+    if not (len(m1["evicted"]) == 2 and m1["evicted"][0] > 0):
+        raise AssertionError(f"eviction did not fire at epoch 0's end: "
+                             f"{m1['evicted']}")
+    if not np.isfinite(m1["loss"]).all():
+        raise AssertionError(f"run (m) objective {m1['loss']}")
+    m2 = tier_run("(m) 2", [])
+    restore = _swap_plain()
+    try:
+        m3 = tier_run("(m) on the plain versions", [], counted=False)
+    finally:
+        restore()
+    for name, other in (("a second run", m2), ("the plain versions", m3)):
+        if not (_bits_equal(other["bits"], m1["bits"])
+                and _same_tier(other["state"], m1["state"])):
+            raise AssertionError(f"the tiered run on {name} left another "
+                                 "table, residency or host rows")
+    log("  runs (m) 2 and (m) on the plain versions: device table, "
+        "residency maps, clock and host rows bit for bit as run (m) 1")
+    # the kernels on the largest vectors the run moved
+    table = m1["bits"]
+    sizes = {}
+    for kind in ("demote", "evict"):
+        n, pad = m1["largest"][kind]
+        sl = torch.from_numpy(pad).to(table.device)
+        if not torch.equal(fused.gather_rows(table, sl).view(torch.uint8),
+                           fused.gather_rows_ref(table, sl).view(
+                               torch.uint8)):
+            raise AssertionError(f"the gather kernel differs from its plain "
+                                 f"version on the largest {kind}")
+        sizes[kind] = (n, len(pad))
+    n, pad = m1["largest"]["promote"]
+    sl = torch.from_numpy(pad).to(table.device)
+    gen = torch.Generator(device=table.device).manual_seed(SEED)
+    rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (len(pad), table.shape[1]),
+                         dtype=torch.int32, generator=gen,
+                         device=table.device).view(table.dtype)
+    got_t, want_t = table.clone(), table.clone()
+    fused.scatter_rows(got_t, sl, rows)
+    fused.scatter_rows_ref(want_t, sl, rows)
+    if not _bits_equal(got_t, want_t):
+        raise AssertionError("the scatter kernel (epilogue off) differs from "
+                             "its plain version on the largest promote")
+    sizes["promote"] = (n, len(pad))
+    del got_t, want_t, rows
+    log(f"  gather and scatter (epilogue off) = plain versions byte for "
+        f"byte at the largest moves (rows, padded length): {sizes}")
+    with np.load(model + "_part-0") as z:
+        arrays = {f: z[f] for f in ("w", "V", "v_live")}
+    if arrays["w"].shape[0] != C:
+        raise AssertionError(f"the tiered model saved {arrays['w'].shape[0]} "
+                             f"rows, not the logical {C}")
+    pred_out = os.path.join(work, "tier_pred")
+    run_pred(conf + [("model_in", model), ("data_in", data_val),
+                     ("pred_out", pred_out)], device=DEV)
+    with open(pred_out + "_part-0", "rb") as f:
+        probs = np.array([float(x.split(b"\t")[1])
+                          for x in f.read().splitlines()])
+    ref_m = reference_margins(val_text, arrays, C)
+    p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref_m))).max())
+    if len(probs) != N_VAL or not p_err <= 1e-4:
+        raise AssertionError(f"the tiered model's pred vs float64 FM: "
+                             f"{len(probs)} rows, prob err {p_err}")
+    log(f"  the tiered model holds the logical {C} rows; task=pred within "
+        f"{p_err:.3g} of the float64 FM")
+    log(f"  objective per row by epoch: tiered {m1['loss']}, phase 12 (f) "
+        f"untiered {ts['loss_f']}; peak allocated {m1['peak'] / 2 ** 20:.1f}"
+        f" MiB tiered, {ts['peak_f'] / 2 ** 20:.1f} MiB untiered; epoch "
+        f"wall s tiered {_epoch_walls(m1['walls'])}, untiered "
+        f"{_epoch_walls(ts['walls_f'])}; route {m1['route_ms']:.2f} ms per "
+        f"batch; capacity {m1['stats']}")
+    del m2, m3
+    q1 = tier_run("(m) int8, 1 epoch", [("slot_dtype", "int8"),
+                                        ("max_num_epochs", "1")], epochs=1)
+    restore = _swap_plain()
+    try:
+        q2 = tier_run("(m) int8 on the plain versions",
+                      [("slot_dtype", "int8"), ("max_num_epochs", "1")],
+                      counted=False, epochs=1)
+    finally:
+        restore()
+    if not (_bits_equal(q1["bits"], q2["bits"])
+            and _same_tier(q1["state"], q2["state"])):
+        raise AssertionError("the int8 tiered epoch on the plain versions "
+                             "left another table, residency or host rows")
+    log("  int8: one tiered epoch on the kernels = on the plain versions, "
+        "bit for bit")
+    del q1, q2, table
+
+    # ------------------------------------------ (n) the WAL and replicas
+    def wal_kwargs(d):
+        peers = [os.path.join(d, "p1"), os.path.join(d, "p2")]
+        m = os.path.join(d, "local", "m")
+        return base + [("wal_flush_batches", "10"), ("ckpt_interval", "1"),
+                       ("ckpt_keep", "2"), ("model_out", m),
+                       ("replica_peers", ",".join(peers)),
+                       ("replica_k", "2"), ("auto_resume", "1")], m, peers
+
+    n_dir = os.path.join(work, "wal_n")
+    kw_n, model_n, peers_n = wal_kwargs(n_dir)
+    gathers, restore_w = _recording(SlotStore, "wal_touched_rows",
+                                    lambda a, out: len(a[0]) > 0)
+    _reset_counts()
+    try:
+        ln, _, walls_n, _ = _train(kw_n)
+    finally:
+        restore_w()
+    got = _counts()
+    w = want(2, {}, wal_gathers=len(gathers))
+    if got != w:
+        raise AssertionError(f"run (n) launches {got}; the steps and "
+                             f"{len(gathers)} WAL flushes need {w}")
+    for c in COUNTERS:
+        total[c] += got[c]
+    if not torch.equal(ln.store.state.VVg.cpu().view(torch.int32),
+                       ts["bits_f"].view(torch.int32)):
+        raise AssertionError("the WAL run left another table than phase 12 "
+                             "(f)")
+    del ln
+    gc.collect()
+    segs = [os.path.join(d, n) for d in
+            [wal.wal_dir(model_n)] + [wal.wal_dir(os.path.join(p, "m"))
+                                      for p in peers_n]
+            for n in sorted(os.listdir(d))]
+    for sp in segs:
+        wal.read_segment(sp)
+    r = Replicator(peers_n, 2, 0, root=os.path.dirname(model_n))
+    try:
+        repairs = r.scrub(model_n)
+    finally:
+        r.close()
+    if repairs:
+        raise AssertionError(f"the scrub repaired {repairs} peer files")
+    log(f"  run (n) WAL + 2 replicas: phase 12 (f)'s table bit for bit; "
+        f"{len(gathers)} WAL flush gathers beside the steps' launches "
+        f"{got}; {len(segs)} segments verify (local and peers); scrub "
+        f"repairs 0; epoch wall s {_epoch_walls(walls_n)}")
+    shutil.rmtree(n_dir, ignore_errors=True)
+
+    # ------------------------------------------------- (o) the recovery
+    o_dir = os.path.join(work, "wal_o")
+    kw_o, model_o, peers_o = wal_kwargs(o_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the appends before the kill: epoch 0's full windows and its boundary,
+    # then epoch 1's first window; the kill is at its second
+    after = nb // 10 + 2
+    faults = (f"wal.append:delay_ms={KILL_DELAY_MS}@1:{after},"
+              f"wal.append:kill@1:{after}")
+    env = dict(os.environ, PYTHONPATH=root, DIFACTO_FAULTS=faults)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "difacto_tpu_torch",
+                        *[f"{k}={v}" for k, v in kw_o], f"device={DEV}"],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=900)
+    child_s = time.perf_counter() - t0
+    if r.returncode != -9:
+        raise AssertionError(f"the armed run was not SIGKILLed (rc "
+                             f"{r.returncode}):\n{r.stderr[-3000:]}")
+    shutil.rmtree(os.path.dirname(model_o))
+    t_rec, restore_r = _timing(SGDLearner, ("_try_resume",))
+    gathers, restore_w = _recording(SlotStore, "wal_touched_rows",
+                                    lambda a, out: len(a[0]) > 0)
+    _reset_counts()
+    try:
+        ln, _, walls_o, _ = _train(kw_o)
+    finally:
+        restore_w()
+        restore_r()
+    got = _counts()
+    with open(model_o + ".recovery.json") as f:
+        stamp = json.load(f)
+    skip = stamp.get("skip_batches", 0)
+    if not ("peer" in stamp["rungs"] and "wal" in stamp["rungs"]
+            and 0 < skip <= 10):
+        raise AssertionError(f"the recovery stamp {stamp}")
+    w = want(1, {}, epoch0=False, skip=skip, wal_gathers=len(gathers),
+             replayed=stamp["wal_segments"])
+    if got != w:
+        raise AssertionError(f"the recovered run launched {got}; resuming "
+                             f"epoch 1 past {skip} replayed batches needs "
+                             f"{w}")
+    for c in COUNTERS:
+        total[c] += got[c]
+    if not torch.equal(ln.store.state.VVg.cpu().view(torch.int32),
+                       ts["bits_f"].view(torch.int32)):
+        raise AssertionError("the recovered run left another table than "
+                             "run (n)")
+    del ln
+    gc.collect()
+    shutil.rmtree(o_dir, ignore_errors=True)
+    log(f"  run (o): the armed child was SIGKILLed after {child_s:.1f} s "
+        f"(a {KILL_DELAY_MS / 1e3:.0f} s wait before the kill included); "
+        f"local directory deleted; the rerun recovered in "
+        f"{t_rec['_try_resume'][0]:.3f} s "
+        f"through rungs {stamp['rungs']} (head {stamp['head']}, "
+        f"skip {skip}, {stamp['wal_replay_batches']} batches replayed) "
+        f"and ended on run (n)'s table bit for bit; epoch wall s "
+        f"{_epoch_walls(walls_o)}")
+    log(f"phase 15 ok in {time.monotonic() - t_phase:.1f} s: the cold tier, "
+        "admission and eviction deterministic and = plain versions; the WAL "
+        "run = phase 12 (f); SIGKILL + disk loss recovered through peer + "
+        "wal to the same table")
+    return {"launches": total, "route_ms": m1["route_ms"],
+            "sizes": sizes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -2341,13 +2775,19 @@ def main(argv=None) -> int:
         phase_local_conf(work)
         ts = phase_stream(work, conf, uparam, tuple(args.parent))
         tc = phase_cache(work, conf, uparam, ts)
+        ts_launches = ts["launches"]
         phase_batch_learners(work, smi)
-        if "jax" in sys.modules or "difacto_tpu" in sys.modules:
-            raise AssertionError("the smoke imported JAX or difacto_tpu")
-        # launches on the main paths: phases 3, 4, 7, 9, 10, 12 and 13,
-        # each read just after its own run
+        tq = phase_capacity(work, conf, uparam, ts)
+        del ts
+        if any(m in sys.modules for m in ("jax", "difacto_tpu",
+                                          "ml_dtypes")):
+            raise AssertionError("the smoke imported JAX, difacto_tpu or "
+                                 "ml_dtypes")
+        # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13 and
+        # 15, each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
-              + ts["launches"][c] + tc["launches"][c] for c in COUNTERS}
+              + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
+              for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

@@ -14,7 +14,9 @@ difacto_tpu/data/pack_stream.py).
   otherwise — the JAX package's buffers byte for byte. Two opt-in arms:
   ``stream_chunk`` adds the chunked-run backward layout built on the
   host (:func:`chunk_host`), ``device_dedup`` ships the raw hashed tokens
-  (``ops/batch.pack_panel_raw``) and leaves the dedup to the step.
+  (``ops/batch.pack_panel_raw``) and leaves the dedup to the step;
+  ``admit`` sends the tokens count-min admission refuses to an
+  out-of-bounds lane (capacity/sketch.py).
 - :func:`prepare_from_uniq`: the same payload for a block the rec cache
   already localized (data/cached.py), from its sorted reversed ids.
 - :func:`pack_mapped`: the same payloads for a block the dictionary store
@@ -84,7 +86,9 @@ class Payload(NamedTuple):
     hashed tokens, no slot vector), the two host buffers, and the statics
     to unpack them. ``d2`` is the panel width or the COO nnz cap;
     ``row_cap`` (COO only) the widest row's cap; ``chunks`` the host-built
-    chunked-run layout (ci, cl, cv) of a ``stream_chunk`` panel."""
+    chunked-run layout (ci, cl, cv) of a ``stream_chunk`` panel;
+    ``host_slots`` a host copy of the slot section, which the learner
+    keeps for the write-ahead log once the buffers are on the device."""
     layout: str
     i32: np.ndarray
     f32: np.ndarray
@@ -94,6 +98,7 @@ class Payload(NamedTuple):
     u_cap: int
     row_cap: int = 0
     chunks: Optional[tuple] = None
+    host_slots: Optional[np.ndarray] = None
 
 
 def pack_payload(shapes: ShapeSchedule, cblk, n_lanes: int,
@@ -168,11 +173,19 @@ def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,
                    want_counts: bool, fill_counts: bool, dim_min: int,
                    job: str, b_cap: Optional[int] = None,
                    stream_chunk: bool = False,
-                   device_dedup: bool = False) -> Payload:
+                   device_dedup: bool = False, admit=None) -> Payload:
     """Pack one raw-id block for the hashed store. ``want_counts`` keeps
     the counts section for the whole run; ``fill_counts`` (epoch 0)
     fills it with each lane's occurrence count, later epochs ship
     zeros.
+
+    ``admit`` (capacity/sketch.AdmissionFilter): count-min admission.
+    Unadmitted occurrences become the sentinel ``hash_capacity``, which
+    sorts last among the unique tokens; its lane is dropped, so the cells
+    that referenced it address the first out-of-bounds pad lane (a zero
+    gather, a dropped scatter) and the u-cap keeps one lane of margin for
+    it. Admission takes the host dedup: the sentinel cannot ride raw
+    device lanes.
 
     ``device_dedup`` ships the raw hashed tokens of a panel-shaped block
     (``pack_panel_raw``) and the step dedups on the device; the host pays
@@ -183,7 +196,9 @@ def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,
     from ..base import reverse_bytes
     from ..store.slots import hash_slots, pad_slots_oob
     tok = hash_slots(reverse_bytes(blk.index), hash_capacity)
-    if device_dedup and not fill_counts:
+    if admit is not None:
+        tok = admit.filter(tok)
+    if admit is None and device_dedup and not fill_counts:
         from ..ops.batch import pack_panel_raw, panel_width
         b_cap_raw = b_cap or shapes.cap(job + ".b", blk.size, dim_min)
         cblk = dataclasses.replace(blk, index=tok.astype(np.uint32))
@@ -203,9 +218,13 @@ def prepare_hashed(shapes: ShapeSchedule, hash_capacity: int, blk,
     else:
         slots, inverse = np.unique(tok, return_inverse=True)
         counts = np.zeros(0, np.float32) if want_counts else None
+    if admit is not None and len(slots) and slots[-1] == admit.sentinel:
+        slots = slots[:-1]
+        if fill_counts:
+            counts = counts[:-1]
     cblk = dataclasses.replace(blk, index=inverse.astype(np.uint32))
     n_uniq = len(slots)
-    u_cap = shapes.cap(job + ".u", n_uniq)
+    u_cap = shapes.cap(job + ".u", n_uniq + (1 if admit is not None else 0))
     b_cap = b_cap or shapes.cap(job + ".b", blk.size, dim_min)
     padded = pad_slots_oob(slots.astype(np.int32), u_cap, hash_capacity)
     return pack_payload(shapes, cblk, n_uniq, padded, b_cap, dim_min, job,
@@ -264,6 +283,11 @@ class StreamSpec:
     stream_chunk: bool = False
     device_dedup: bool = False
     need_label: bool = False
+    # count-min admission (capacity/sketch.make_admission): the threshold
+    # and the sketch seed's base, so workers build the filter the
+    # producer threads build
+    admit_min_count: int = 0
+    admit_seed: int = 0
     # a pre-localized rec cache to read instead of data_in (cached.py)
     cached_uri: Optional[str] = None
     # the consumer's sticky caps, so workers start from its schedule
@@ -337,7 +361,10 @@ def spec_iter(spec: StreamSpec, part_i: int) -> Iterator:
                 cnts, spec.want_counts, spec.fill_counts, spec.dim_min,
                 spec.job, spec.b_cap, stream_chunk=spec.stream_chunk))
         return
+    from ..capacity.sketch import make_admission
     from .batch_reader import BatchReader
+    admit = make_admission(spec.hash_capacity, spec.admit_min_count,
+                           spec.admit_seed, spec.epoch, part)
     reader = BatchReader(spec.data_in, spec.data_format, part, spec.n_jobs,
                          spec.batch_size, spec.batch_size * spec.shuffle,
                          spec.neg_sampling, seed=seed)
@@ -348,4 +375,4 @@ def spec_iter(spec: StreamSpec, part_i: int) -> Iterator:
             prepare_hashed, shapes, spec.hash_capacity, blk,
             spec.want_counts, spec.fill_counts, spec.dim_min, spec.job,
             spec.b_cap, stream_chunk=spec.stream_chunk,
-            device_dedup=spec.device_dedup))
+            device_dedup=spec.device_dedup, admit=admit))

@@ -44,8 +44,20 @@ with optimizer state (``ckpt_interval``, ``ckpt_keep``) and
 ``auto_resume`` from the newest one that verifies, epoch-end callbacks,
 progress rows. ``self.obs`` is the run's metric registry under the JAX
 package's metric names (``stage_seconds_total{stage}`` and the rest,
-``stage_stats()``), flushed to ``metrics_path`` as JSONL. The knobs that
-change what is computed and are not ported raise when set.
+``stage_stats()``), flushed to ``metrics_path`` as JSONL.
+
+The capacity levers ride the same path: count-min admission on the
+producers (capacity/sketch.py), the cold tier's routing of every packed
+payload before its host-to-device copy (capacity/tier.route_payload, in
+``_stage_payload``; the tier turns device_dedup, stream_chunks and the
+replay cache off) and occupancy eviction at each training epoch's end.
+The durability legs (durability/): the write-ahead log records the slots
+each training batch touched from the host payload and seals every
+``wal_flush_batches`` steps (and each epoch's end) as one segment of the
+rows' current values; each interval checkpoint roots a new chain and is
+pushed to the ``replica_peers``; ``auto_resume`` then climbs the recovery
+ladder (durability/recover.py). ``mesh_force`` and ``bounded_delay > 0``
+(sharding) raise when set.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import torch
 from ..config import KWArgs, Param
 from ..data.batch_reader import BatchReader
 from ..data.cached import CachedBatchReader, cache_probe
+from ..capacity.sketch import make_admission
 from ..data.localizer import compact
 from ..data.pack_stream import (Payload, ShapeSchedule, StreamSpec,
                                 pack_mapped, prepare_from_uniq,
@@ -148,8 +161,6 @@ class SGDLearnerParam(Param):
 # knobs that change what is computed, with the ROADMAP.md item that ports
 # them; a non-default value raises
 _NOT_PORTED = {
-    "wal_flush_batches": "Queue 1: durability",
-    "replica_peers": "Queue 1: durability",
     "mesh_force": "Queue 1: sharding",
 }
 # the streamed pipeline's stages (stage_seconds_total{stage}):
@@ -297,13 +308,18 @@ class SGDLearner(Learner):
     # merge fetches them
     _MERGE_CAP = 256
 
-    def __init__(self, device="cuda", table_init=None) -> None:
+    def __init__(self, device="cuda", table_init=None,
+                 tier_virgin_V=None) -> None:
         """``table_init`` is the store's init provider
         (store/local.SlotStore): ``table_init(capacity) -> SGDState``;
-        None draws the port's own."""
+        None draws the port's own. ``tier_virgin_V`` is the cold tier's
+        virgin V (capacity/tier.virgin_V by default)."""
         super().__init__()
         self.device = device
         self._table_init = table_init
+        self._tier_virgin_V = tier_virgin_V
+        self._wal = None
+        self._replica = None
         self.param: Optional[SGDLearnerParam] = None
         self.store: Optional[SlotStore] = None
         self._flusher: Optional[MetricsFlusher] = None
@@ -336,7 +352,13 @@ class SGDLearner(Learner):
             log.info("mesh_dp=%d mesh_fs=%d ignored: the port trains on one "
                      "card", p.mesh_dp, p.mesh_fs)
         self.store = SlotStore(uparam, device=self.device,
-                               init=self._table_init)
+                               init=self._table_init,
+                               virgin_V=self._tier_virgin_V)
+        if self.store.tier is not None and (
+                p.device_dedup or p.stream_chunks or p.device_cache_mb):
+            log.info("cold_tier_rows: device_dedup, stream_chunks and the "
+                     "replay cache stay off (tier routing rewrites each "
+                     "batch's host slots before its copy to the card)")
         self._shapes = ShapeSchedule()
         self._caches: dict = {}
         self._cache_pool = {"used": 0}   # one budget across job types
@@ -350,6 +372,10 @@ class SGDLearner(Learner):
             "seconds spent per streamed-pipeline stage, summed over "
             "threads")
         self._stage_c = {k: stage_c.labels(stage=k) for k in _STAGES}
+        self._route_h = self.obs.histogram(
+            "tier_route_seconds",
+            "host time of one batch's cold-tier routing (promotes and "
+            "demotes included)")
         self._step_h = self.obs.histogram(
             "train_step_seconds",
             "host-side dispatch+wait time of one fused device step")
@@ -362,7 +388,67 @@ class SGDLearner(Learner):
         self._last_producer_mode = "thread"
         _, self._train_step, self._eval_step = make_step_fns(
             self.store.fns, self.loss, train_auc=p.train_auc)
+        self._init_durability()
         return remain
+
+    def _init_durability(self) -> None:
+        """The durability legs (durability/): the write-ahead delta log
+        and the async peer replicator, both off by default. The WAL's
+        gates raise the JAX package's texts: each refused knob changes
+        rows outside the dispatch path the WAL observes."""
+        p = self.param
+        self._wal = None
+        self._replica = None
+        self._wal_touched: list = []
+        self._wal_step = 0
+        self._wal_lo = 0
+        self._wal_epoch = 0
+        # batches of the re-entered epoch whose effects a WAL replay has
+        # applied: the recovery ladder arms it, the dispatch skips them
+        self._wal_skip = 0
+        if p.wal_flush_batches > 0:
+            if not p.model_out:
+                raise ValueError(
+                    "wal_flush_batches requires model_out: the delta "
+                    "log lives in <model_out>.wal/")
+            if not self.store.hashed:
+                raise ValueError(
+                    "wal_flush_batches requires the hashed store "
+                    "(hash_capacity > 0): dictionary slots are assigned "
+                    "at consume time, so a replayed delta has no stable "
+                    "row space to land in")
+            if self.store.tier is not None:
+                raise ValueError(
+                    "wal_flush_batches is incompatible with "
+                    "cold_tier_rows: tier promotes/demotes rewrite rows "
+                    "off the dispatch path, so replay would miss them")
+            if self.store.param.evict_occupancy > 0:
+                raise ValueError(
+                    "wal_flush_batches is incompatible with "
+                    "evict_occupancy: epoch-boundary eviction resets "
+                    "rows outside the dispatch path the WAL observes")
+            if p.device_dedup:
+                raise ValueError(
+                    "wal_flush_batches is incompatible with "
+                    "device_dedup: panel_raw payloads derive slots "
+                    "in-step and carry no host slots section to log")
+            if p.device_cache_mb:
+                log.info("wal_flush_batches: forcing device_cache_mb=0 "
+                         "(HBM-replayed batches bypass the WAL's "
+                         "dispatch hook)")
+                self.param = p = dataclasses.replace(p, device_cache_mb=0)
+            from ..durability.wal import WalWriter, wal_dir
+            self._wal = WalWriter(wal_dir(p.model_out), 0,
+                                  self.store.wal_geometry())
+            self._wal_fail_c = REGISTRY.counter(
+                "wal_append_failures_total",
+                "WAL segment appends that failed (window retained and "
+                "retried at the next flush boundary)")
+        if p.replica_peers and p.model_out:
+            from ..durability.replicate import Replicator, parse_peers
+            self._replica = Replicator(
+                parse_peers(p.replica_peers), p.replica_k, 0,
+                root=os.path.dirname(p.model_out) or ".")
 
     # -------------------------------------------------------------- run
     def run(self) -> None:
@@ -380,11 +466,10 @@ class SGDLearner(Learner):
         pre_loss, pre_val_auc = 0.0, 0.0
         k = 0
         if p.auto_resume and p.model_out:
-            resumed = self._try_resume_base()
+            resumed = self._try_resume()
             if resumed is not None:
-                k = resumed[0] + 1
-                log.info("auto-resumed from epoch %d checkpoint",
-                         resumed[0])
+                k = resumed + 1
+                log.info("auto-resumed from epoch %d checkpoint", resumed)
         if k == 0 and p.model_in:
             if p.load_epoch >= 0:
                 log.info("loading model from epoch %d", p.load_epoch)
@@ -402,6 +487,11 @@ class SGDLearner(Learner):
             log.info("epoch[%d] training: %s, nnz(w) = %g, penalty = %g",
                      k, train_prog.text(), train_prog.nnz_w,
                      train_prog.penalty)
+            # occupancy eviction: at the epoch boundary only
+            n_evicted = self.store.maybe_evict()
+            if n_evicted:
+                log.info("epoch[%d] evicted %d rows under occupancy "
+                         "pressure", k, n_evicted)
             val_prog = Progress()
             if p.data_val:
                 self._run_epoch(k, K_VALIDATION, val_prog)
@@ -432,10 +522,21 @@ class SGDLearner(Learner):
             pre_loss, pre_val_auc = train_prog.loss, val_prog.auc
         if p.model_out:
             log.info("saving final model...")
-            self.store.save(self._model_name(p.model_out, -1), p.has_aux)
+            final = self._model_name(p.model_out, -1)
+            self.store.save(final, p.has_aux)
+            if self._replica is not None:
+                self._replica.push(sorted(stream.glob(final + "*")))
+        if self.store.hashed:
+            # the occupancy gauges, read once at the run's end
+            self.store.publish_shard_stats()
         self.stop()
 
     def stop(self) -> None:
+        if self._replica is not None:
+            # drain the push queue: the last commit's replica is the one a
+            # disk-loss recovery needs
+            self._replica.close()
+            self._replica = None
         if self._flusher is not None:
             self._flusher.close()
             self._flusher = None
@@ -455,14 +556,56 @@ class SGDLearner(Learner):
         with the epoch and the family's next generation), then the
         ``.meta`` marker, written last, so a crash mid-save resumes from
         the previous complete epoch; ``ckpt_keep`` > 0 prunes all but the
-        newest that many generations."""
+        newest that many generations, never the WAL chain's live base nor
+        an epoch a replica push is still copying. With the durability
+        legs on, the open WAL window is sealed first, the chain is rooted
+        at the new generation, and the generation's files are pushed to
+        the peers."""
         p = self.param
+        if self._wal is not None:
+            self._wal_flush()
         path = self._model_name(p.model_out, epoch)
         self.store.save(path, save_aux=True, epoch=epoch)
         with stream.open_stream(self._meta_path(), "w") as f:
             f.write(json.dumps({"last_epoch": epoch}))
         if p.ckpt_keep > 0:
-            mft.prune_checkpoints(p.model_out, p.ckpt_keep)
+            mft.prune_checkpoints(
+                p.model_out, p.ckpt_keep,
+                protect=self._durability_protected_epochs())
+        if self._wal is not None or self._replica is not None:
+            gen = int((mft.read(path) or {}).get("generation", 0))
+            if self._wal is not None:
+                self._wal.rebase(gen, epoch)
+            if self._replica is not None:
+                self._replica.push(
+                    sorted(stream.glob(path + "*")) + [self._meta_path()],
+                    generation=gen, epoch=epoch)
+
+    def _durability_protected_epochs(self) -> set:
+        """Epochs ``ckpt_keep`` must not retire now: the base of the live
+        WAL chain and the epochs a replica push still copies."""
+        prot: set = set()
+        if self._wal is not None and self._wal.base_epoch is not None:
+            prot.add(self._wal.base_epoch)
+        if self._replica is not None:
+            prot |= self._replica.protected_epochs()
+        return prot
+
+    def _try_resume(self) -> Optional[int]:
+        """``auto_resume``: the last completed epoch, or None. With the
+        durability legs off, the newest local checkpoint that verifies
+        (:meth:`_try_resume_base`); with one on, the recovery ladder
+        (durability/recover.py), which may arm ``_wal_skip``; its
+        recovery stamp goes to the peers with the family (the JAX learner
+        leaves the stamp local, so its peers' scrub always repairs it)."""
+        if self._wal is None and not self.param.replica_peers:
+            got = self._try_resume_base()
+            return got[0] if got is not None else None
+        from ..durability import recover
+        resumed = recover.run_ladder(self)
+        if self._replica is not None:
+            self._replica.push([self.param.model_out + ".recovery.json"])
+        return resumed
 
     def _try_resume_base(self) -> Optional[Tuple[int, str]]:
         """Load the newest interval checkpoint that verifies: (completed
@@ -559,8 +702,9 @@ class SGDLearner(Learner):
         0 turns it off, and training with ``neg_sampling != 1`` resamples
         every epoch, so its batches cannot be replayed."""
         p = self.param
-        if p.device_cache_mb <= 0 or (job_type == K_TRAINING
-                                      and p.neg_sampling != 1.0):
+        # a staged batch would freeze routes the cold tier later moves
+        if p.device_cache_mb <= 0 or self.store.tier is not None or (
+                job_type == K_TRAINING and p.neg_sampling != 1.0):
             return None
         if job_type not in self._caches:
             self._caches[job_type] = _DeviceBatchCache(
@@ -617,6 +761,14 @@ class SGDLearner(Learner):
         parts it does not hold stream through the producer pool (and are
         staged on the cache's first pass)."""
         p = self.param
+        if job_type == K_TRAINING and self._wal is not None:
+            # a new delta window per training epoch, numbered (epoch,
+            # step): a replayed chain names the exact batch it recovered
+            # to. _wal_skip survives this reset.
+            self._wal_epoch = epoch
+            self._wal_step = 0
+            self._wal_lo = 0
+            self._wal_touched = []
         cache = self._get_cache(job_type)
         stream_parts = list(range(n_jobs))
         if cache is not None and cache.ready:
@@ -647,14 +799,18 @@ class SGDLearner(Learner):
         # same layout on the device); device_dedup only past the count
         # push, while no cache may stage and stream_chunks is off (the
         # chunked layout needs the host inverse)
+        # neither engages under the cold tier, which rewrites each
+        # payload's host slot section (capacity/tier.route_payload)
         cache_may_stage = (cache is not None and cache.alive
                            and not cache.frozen)
+        tier_on = self.store.tier is not None
         stream_chunk = (is_train and hashed and p.stream_chunks
-                        and not cache_may_stage)
+                        and not cache_may_stage and not tier_on)
         device_dedup = (is_train and hashed and p.device_dedup
                         and not stream_chunk and not cache_may_stage
-                        and not push_cnt)
+                        and not push_cnt and not tier_on)
         hash_capacity = self.store.param.hash_capacity
+        admit_min_count = self.store.param.admit_min_count
         parse_c, pack_c = self._stage_c["parse"], self._stage_c["pack"]
 
         def packed(part, fn, *args, **kw):
@@ -688,6 +844,11 @@ class SGDLearner(Learner):
                     else:
                         yield ("compact", sub, (sub, uniq, cnts))
                 return
+            # count-min admission of the training stream, per (seed,
+            # epoch, part): the twin of spec_iter's in worker processes
+            admit = make_admission(hash_capacity, admit_min_count,
+                                   self.store.param.seed, epoch,
+                                   part) if is_train else None
             reader = self._make_reader(job_type, epoch, part, n_jobs)
             for blk in timed_reader(reader, parse_c, part):
                 if hashed:
@@ -695,7 +856,7 @@ class SGDLearner(Learner):
                         part, prepare_hashed, self._shapes, hash_capacity,
                         blk, push_cnt, push_cnt, 8, job, b_cap,
                         stream_chunk=stream_chunk,
-                        device_dedup=device_dedup))
+                        device_dedup=device_dedup, admit=admit))
                 else:
                     yield ("compact", blk, packed(
                         part, compact, blk, need_counts=push_cnt))
@@ -720,7 +881,9 @@ class SGDLearner(Learner):
                 want_counts=push_cnt, fill_counts=push_cnt, dim_min=8,
                 job=job, b_cap=b_cap, stream_chunk=stream_chunk,
                 device_dedup=device_dedup, caps=self._shapes.snapshot(),
-                trace_id=trace.trace_id(), cached_uri=cached_uri)
+                trace_id=trace.trace_id(), cached_uri=cached_uri,
+                admit_min_count=admit_min_count,
+                admit_seed=self.store.param.seed)
             slot_mb = p.ring_slot_mb or max(1, (p.batch_size * 320) >> 20)
             pool = ProcessProducerPool(
                 len(stream_parts), functools.partial(spec_iter, spec),
@@ -803,6 +966,10 @@ class SGDLearner(Learner):
                     pending = []
             while lookahead:
                 dispatch_entry(lookahead.popleft())
+            if is_train and self._wal is not None:
+                # seal the epoch with a boundary segment, even an empty
+                # one: replay reads it as "this epoch completed"
+                self._wal_flush(boundary=True)
             self._final_merge(job_type, pending, prog)
             retire(keep=0)
         finally:
@@ -814,9 +981,25 @@ class SGDLearner(Learner):
     def _stage_payload(self, payload: Payload) -> Payload:
         """Copy a packed payload's buffers to the device (the transfer
         stage); the returned payload holds device tensors. On the CPU they
-        alias the host arrays."""
+        alias the host arrays.
+
+        The cold tier's one routing point: the host payload's logical
+        slots become device rows here (capacity/tier.route_payload,
+        promoting and demoting on this thread, timed into
+        ``tier_route_seconds``) before the copy. With the WAL on, the
+        batch's slot section is kept on the host (``host_slots``) for the
+        touched-row window."""
         t0 = time.perf_counter()
         dev = self.store.device
+        if self.store.tier is not None:
+            from ..capacity.tier import route_payload
+            payload = route_payload(self.store.tier, payload)
+            self._route_h.observe(time.perf_counter() - t0)
+        if self._wal is not None and payload.layout in ("panel", "coo"):
+            off = payload.b_cap * payload.d2 if payload.layout == "panel" \
+                else 2 * payload.d2
+            payload = payload._replace(
+                host_slots=payload.i32[off:off + payload.u_cap].copy())
 
         def to_dev(a):
             return None if a is None else torch.from_numpy(a).to(dev)
@@ -858,6 +1041,14 @@ class SGDLearner(Learner):
         the device) and takes the chunked backward, and the batch is kept,
         its counts section zeroed so that a replay never counts again."""
         is_train = job_type == K_TRAINING
+        if is_train and self._wal is not None and self._wal_skip > 0:
+            # recovery fast-forward: WAL replay already applied this
+            # batch's effects, and the data order is deterministic, so the
+            # skipped prefix is exactly the replayed one
+            self._wal_skip -= 1
+            self._wal_step += 1
+            self._wal_lo = self._wal_step
+            return
         i32, f32 = payload.i32, payload.f32
         staging = cache is not None and cache.staging
         chunks = payload.chunks
@@ -871,6 +1062,8 @@ class SGDLearner(Learner):
                          payload.d2, payload.u_cap, payload.row_cap,
                          payload.binary, blk.size, chunks)
         self._dispatch_staged(job_type, staged, push_cnt, pending)
+        if is_train and self._wal is not None:
+            self._wal_touch(payload)
         if staging:
             if push_cnt:
                 f32[f32.shape[0] - payload.u_cap:] = 0.0
@@ -878,6 +1071,50 @@ class SGDLearner(Learner):
                 t.nbytes for t in chunks or () if t is not None)
             cache.add(part, staged, nbytes,
                       capacity=self.store.state.capacity)
+
+    def _wal_touch(self, payload: Payload) -> None:
+        """Record the slots a dispatched training batch touched, from the
+        host copy of its slot section (no device read); OOB pad lanes are
+        dropped. Seals the window every ``wal_flush_batches`` steps."""
+        if payload.host_slots is None:
+            raise RuntimeError(
+                f"WAL cannot observe layout {payload.layout!r}: no host "
+                "slots section")
+        sl = payload.host_slots
+        self._wal_touched.append(sl[sl < self.store.state.capacity])
+        self._wal_step += 1
+        if self._wal_step - self._wal_lo >= self.param.wal_flush_batches:
+            self._wal_flush()
+
+    def _wal_flush(self, boundary: bool = False) -> None:
+        """Seal the open window as one segment: gather the touched rows'
+        current values (the log stores values, not deltas) and append. A
+        failed append keeps the window, so the next flush logs its slots
+        at that window's end: a transient failure widens the loss bound
+        and never breaks the chain."""
+        if self._wal is None \
+                or (self._wal_step == self._wal_lo and not boundary):
+            return
+        if self._wal_touched:
+            touched = np.unique(np.concatenate(self._wal_touched))
+            arrays = self.store.wal_touched_rows(touched)
+        else:
+            touched = np.zeros(0, np.int32)
+            arrays = {}
+        try:
+            path = self._wal.append(touched, arrays, self._wal_epoch,
+                                    self._wal_lo, self._wal_step,
+                                    boundary=boundary)
+        except OSError as e:   # FaultInjected is an OSError
+            self._wal_fail_c.inc()
+            log.warning("wal append failed (%s); window retained to the "
+                        "next flush", e)
+            return
+        self._wal_lo = self._wal_step
+        self._wal_touched = []
+        if path is not None and self._replica is not None:
+            self._replica.push([path], generation=self._wal.generation,
+                               epoch=self._wal.base_epoch)
 
     def _dispatch_staged(self, job_type: int, st: _Staged, push_cnt: bool,
                          pending: list) -> None:

@@ -31,10 +31,19 @@ writes the readable TSV of ``task=dump``.
 A trainable store (``read_only=False``) carries the optimizer state in
 its fused rows and saves it with ``save_aux``; the learner pushes through
 ``store.fns`` (updaters/sgd_updater.make_fns) in place on ``state.VVg``.
+:meth:`pull`/:meth:`push` are the reference-shaped KV API over the same
+functions.
 
-Not ported yet, and raising a typed NotImplementedError that names the
-ROADMAP.md queue item: per-key-range sharded checkpoints, the host-RAM
-cold tier, count-min admission and occupancy eviction.
+The capacity levers (capacity/): with ``cold_tier_rows`` the device table
+holds ``D = hash_capacity - cold_tier_rows`` hot rows and a
+:class:`~difacto_tpu_torch.capacity.tier.ColdTier` keeps the rest in host
+RAM; saves and dumps still write the logical table, and a load splits it
+into the hot prefix and the host tail. ``evict_occupancy`` demotes (under
+a tier) or resets the lowest-count rows at epoch ends
+(:meth:`maybe_evict`). The write-ahead log's row surgery
+(:meth:`wal_touched_rows`, :meth:`apply_wal_rows`) moves rows through the
+same gather and scatter kernels. Per-key-range sharded checkpoints are
+not ported (ROADMAP.md, Queue 1: sharding) and raise.
 """
 
 from __future__ import annotations
@@ -53,6 +62,11 @@ from ..utils.platform import resolve_device
 from .convert import state_from_numpy, state_to_numpy
 from .slots import hash_slots, pad_slots_oob  # noqa: F401
 
+# the KV API's value-type channels (include/difacto/store.h:33-35)
+K_FEACOUNT = 1
+K_WEIGHT = 2
+K_GRADIENT = 3
+
 
 class SlotStore:
     """A hashed or dictionary slot table on one device.
@@ -60,19 +74,14 @@ class SlotStore:
     ``read_only`` stores serve inference: lookups never insert, and
     :meth:`load` defaults to a weights-only view that never materializes
     optimizer state. ``init`` overrides the init provider (see the module
-    docstring)."""
+    docstring), ``virgin_V`` the cold tier's virgin V [cold_tier_rows,
+    V_dim] (capacity/tier.virgin_V). A read-only store ignores
+    ``cold_tier_rows``: serving holds the whole table."""
 
     def __init__(self, param: SGDUpdaterParam, device="cuda",
                  read_only: bool = False,
-                 init: Optional[Callable[[int], SGDState]] = None):
-        if not read_only:
-            for knob in ("cold_tier_rows", "admit_min_count",
-                         "evict_occupancy"):
-                if getattr(param, knob):
-                    raise NotImplementedError(
-                        f"{knob}: the capacity tier (cold tier, admission, "
-                        "eviction) is not ported yet (ROADMAP.md, Queue 1: "
-                        "capacity tier)")
+                 init: Optional[Callable[[int], SGDState]] = None,
+                 virgin_V: Optional[np.ndarray] = None):
         self.param = param
         self.device = resolve_device(device)
         self.read_only = read_only
@@ -83,8 +92,29 @@ class SlotStore:
         self._keys = np.empty(0, dtype=FEAID_DTYPE)
         self._slots = np.empty(0, dtype=np.int64)
         self._next_slot = TRASH_SLOT + 1
-        self.state: SGDState = self._init(
-            param.hash_capacity if self.hashed else param.init_capacity)
+        cap = param.hash_capacity if self.hashed else param.init_capacity
+        tiered = param.cold_tier_rows > 0 and not read_only
+        if tiered:
+            if not self.hashed:
+                raise ValueError("cold_tier_rows requires the hashed "
+                                 "store (hash_capacity > 0): dictionary "
+                                 "slots have no fixed logical space to "
+                                 "tier over")
+            if param.V_dim == 0:
+                raise ValueError("cold_tier_rows requires V_dim > 0: the "
+                                 "tier moves fused rows, the flat layout "
+                                 "has none")
+            if param.cold_tier_rows >= cap - 1:
+                raise ValueError(
+                    f"cold_tier_rows={param.cold_tier_rows} must leave at "
+                    f"least 2 hot rows of hash_capacity={cap} (trash row "
+                    "+ one working row)")
+            cap -= param.cold_tier_rows
+        self.state: SGDState = self._init(cap)
+        self.tier = None
+        if tiered:
+            from ..capacity.tier import ColdTier
+            self.tier = ColdTier(self, virgin_V)
 
     # ------------------------------------------------------------- keys
     @property
@@ -170,6 +200,76 @@ class SlotStore:
         return torch.from_numpy(pad_slots_oob(
             slots, cap, self.state.capacity)).to(self.device)
 
+    def lookup(self, keys: np.ndarray) -> np.ndarray:
+        """Slots for known ids, TRASH_SLOT for unknown (no insertion)."""
+        return self.map_keys(keys, insert=False)
+
+    # ------------------------------------------------------------ KV API
+    def pull(self, keys: np.ndarray):
+        """(w, V, vmask) host rows in the caller's key order (Pull): the
+        keys' sorted-unique slots, routed through the cold tier when it is
+        on (promoting cold rows), gathered once."""
+        slots_np, remap, _ = self.map_keys_dedup(keys)
+        perm = None
+        if self.tier is not None:
+            slots_np, _, perm = self.tier.route(slots_np)
+        w, V, vmask = self.fns.get_rows(
+            self.state, torch.from_numpy(np.ascontiguousarray(
+                slots_np, dtype=np.int32)).to(self.device))
+        # a bf16 table's V leaves as f32: numpy has no bfloat16
+        out = [None if a is None else a.cpu().to(
+            torch.float32 if a.dtype == torch.bfloat16 else a.dtype).numpy()
+            for a in (w, V, vmask)]
+        for idx in (perm, remap):
+            if idx is not None:
+                out = [None if a is None else a[idx] for a in out]
+        return tuple(out)
+
+    def push(self, keys: np.ndarray, val_type: int, gw: np.ndarray,
+             gV: Optional[np.ndarray] = None,
+             vmask: Optional[np.ndarray] = None) -> None:
+        """Push (kFeaCount counts or kGradient gradients) for ``keys``:
+        colliding hashed keys add up; under the cold tier the slots route
+        to device rows and the values follow them (a slot whose promote
+        was refused lands on an OOB lane and its update is dropped)."""
+        if self.read_only:
+            raise RuntimeError(
+                "push on a read-only store: this SlotStore was opened "
+                "weights-only for inference (serve/task=pred) and carries "
+                "no optimizer state to update")
+        slots_np, remap, _ = self.map_keys_dedup(keys)
+        if remap is not None:
+            n = len(slots_np)
+            gw = np.bincount(remap, weights=np.asarray(gw, np.float64),
+                             minlength=n).astype(np.float32)
+            if gV is not None:
+                agg = np.zeros((n,) + np.asarray(gV).shape[1:],
+                               dtype=np.float32)
+                np.add.at(agg, remap, np.asarray(gV))
+                gV = agg
+            if vmask is not None:
+                vm = np.zeros(n, dtype=np.float32)
+                np.maximum.at(vm, remap, np.asarray(vmask, np.float32))
+                vmask = vm
+        if self.tier is not None:
+            slots_np, order, _ = self.tier.route(slots_np)
+            gw = np.asarray(gw)[order]
+            gV = None if gV is None else np.asarray(gV)[order]
+            vmask = None if vmask is None else np.asarray(vmask)[order]
+
+        def dev(a, dtype=torch.float32):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(self.device, dtype)
+
+        slots = dev(slots_np, torch.int32)
+        if val_type == K_FEACOUNT:
+            self.state = self.fns.apply_count(self.state, slots, dev(gw))
+        elif val_type == K_GRADIENT:
+            self.state = self.fns.apply_grad(self.state, slots, dev(gw),
+                                             dev(gV), dev(vmask))
+        else:
+            raise ValueError(f"unknown val_type {val_type}")
+
     def evaluate_dev(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(penalty, nnz) as device scalars (Evaluate,
         sgd_updater.cc:15-32); callers fetch them with other metrics."""
@@ -186,6 +286,208 @@ class SlotStore:
         (store/convert.state_to_numpy)."""
         return state_to_numpy(self.param, self.state, keys)
 
+    def _logical_np(self, keys) -> dict:
+        """:meth:`_state_np` over the LOGICAL slot space: the device view
+        for an untiered store; under the cold tier the [D]-row columns
+        expand to [hash_capacity] rows (capacity/tier.logical_cols), so
+        saves and dumps never depend on the residency at save time."""
+        st = self._state_np(keys)
+        if self.tier is not None:
+            st = self.tier.logical_cols(st)
+        return st
+
+    # ------------------------------------------------------ capacity
+    def maybe_evict(self) -> int:
+        """Occupancy eviction (``evict_occupancy``): when the occupied
+        share of device rows exceeds the threshold, evict the lowest-count
+        occupied rows until occupancy is 0.9x the threshold. Under the
+        cold tier they demote to host RAM and stay addressable; without it
+        their FTRL/AdaGrad scalars reset to virgin (the V codes and scales
+        stay, masked by live=False). Epoch boundaries only. Returns the
+        rows evicted, counted into ``store_evictions_total``."""
+        thr = self.param.evict_occupancy
+        if thr <= 0:
+            return 0
+        st = self._state_np(("w", "cnt", "v_live"))
+        occupied = (st["w"] != 0) | (st["cnt"] != 0)
+        if self.param.V_dim > 0:
+            occupied |= np.asarray(st["v_live"], bool)
+        occupied[TRASH_SLOT] = False
+        cap = self.state.capacity
+        n_occ = int(occupied.sum())
+        if n_occ / max(cap - 1, 1) <= thr:
+            return 0
+        target = int(0.9 * thr * (cap - 1))
+        n_evict = n_occ - target
+        rows = np.nonzero(occupied)[0]
+        order = np.argsort(st["cnt"][rows], kind="stable")
+        victims = np.sort(rows[order[:n_evict]])
+        if self.tier is not None:
+            n = self.tier.demote_rows(victims)
+        else:
+            n = self._reset_rows(victims)
+        if n:
+            from ..obs import REGISTRY
+            REGISTRY.counter(
+                "store_evictions_total",
+                "table rows evicted under occupancy pressure "
+                "(evict_occupancy)").inc(n)
+        return n
+
+    def _reset_rows(self, victims: np.ndarray) -> int:
+        """Reset the scalars of the given sorted device rows to virgin
+        (w = z = sqrt_g = cnt = 0, live False): the eviction without a
+        tier. Fused rows take one gather and one scatter (the kernels on
+        the card) with the V halves and the quant scales carried."""
+        n = len(victims)
+        if n == 0:
+            return 0
+        st = self.state
+        if self.param.V_dim == 0:
+            vj = torch.from_numpy(victims.astype(np.int64)).to(self.device)
+            for col in (st.w, st.z, st.sqrt_g, st.cnt):
+                col[vj] = 0.0
+            st.v_live[vj] = False
+            return n
+        from ..ops import fused
+        from ..ops.batch import bucket
+        from ..updaters.sgd_updater import pack_scal, row_layout, scal_f32
+        _, _, _, off = row_layout(self.param, st.capacity)
+        sl = self.pad_slots(victims.astype(np.int32), bucket(n))
+        rows = fused.gather_rows(st.VVg, sl)
+        f = scal_f32(rows[:, off:])
+        zero = torch.zeros(rows.shape[0], dtype=torch.float32,
+                           device=rows.device)
+        scal = pack_scal(zero, zero, zero, zero, zero.to(torch.bool),
+                         rows.dtype, scale_V=f[:, 5], scale_Vg=f[:, 6])
+        out = torch.cat([rows[:, :off], scal], dim=1)
+        self.state = st._replace(VVg=fused.scatter_rows(st.VVg, sl, out))
+        return n
+
+    def capacity_stats(self) -> dict:
+        """Effective-capacity accounting of the levers: logical rows
+        against what an fp32, untiered table of the same device bytes
+        would hold."""
+        import dataclasses
+        from ..updaters.sgd_updater import state_bytes
+        dev_rows = self.state.capacity
+        logical = self.param.hash_capacity if self.hashed else dev_rows
+        bytes_total = state_bytes(self.param, dev_rows)
+        base = dataclasses.replace(self.param, slot_dtype="fp32",
+                                   V_dtype="float32", cold_tier_rows=0)
+        base_bpr = state_bytes(base, dev_rows) / max(dev_rows, 1)
+        baseline_rows = bytes_total / max(base_bpr, 1e-9)
+        out = {
+            "slot_dtype": self.param.slot_dtype,
+            "logical_rows": logical,
+            "device_rows": dev_rows,
+            "table_bytes_per_device": bytes_total,
+            "effective_rows_per_device": logical,
+            "capacity_multiplier": round(logical / max(baseline_rows,
+                                                       1e-9), 3),
+        }
+        if self.tier is not None:
+            out["tier"] = self.tier.stats()
+        return out
+
+    def shard_stats(self) -> list:
+        """Occupancy of the table, as the JAX store's one-shard list:
+        [{shard, row_lo, row_hi, rows, occupancy, table_bytes}] with
+        ``rows`` the non-zero w. Reads the w column to the host: cold
+        paths only."""
+        from ..updaters.sgd_updater import state_bytes
+        w = self._state_np(("w",))["w"]
+        cap = self.state.capacity
+        rows = int((w != 0).sum())
+        return [{"shard": 0, "row_lo": 0, "row_hi": cap, "rows": rows,
+                 "occupancy": round(rows / max(cap, 1), 6),
+                 "table_bytes": state_bytes(self.param, cap)}]
+
+    def publish_shard_stats(self) -> list:
+        """:meth:`shard_stats` into the global registry
+        (``store_shard_rows`` / ``store_shard_occupancy`` gauges)."""
+        from ..obs import gauge
+        stats = self.shard_stats()
+        rows_g = gauge("store_shard_rows",
+                       "non-empty slot-table rows per fs key-range shard")
+        occ_g = gauge("store_shard_occupancy",
+                      "filled fraction of each fs key-range shard")
+        for s in stats:
+            rows_g.labels(shard=str(s["shard"])).set(s["rows"])
+            occ_g.labels(shard=str(s["shard"])).set(s["occupancy"])
+        return stats
+
+    # --------------------------------------------------- WAL row surgery
+    def wal_geometry(self) -> dict:
+        """The geometry stamp every WAL segment carries and replay checks
+        before applying (durability/wal.py)."""
+        return {"hash_capacity": int(self.param.hash_capacity),
+                "capacity": int(self.state.capacity),
+                "V_dim": int(self.param.V_dim),
+                "slot_dtype": self.param.slot_dtype,
+                "row_width": int(self.state.VVg.shape[1])}
+
+    def wal_touched_rows(self, slots: np.ndarray) -> dict:
+        """Host copies of the given device rows exactly as the table
+        stores them: the fused VVg container rows (a CPU tensor: bf16 has
+        no numpy dtype) through the gather kernel for V_dim > 0, or the
+        five flat columns (numpy) of the V_dim = 0 layout. The WAL's
+        append-side read, once per flush window."""
+        slots = np.asarray(slots, dtype=np.int32)
+        n = len(slots)
+        if n == 0:
+            return {}
+        st = self.state
+        if self.param.V_dim == 0:
+            sl = torch.from_numpy(slots.astype(np.int64)).to(self.device)
+            return {k: getattr(st, k)[sl].cpu().numpy()
+                    for k in ("w", "z", "sqrt_g", "cnt", "v_live")}
+        from ..ops import fused
+        from ..ops.batch import bucket
+        rows = fused.gather_rows(st.VVg, self.pad_slots(slots, bucket(n)))
+        return {"VVg": rows[:n].cpu()}
+
+    def apply_wal_rows(self, slots: np.ndarray, arrays: dict) -> int:
+        """Write replayed WAL rows back into the table, the inverse of
+        :meth:`wal_touched_rows` bit for bit: the scatter kernel with its
+        epilogue off for fused rows, index writes for the flat columns.
+        Replay only (durability/recover.py), never beside a step."""
+        slots = np.asarray(slots, dtype=np.int32)
+        n = len(slots)
+        if n == 0:
+            return 0
+        st = self.state
+        if self.param.V_dim == 0:
+            cols = ("w", "z", "sqrt_g", "cnt", "v_live")
+            for k in cols:
+                if len(arrays[k]) != n:
+                    raise ValueError(
+                        f"WAL column {k!r} has {len(arrays[k])} rows "
+                        f"for {n} slots")
+            sl = torch.from_numpy(slots.astype(np.int64)).to(self.device)
+            for k in cols:
+                col = getattr(st, k)
+                col[sl] = torch.from_numpy(np.array(arrays[k])).to(
+                    self.device, col.dtype)
+            return n
+        from ..ops import fused
+        from ..ops.batch import bucket
+        width = st.VVg.shape[1]
+        rows = arrays["VVg"]
+        if isinstance(rows, np.ndarray):   # a read view of a segment
+            rows = torch.from_numpy(np.array(rows))
+        if rows.dtype != st.VVg.dtype:
+            raise ValueError(
+                f"WAL rows are {rows.dtype} but the table stores "
+                f"{st.VVg.dtype}: geometry mismatch")
+        rows = rows.reshape(n, width)
+        cap = bucket(n)
+        full = torch.zeros((cap, width), dtype=rows.dtype)
+        full[:n] = rows
+        self.state = st._replace(VVg=fused.scatter_rows(
+            st.VVg, self.pad_slots(slots, cap), full.to(self.device)))
+        return n
+
     def save(self, path: str, save_aux: bool = False,
              epoch: Optional[int] = None) -> int:
         """Checkpoint as one uncompressed npz plus its manifest sidecar
@@ -195,7 +497,8 @@ class SlotStore:
         non-zero w (hashed) or of saved keys."""
         saved = ("w", "cnt", "v_live", "V") + (
             ("z", "sqrt_g", "Vg") if save_aux else ())
-        st = self._state_np(saved)
+        st = self._logical_np(saved) if self.hashed \
+            else self._state_np(saved)
         if self.hashed:
             arrays = dict(hash_capacity=np.array(self.param.hash_capacity),
                           V_dim=np.array(self.param.V_dim),
@@ -276,7 +579,7 @@ class SlotStore:
                                      f"{np.shape(a)[0]} rows, the table "
                                      f"{cap}")
             arr.setdefault("w", np.zeros(cap, np.float32))
-            self.state = state_from_numpy(self.param, arr, self.device)
+            self._commit_hashed(arr)
             return int((np.asarray(arr["w"]) != 0).sum())
         keys = np.asarray(arr["keys"], dtype=FEAID_DTYPE)
         n = len(keys)
@@ -287,6 +590,29 @@ class SlotStore:
         self._slots = np.arange(1, n + 1, dtype=np.int64)
         self._next_slot = n + 1
         return n
+
+    def _commit_hashed(self, arr: dict) -> None:
+        """Commit loaded LOGICAL hashed-table columns [hash_capacity rows]:
+        the whole table on the device, or under the cold tier its hot
+        prefix [0, D) on the device and the tail into the host tier
+        (capacity/tier.load_cold), so checkpoints cross tier settings both
+        ways."""
+        if self.tier is None:
+            self.state = state_from_numpy(self.param, arr, self.device)
+            return
+        D = self.tier.D
+        self.state = state_from_numpy(
+            self.param, {k: np.asarray(a)[:D] for k, a in arr.items()},
+            self.device)
+        cap, k = self.param.hash_capacity, self.param.V_dim
+        full = {"z": np.zeros(cap, np.float32),
+                "sqrt_g": np.zeros(cap, np.float32),
+                "cnt": np.zeros(cap, np.float32),
+                "v_live": np.zeros(cap, bool),
+                "V": np.zeros((cap, k), np.float32),
+                "Vg": np.zeros((cap, k), np.float32)}
+        full.update(arr)
+        self.tier.load_cold(full)
 
     def dump(self, path: str, dump_aux: bool = False,
              need_reverse: bool = True) -> int:
@@ -300,8 +626,10 @@ class SlotStore:
         is ignored. The table comes to the host once. Returns the count
         of lines."""
         k = self.param.V_dim
-        st = self._state_np(("w", "v_live", "V") + (
-            ("sqrt_g", "z", "Vg") if dump_aux else ()))
+        dumped = ("w", "v_live", "V") + (
+            ("sqrt_g", "z", "Vg") if dump_aux else ())
+        st = self._logical_np(dumped) if self.hashed \
+            else self._state_np(dumped)
         if self.hashed:
             keep = st["w"] != 0
             if k > 0:

@@ -58,9 +58,9 @@ class SGDUpdaterParam(Param):
     gate ``l1_shrk``. ``fused_kernel`` is parsed so JAX configs that set it
     load, and selects nothing: a table on the card always takes the CUDA
     kernels, a table on the CPU their plain versions. ``init_capacity``
-    (dictionary store), ``admit_min_count``, ``evict_occupancy`` and
-    ``cold_tier_rows`` are parsed; the store refuses non-default values
-    (not ported)."""
+    (dictionary store) and the capacity levers ``admit_min_count``,
+    ``evict_occupancy`` and ``cold_tier_rows`` (capacity/) are the JAX
+    package's too."""
     l1: float = field(default=1.0, metadata=dict(lo=0, hi=1e10))
     l2: float = field(default=0.0, metadata=dict(lo=0, hi=1e10))
     V_l2: float = field(default=0.01, metadata=dict(lo=0, hi=1e10))
@@ -166,6 +166,15 @@ def row_layout(param: SGDUpdaterParam, capacity: int
     ns = scal_lanes(v_dtype(param))
     Wx = 2 * h if h - k >= ns else -(-(2 * h + ns) // 128) * 128
     return k, h, Wx, Wx - ns
+
+
+def state_bytes(param: SGDUpdaterParam, capacity: int) -> int:
+    """Device bytes of the slot table at ``capacity`` rows: four f32
+    columns and a bool for the flat layout, the fused rows otherwise."""
+    if param.V_dim == 0:
+        return capacity * (4 * 4 + 1)
+    _, _, Wx, _ = row_layout(param, capacity)
+    return capacity * Wx * v_dtype(param).itemsize
 
 
 def gather_bytes(param: SGDUpdaterParam, capacity: int, u_cap: int) -> int:

@@ -4,12 +4,30 @@ and kinds).
 
     DIFACTO_FAULTS="point:kind@prob[:after_n][,point:kind@prob...]"
 
-- ``point`` — a dotted site name. The port wires one so far:
+- ``point`` — a dotted site name. The port wires these:
   ``rec.read`` (every rec2 data-cache member open, data/rec2.py — ``err``
   is a failed disk read, ``truncate`` reads a half-length view which the
   per-section CRCs must reject as a typed ``RecCorrupt``, never a crash
-  or a silent short read). The JAX package's other points are listed in
-  ROADMAP.md (Queue 1, fault injection).
+  or a silent short read); ``store.demote`` (a cold-tier demotion batch,
+  capacity/tier.py — fired before the device fetch, so a refused demote
+  leaves every victim resident and serving); ``store.promote`` (a
+  cold-tier promotion batch — fired before the scatter; the missing
+  slots stay cold and read zeros for this batch only); ``wal.append``
+  (sealing one write-ahead window, durability/wal.py — ``err`` fails the
+  write and the learner keeps the window for the next flush,
+  ``truncate`` lands a torn segment at its final name that replay's CRCs
+  reject as a typed ``WalCorrupt``, ``kill`` dies before any byte
+  lands); ``wal.replay`` (reading one segment at recovery — ``err`` and
+  ``truncate`` stop replay typed at the verified prefix);
+  ``replica.push`` (one file copy of the async peer push,
+  durability/replicate.py — ``err`` fails the copy, counted, and the
+  scrub pushes it again; ``truncate`` lands a torn copy the scrub
+  catches); ``replica.fetch`` (one file copy of a recovery fetch —
+  ``err`` is a dead peer, and the ladder tries the next). The tier's
+  points pass a returned kind to :func:`act_default` (``kill`` dies,
+  ``truncate``/``close`` refuse the move), where the JAX package drops
+  it. The JAX package's other points are listed in ROADMAP.md (Queue 1,
+  fault injection).
 - ``kind`` — what happens when the fault fires:
     - ``err``      raise :class:`FaultInjected` (an OSError, so IO call
                    sites treat it exactly like a real IO failure);

@@ -21,7 +21,7 @@ import json
 import logging
 import re
 import zipfile
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -228,13 +228,19 @@ def generation_paths(uri: str) -> List[str]:
     return [p for _, p in _family_manifests(uri)]
 
 
-def prune_checkpoints(model_prefix: str, keep: int) -> List[str]:
+def prune_checkpoints(model_prefix: str, keep: int,
+                      protect: Optional[Iterable[int]] = None
+                      ) -> List[str]:
     """Retire the interval checkpoints (``_iter-k`` files and their
     manifests) of ``model_prefix``'s family older than the newest
     ``keep`` epochs; the final undecorated model is never a candidate.
-    Returns the removed checkpoint paths."""
+    ``protect`` exempts epochs whatever their age (the base a live WAL
+    chain is rooted at, an epoch a replica push is still copying); they
+    take none of the ``keep`` places. Returns the removed checkpoint
+    paths."""
     if keep <= 0:
         return []
+    protected = frozenset(int(e) for e in (protect or ()))
     fam = family_prefix(model_prefix)
     by_epoch: Dict[int, List[str]] = {}
     for path in stream.glob(fam + "_iter-*"):
@@ -246,6 +252,8 @@ def prune_checkpoints(model_prefix: str, keep: int) -> List[str]:
         by_epoch.setdefault(int(m.group(1)), []).append(path)
     removed = []
     for epoch in sorted(by_epoch)[:-keep]:
+        if epoch in protected:
+            continue
         for path in by_epoch[epoch]:
             for p in (path, manifest_path(path)):
                 try:

@@ -8,7 +8,10 @@ one through the dictionary store's growth and the replay cache that also
 equals its run on the plain versions; the device dedup of raw tokens
 (equal to the CPU's), and streamed runs where ``device_dedup`` and the
 process producers leave the host-dedup, thread-producer table bit for
-bit.
+bit; the cold tier's promotes and demotes (the two kernels at the tier's
+padded sizes) leaving the CPU's table and residency bit for bit, a tiered
+run that repeats and equals its run on the plain versions, and the WAL's
+row round trip and a WAL-on run equal to the WAL-off one.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -469,3 +472,110 @@ def test_batch_learners_on_the_card_repeat_and_track_the_cpu(cuda, learner,
         else:
             assert abs(a.objv - c.objv) <= 1e-5 * abs(c.objv) + 1e-6
         assert abs(a.auc - c.auc) <= 1e-5 * abs(c.auc)
+
+
+def _card_and_cpu(cuda, **kw):
+    """The same store on the CPU and on the card: the card's table starts
+    as a copy of the CPU's (the two generators draw different streams)."""
+    from difacto_tpu_torch.store.local import SlotStore
+    base = dict(hash_capacity=4096, V_dim=16, V_threshold=0, lr=0.1,
+                V_lr=0.1)
+    base.update(kw)
+    p, rest = T.SGDUpdaterParam.init_allow_unknown(
+        [(k, str(v)) for k, v in base.items()])
+    assert rest == []
+    cpu = SlotStore(p, device="cpu")
+    card = SlotStore(p, device="cuda", init=lambda C: T.SGDState(
+        *(a.to(cuda) for a in cpu.state)))
+    return cpu, card
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "fp8"])
+def test_tier_churn_on_the_card_equals_the_cpu(cuda, kind):
+    """Batches of 1,500 slots over a 1,024-row device table: the card's
+    promotes (the scatter kernel, epilogue off) and demotes (the gather
+    kernel) leave the CPU tier's residency, host rows and table bit for
+    bit."""
+    cpu, card = _card_and_cpu(cuda, slot_dtype=kind, cold_tier_rows=3072)
+    rng = np.random.default_rng(1)
+    g0 = fused.gather_rows_cuda.launches
+    s0 = fused.scatter_rows_cuda.launches
+    for _ in range(6):
+        v = np.sort(rng.choice(np.arange(1, 4096), 700, replace=False))
+        v = np.concatenate([v, 4096 + np.arange(68)]).astype(np.int32)
+        for a, b in zip(cpu.tier.route(v), card.tier.route(v)):
+            np.testing.assert_array_equal(a, b)
+    torch.cuda.synchronize()
+    t = card.tier
+    assert fused.gather_rows_cuda.launches - g0 == t.calls["demote"] > 0
+    assert fused.scatter_rows_cuda.launches - s0 == t.calls["promote"] > 0
+    for name in ("_resident", "_owner", "_clock"):
+        np.testing.assert_array_equal(getattr(cpu.tier, name),
+                                      getattr(t, name))
+    assert sorted(cpu.tier._rows) == sorted(t._rows)
+    assert all(cpu.tier._rows[s].tobytes() == t._rows[s].tobytes()
+               for s in t._rows)
+    assert torch.equal(card.state.VVg.cpu().view(torch.int8),
+                       cpu.state.VVg.view(torch.int8))
+
+
+def test_tiered_run_on_the_card_repeats_and_equals_plain(cuda, criteo_file):
+    """A streamed run with the cold tier, admission and eviction on the
+    card: twice the same table, and the same on the plain versions."""
+    extra = (("cold_tier_rows", "49152"), ("admit_min_count", "2"),
+             ("evict_occupancy", "0.05"), ("num_producers", "2"),
+             ("producer_mode", "thread"))
+    t1, _ = _stream_run(cuda, criteo_file, *extra)
+    t2, _ = _stream_run(cuda, criteo_file, *extra)
+    saved = (fused.gather_rows, fused.scatter_rows, fused.fm_update_rows)
+    fused.gather_rows = fused.gather_rows_ref
+    fused.scatter_rows = fused.scatter_rows_ref
+    fused.fm_update_rows = (lambda table, slots, rows, gw, gV, vm, epi,
+                            epilogue: fused.fm_update_rows_ref(
+                                table, slots, rows, gw, gV, vm, epilogue))
+    try:
+        t3, _ = _stream_run(cuda, criteo_file, *extra)
+    finally:
+        fused.gather_rows, fused.scatter_rows, fused.fm_update_rows = saved
+    assert t1.shape[0] == 65536 - 49152
+    assert torch.equal(t1, t2) and torch.equal(t1, t3)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+def test_wal_round_trip_on_the_card(cuda, tmp_path, kind):
+    """Rows the card's gather logs, through a segment on disk, land by the
+    card's scatter (and by the CPU's) as the same bytes."""
+    from difacto_tpu_torch.durability import wal
+    cpu, card = _card_and_cpu(cuda, slot_dtype=kind)
+    rng = np.random.default_rng(2)
+    bits = card.state.VVg.view(torch.int8)
+    bits.copy_(torch.randint(-128, 128, bits.shape, dtype=torch.int8,
+                             device=cuda))
+    slots = np.sort(rng.choice(np.arange(1, 4096), 1500, replace=False))
+    path = str(tmp_path / "s.dfwal")
+    wal.write_segment(path, card.wal_geometry(),
+                      {"slots": slots.astype(np.int32),
+                       **card.wal_touched_rows(slots)})
+    _, arrays = wal.read_segment(path)
+    got = arrays.pop("slots")
+    for store in (cpu, _card_and_cpu(cuda, slot_dtype=kind)[1]):
+        store.apply_wal_rows(got, dict(arrays))
+        want = card.state.VVg[torch.from_numpy(slots).to(cuda)]
+        have = store.state.VVg[torch.from_numpy(slots).to(
+            store.state.VVg.device)]
+        assert torch.equal(have.cpu().view(torch.int8),
+                           want.cpu().view(torch.int8))
+
+
+def test_wal_run_on_the_card_equals_wal_off(cuda, criteo_file, tmp_path):
+    """The WAL observes: a WAL-on streamed run on the card leaves the
+    WAL-off run's table bit for bit."""
+    off, _ = _stream_run(cuda, criteo_file, ("num_producers", "2"),
+                         ("producer_mode", "thread"))
+    on, _ = _stream_run(cuda, criteo_file, ("num_producers", "2"),
+                        ("producer_mode", "thread"),
+                        ("wal_flush_batches", "3"),
+                        ("model_out", str(tmp_path / "m")),
+                        ("ckpt_interval", "1"))
+    assert torch.equal(on, off)
+    assert os.listdir(str(tmp_path / "m.wal"))

@@ -16,6 +16,10 @@
 - The batch learners (BCD, L-BFGS, their tile cache and checkpoints) run
   there too, launch no kernel, and raise without a device on a box with
   no CUDA.
+- The capacity levers (admission on worker processes that still import
+  neither torch nor jax, the cold tier, eviction) and the durability legs
+  (the WAL with bf16 rows, replicas, the recovery ladder) run there too.
+``ml_dtypes`` is poisoned beside jax: the card machine need not have it.
 """
 
 import os
@@ -41,7 +45,7 @@ def test_port_imports_without_jax_or_reference_package():
         class Poison:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "difacto_tpu"):
+                if top in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
                     raise ImportError(f"poisoned import: {name}")
                 return None
 
@@ -52,7 +56,7 @@ def test_port_imports_without_jax_or_reference_package():
         for n in names:
             importlib.import_module(n)
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
         assert not bad, bad
         print(len(names))
     """)
@@ -163,7 +167,7 @@ def test_default_training_runs_with_jax_poisoned(tmp_path):
 
         class Poison:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
                     raise ImportError(f"poisoned import: {{name}}")
                 return None
 
@@ -186,7 +190,7 @@ def test_default_training_runs_with_jax_poisoned(tmp_path):
         assert main(["examples/local.conf", "device=cpu",
                      "max_num_epochs=2"]) == 0
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
         assert not bad, bad
         print("ok")
     """)
@@ -218,7 +222,7 @@ import sys
 
 class Poison:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
             raise ImportError(f"poisoned import: {name}")
         return None
 
@@ -233,6 +237,7 @@ def probe(spec, part):
     yield ("modules", sorted({m.split(".")[0] for m in sys.modules
                               if m.split(".")[0] in ("jax", "jaxlib",
                                                      "difacto_tpu",
+                                                     "ml_dtypes",
                                                      "torch")}))
 
 
@@ -245,6 +250,7 @@ def probe_convert(spec, part):
     yield ("modules", sorted({m.split(".")[0] for m in sys.modules
                               if m.split(".")[0] in ("jax", "jaxlib",
                                                      "difacto_tpu",
+                                                     "ml_dtypes",
                                                      "torch")}))
 '''
 
@@ -291,7 +297,7 @@ def test_spawned_producer_workers_import_no_jax(tmp_path):
             ln.run()
             assert ln.stage_stats()["producer_mode"] == "process"
             bad = [m for m in sys.modules
-                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
             assert not bad, bad
             print("ok")
     """)
@@ -370,7 +376,7 @@ def test_convert_cache_and_dump_run_with_jax_poisoned(tmp_path):
                          "name_dump={model}.tsv"]) == 0
             assert os.path.getsize({model + ".tsv"!r}) > 0
             bad = [m for m in sys.modules
-                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+                   if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
             assert not bad, bad
             print("ok")
     """)
@@ -396,7 +402,7 @@ def test_batch_learners_run_with_jax_poisoned_and_count_no_launch(
 
         class Poison:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
                     raise ImportError(f"poisoned import: {{name}}")
                 return None
 
@@ -415,7 +421,7 @@ def test_batch_learners_run_with_jax_poisoned_and_count_no_launch(
                 + fused.fm_update_rows_cuda.launches
                 + fused.scatter_rows_cuda.launches) == 0
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
         assert not bad, bad
         print("ok")
     """)
@@ -438,3 +444,80 @@ def test_batch_learner_without_device_raises_on_a_box_without_cuda(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Learner.create(learner).init([("data_in", _RCV1), ("V_dim", "0")])
     assert main([conf, "device=cpu", "max_num_epochs=1"]) == 0
+
+
+def test_capacity_and_durability_run_with_jax_poisoned(tmp_path):
+    """Admission on worker processes (which import neither torch nor jax),
+    the cold tier with eviction, then a bf16 table with the WAL and a peer
+    replica, resumed through the recovery ladder after a disk loss, in an
+    interpreter where jax, difacto_tpu and ml_dtypes cannot be imported;
+    no kernel launches on the CPU."""
+    from chip_smoke import synthetic_criteo
+    data = tmp_path / "criteo.txt"
+    data.write_bytes(synthetic_criteo(300, 9))
+    (tmp_path / "worker_probe.py").write_text(_PROBE)
+    code = textwrap.dedent(f"""
+        import functools, glob, json, os, shutil, sys
+        sys.path.insert(0, {str(tmp_path)!r})
+        import worker_probe  # poisons jax in this parent too
+        from difacto_tpu_torch.data.pack_stream import StreamSpec
+        from difacto_tpu_torch.data.producer_pool import ProcessProducerPool
+
+        if __name__ == "__main__":   # spawn re-runs this file in workers
+            from difacto_tpu_torch.learners.sgd import SGDLearner
+            from difacto_tpu_torch.ops import fused
+            spec = StreamSpec(parts=(0, 1), n_jobs=2, data_in={str(data)!r},
+                              data_format="criteo", batch_size=50,
+                              shuffle=10, neg_sampling=1.0, epoch=1,
+                              hash_capacity=4096, want_counts=False,
+                              fill_counts=False, dim_min=8, job="train",
+                              b_cap=56, admit_min_count=2, admit_seed=3)
+            got = [item for _, item in ProcessProducerPool(
+                2, functools.partial(worker_probe.probe, spec), n_workers=2,
+                slot_bytes=1 << 20, join_timeout=60.0)]
+            assert all(m == [] for k, m in got if k == "modules"), got
+            common = [("data_in", {str(data)!r}), ("data_format", "criteo"),
+                      ("V_dim", "4"), ("hash_capacity", "4096"),
+                      ("batch_size", "50"), ("num_jobs_per_epoch", "2"),
+                      ("max_num_epochs", "2"), ("report_interval", "0")]
+            ln = SGDLearner(device="cpu")
+            ln.init(common + [("cold_tier_rows", "2048"),
+                              ("admit_min_count", "2"),
+                              ("evict_occupancy", "0.2"),
+                              ("producer_mode", "process"),
+                              ("num_producers", "2")])
+            ln.run()
+            assert ln.store.tier.calls["evict"] > 0, ln.store.tier.calls
+            m = os.path.join({str(tmp_path)!r}, "m")
+            peer = os.path.join({str(tmp_path)!r}, "peer")
+            args = common + [("slot_dtype", "bf16"), ("model_out", m),
+                             ("wal_flush_batches", "2"),
+                             ("ckpt_interval", "1"), ("auto_resume", "1"),
+                             ("replica_peers", peer)]
+            ln = SGDLearner(device="cpu")
+            ln.init(args)
+            ln.run()
+            ref = open(m + "_part-0", "rb").read()
+            shutil.rmtree(m + ".wal")
+            for f in glob.glob(m + "*"):
+                os.remove(f)
+            ln = SGDLearner(device="cpu")
+            ln.init(args)
+            ln.run()
+            stamp = json.load(open(m + ".recovery.json"))
+            assert "peer" in stamp["rungs"], stamp
+            assert [c.launches for c in (fused.gather_rows_cuda,
+                                         fused.scatter_rows_cuda,
+                                         fused.fm_update_rows_cuda)] == [0] * 3
+            bad = [m for m in sys.modules if m.split(".")[0] in
+                   ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
+            assert not bad, bad
+            print("ok")
+    """)
+    script = tmp_path / "run_probe.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, str(script)], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"

@@ -311,7 +311,7 @@ def test_ring_round_trip_header_and_multi_item_slots():
         kind, info, payload = out
         assert kind == "ready" and isinstance(payload, Payload)
         assert payload.layout == "panel" and payload[3:] == (True, 2, 6, 8,
-                                                              0, None)
+                                                              0, None, None)
         np.testing.assert_array_equal(payload.i32, np.arange(12))
         np.testing.assert_array_equal(info.label, [1.0, 0.0])
         # zero-copy: the slot's bytes are the arrays' bytes
