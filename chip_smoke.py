@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--parent DIR]...
 
 Drives the port's serving and training paths (and the batch learners,
-phase 14, and the capacity tier and the durable training state, phase
-15) at the full width of examples/criteo_hashed.conf (FM, V_dim 16,
+phase 14, the capacity tier and the durable training state, phase 15,
+and the serve lifecycle and the online loop, phase 16) at the full width
+of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
 task=convert writes, and of examples/criteo_dict.conf (the
@@ -172,6 +173,35 @@ their plain PyTorch versions. Phases:
     ``peer`` and ``wal`` with ``0 < skip_batches <= 10``, the launches
     match the resumed steps and the replayed segments, and the run ends
     on (n)'s table bit for bit; the recovery's seconds are printed.
+16. the serve lifecycle and the online loop at the same width (a load
+    generator in its own interpreter, ``chip_smoke.loadgen``, drives the
+    server through ServeClients whose endpoint list starts with a dead
+    port): (p) a ServeServer over phase 3's model (the task=serve
+    defaults: batch 256, 2 ms, 1,024 queued rows; ``takeover`` on, a
+    ModelReloader attached): the highest closed-loop row rate it
+    sustains, then 50% of it offered open-loop: 10 s alone, a
+    same-geometry ``#reload`` of a second model, a blue/green ``#reload``
+    of a model at hash_capacity 2,097,152, ``run_takeover`` to a successor
+    ``python -m difacto_tpu_torch task=serve`` on the same card and port,
+    and a SIGTERM drain of the successor (exit 0). Every row answered
+    once, no ``!err``, each answer the pred column of the model then
+    serving; ``#metrics`` parses and agrees with ``#stats``;
+    model_generation 1, 2, 3, then 1 on the successor; the gathers equal
+    the dispatches plus the blue/green warm. Printed: the sustained rate,
+    p50 and p99 at 50% (client clock and #stats), each swap's wall time
+    and p99 inside it, the warm, the peak allocated memory, warm_s and
+    takeover_gap_ms, the drain. (q) a ServeServer with an OnlineLog
+    (1,000-row segments, ``label_delay_s`` 0.5, ``negative``) and an
+    OnlineTrainer thread on the card pushing each committed generation
+    (``online_ckpt_interval_s`` 2) as ``#reload``: >= 20,000 ``#score``
+    rows with ``#label`` behind every other one, until the served
+    generation advanced twice under load; after ``log.end``,
+    ``task=online online_replay=1`` in a subprocess leaves the online
+    final checkpoint byte for byte; the answers after the last reload
+    equal ``task=pred`` of it; the launches equal the predicts, the
+    training batches and segment 0's count pushes. Printed: a segment
+    pass, a checkpoint, each reload push, ``train_behind_serve_s`` and
+    ``online_rows_behind``.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -180,8 +210,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10, 12, 13 and 15, each counted from 0 just
-before its own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10, 12, 13, 15 and 16, each counted from 0
+just before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -196,10 +226,12 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -2712,6 +2744,749 @@ def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
             "sizes": sizes}
 
 
+# ------------------------------------------------------------ phase 16
+LIFE_CONNS = 4              # closed-loop connections of the rate probe
+LIFE_PROBE_S = 3.0          # seconds of the rate probe
+OPEN_CONNS = 16             # open-loop connections
+OPEN_TICK_S = 0.02          # each connection sends one window per tick
+OPEN_BASE_S = 10.0          # open-loop seconds before the first reload
+SETTLE_S = 3.0              # open-loop seconds after each event
+CHECK_ROWS = 2000           # rows checked against a pred column per swap
+ONLINE_ROWS = 20_000        # at least this many #score rows in (q)
+ONLINE_RATE = 1000.0        # rows/s the (q) client offers
+ONLINE_SEG = 1000           # rows per sealed segment
+STATS_WINDOW = 8192         # ServeStats' latency window
+
+
+def loadgen(spec_path: str) -> None:
+    """Phase 16's load generator, in an interpreter of its own so that its
+    threads never take the server's interpreter lock:
+    ``python3 -c 'import chip_smoke; chip_smoke.loadgen(SPEC)'``. The JSON
+    spec names the mode, the endpoint list, the rows file and the result
+    file:
+
+    - ``closed``: ``conns`` ServeClients, each sends pipelined windows of
+      ``window`` rows back to back for ``seconds``;
+    - ``open``: ``conns`` ServeClients share ``rate`` rows/s on a fixed
+      schedule (windows of ``window`` rows, each row's latency counted
+      from its scheduled time, so a late send is charged to the server)
+      until ``stop`` exists; a ``!shed`` row is sent again (a draining
+      replica sheds) and a dropped connection resends its unanswered
+      tail (ServeClient), so every row ends with exactly one answer;
+    - ``online``: one client sends ``#score <id> <row>`` for every row and
+      ``#label <id> <y>`` right behind it for every even id, ``rate``
+      rows/s, at least ``min_rows`` rows and then until ``stop`` exists.
+    Times are ``time.monotonic()``, one clock across the machine's
+    processes."""
+    from difacto_tpu_torch.serve.client import ServeClient
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with open(spec["rows"], "rb") as f:
+        rows = f.read().splitlines()
+    eps = [tuple(e) for e in spec["endpoints"]]
+    mode = spec["mode"]
+    out = {"mode": mode, "t0": time.monotonic()}
+
+    def client():
+        return ServeClient(endpoints=eps, retries=20, eject_after=3,
+                           backoff_s=0.01, reprobe_s=30.0,
+                           deadline_s=120.0)
+
+    if mode == "closed":
+        counts = [0] * spec["conns"]
+        bad = [0] * spec["conns"]
+        end = time.monotonic() + spec["seconds"]
+
+        def closed(k):
+            w, i = spec["window"], k * spec["window"]
+            with client() as c:
+                while time.monotonic() < end:
+                    got = c.score_lines([rows[(i + j) % len(rows)]
+                                         for j in range(w)])
+                    counts[k] += len(got)
+                    bad[k] += sum(g.startswith(b"!") for g in got)
+                    i += w * spec["conns"]
+
+        ts = [threading.Thread(target=closed, args=(k,))
+              for k in range(spec["conns"])]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        out.update(rows=sum(counts), bad=sum(bad),
+                   seconds=time.monotonic() - out["t0"])
+    elif mode == "open":
+        K, w = spec["conns"], spec["window"]
+        per_s = spec["rate"] / K
+        recs = [[] for _ in range(K)]
+        resent = [0] * K
+        failovers = [0] * K
+        t_start = time.monotonic() + 0.2
+
+        def open_loop(k):
+            with client() as c:
+                n = 0
+                while not os.path.exists(spec["stop"]):
+                    sched = t_start + n * w / per_s
+                    delay = sched - time.monotonic()
+                    if delay > 0:
+                        time.sleep(delay)
+                    idx = [((n * w + j) * K + k) % len(rows)
+                           for j in range(w)]
+                    todo = list(range(w))
+                    reply = [None] * w
+                    t_send = time.monotonic()
+                    while todo:
+                        got = c.score_lines([rows[idx[j]] for j in todo])
+                        again = []
+                        for j, g in zip(todo, got):
+                            if g.startswith(b"!shed"):
+                                again.append(j)
+                            else:
+                                reply[j] = g
+                        resent[k] += len(again)
+                        todo = again
+                        if todo:
+                            time.sleep(0.005)
+                    t_recv = time.monotonic()
+                    recs[k].extend((idx[j], sched, t_send, t_recv,
+                                    reply[j].decode()) for j in range(w))
+                    n += 1
+                failovers[k] = c.failovers
+
+        ts = [threading.Thread(target=open_loop, args=(k,))
+              for k in range(K)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        flat = [r for rs in recs for r in rs]
+        out.update(idx=[r[0] for r in flat], sched=[r[1] for r in flat],
+                   send=[r[2] for r in flat], recv=[r[3] for r in flat],
+                   reply=[r[4] for r in flat], resent=sum(resent),
+                   failovers=sum(failovers))
+    elif mode == "online":
+        w = 50
+        sent = acked = labels = err = 0
+        t_start = time.monotonic()
+        with client() as c:
+            n = 0
+            while (sent < spec["min_rows"]
+                   or not os.path.exists(spec["stop"])):
+                sched = t_start + n * w / spec["rate"]
+                delay = sched - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                lines = []
+                for j in range(sent, sent + w):
+                    row = rows[j % len(rows)]
+                    lines.append(b"#score %d %s" % (j, row))
+                    if j % 2 == 0:
+                        lines.append(b"#label %d %s"
+                                     % (j, row.split(b"\t", 1)[0]))
+                for ln, g in zip(lines, c.score_lines(lines)):
+                    if ln.startswith(b"#label"):
+                        labels += 1
+                        acked += (not g.startswith(b"!")
+                                  and json.loads(g)["ok"])
+                        err += g.startswith(b"!")
+                    else:
+                        err += g.startswith(b"!")
+                sent += w
+                n += 1
+        out.update(sent=sent, labels=labels, acked=acked, err=err)
+    out["t1"] = time.monotonic()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def _start_loadgen(work: str, name: str, **spec):
+    """Start ``loadgen`` in its own interpreter; returns (process, the
+    result file, the stop file)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec.update(out=os.path.join(work, f"{name}.json"),
+                stop=os.path.join(work, f"{name}.stop"))
+    path = os.path.join(work, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("DIFACTO_FAULTS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.loadgen({path!r})"],
+        cwd=root, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(os.path.join(work, f"{name}.log"), "wb"))
+    return proc, spec["out"], spec["stop"]
+
+
+def _finish_loadgen(work, name, proc, out, stop, timeout=120) -> dict:
+    with open(stop, "w"):
+        pass
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            tail = f.read()[-3000:].decode("utf-8", "replace")
+        raise AssertionError(f"loadgen {name} exited {rc}:\n{tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _pred_column(work: str, name: str, conf: list, param, seed: int
+                 ) -> tuple:
+    """Save a seeded synthetic model of ``param``'s geometry and score
+    phase 3's rows with ``task=pred``: (model prefix, its probability
+    column)."""
+    import torch
+    from difacto_tpu_torch.store.convert import state_from_numpy
+    from difacto_tpu_torch.store.local import SlotStore
+    model = os.path.join(work, name)
+    writer = SlotStore(param, device=DEV)
+    writer.state = state_from_numpy(
+        param, synthetic_model(param.hash_capacity, param.V_dim, seed),
+        device=DEV)
+    writer.save(model + "_part-0")
+    del writer
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return model, _pred_of(work, name, conf, model)
+
+
+def _pred_of(work: str, name: str, conf: list, model: str) -> list:
+    from difacto_tpu_torch.__main__ import run_pred
+    pred = os.path.join(work, f"{name}_pred")
+    run_pred(conf + [("model_in", model),
+                     ("data_in", os.path.join(work, "criteo.txt")),
+                     ("pred_out", pred)], device=DEV)
+    with open(pred + "_part-0", "rb") as f:
+        return [l.split(b"\t")[1] for l in f.read().splitlines()]
+
+
+def _score_all(c, rows: list) -> list:
+    """Every row's answer through client ``c`` in 256-row windows, a
+    ``!shed`` row sent again (the queue holds 1,024 rows and the open loop
+    shares it)."""
+    out = []
+    for i in range(0, len(rows), 256):
+        part = rows[i:i + 256]
+        got = c.score_lines(part)
+        for _ in range(1000):
+            todo = [j for j, g in enumerate(got) if g.startswith(b"!shed")]
+            if not todo:
+                break
+            time.sleep(0.005)
+            for j, g in zip(todo, c.score_lines([part[j] for j in todo])):
+                got[j] = g
+        out.extend(got)
+    return out
+
+
+def _warm_ms(store, caps, keys, workers: int) -> float:
+    """Milliseconds to warm ``keys`` on a fresh executor over ``store``
+    with ``workers`` threads (the blue/green warm of serve/reload.py)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from difacto_tpu_torch.serve import PredictExecutor
+    ex = PredictExecutor(store)
+    ex.seed_caps(caps)
+    t = time.monotonic()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(ex.warm_bucket, keys))
+    return (time.monotonic() - t) * 1e3
+
+
+def _pct(a, q) -> float:
+    return float(np.percentile(np.asarray(a), q) * 1e3) if len(a) else \
+        float("nan")
+
+
+def _metrics_agree(text: str, stats: dict) -> str:
+    """Each latency quantile ``#metrics`` derives lies in the histogram
+    bucket that holds the exact percentile ``#stats`` reports (both over
+    the same responses); returns the compared values."""
+    from difacto_tpu_torch.obs import DEFAULT_BOUNDS
+    bounds = (0.0,) + tuple(DEFAULT_BOUNDS)
+    vals = {}
+    for ln in text.splitlines():
+        if ln.startswith("difacto_serve_latency_seconds_quantile{"):
+            q = float(ln.split('quantile="')[1].split('"')[0])
+            vals[q] = float(ln.split()[-1])
+        elif not ln.startswith("#") and len(ln.split()) != 2:
+            raise AssertionError(f"#metrics line does not parse: {ln!r}")
+    shown = []
+    for q, key in ((0.5, "p50_ms"), (0.95, "p95_ms"), (0.99, "p99_ms")):
+        exact = stats[key] / 1e3
+        i = int(np.searchsorted(bounds, exact))
+        lo, hi = bounds[max(i - 1, 0)], bounds[min(i, len(bounds) - 1)]
+        if not lo <= vals[q] <= hi:
+            raise AssertionError(f"#metrics p{q * 100:g} {vals[q]} s is "
+                                 f"outside [{lo}, {hi}] s around #stats "
+                                 f"{exact} s")
+        shown.append(f"p{q * 100:g} {vals[q] * 1e3:.3f} vs "
+                     f"{stats[key]:.3f} ms")
+    return ", ".join(shown)
+
+
+def phase_lifecycle(work: str, conf: list, uparam, lines: list,
+                    smi: str) -> dict:
+    """Phase 16 (p): the serve lifecycle at the full width of
+    examples/criteo_hashed.conf. A ServeServer (batch 256, 2 ms, queue
+    1,024 rows: the task=serve defaults) over phase 3's model with
+    ``takeover`` on and a ModelReloader; a load generator in its own
+    interpreter drives it through ServeClients whose endpoint list starts
+    with a dead port. First the highest row rate it sustains
+    (closed-loop, 4 connections x 256-row windows), then 50% of it
+    offered open-loop on 16 connections (one window every 20 ms each):
+    10 s alone, then a same-geometry
+    ``#reload`` of a second model, then a ``#reload`` of a model at
+    hash_capacity 2,097,152 (blue/green), then ``run_takeover`` to a
+    successor ``python -m difacto_tpu_torch task=serve`` on the same card
+    and port, then a SIGTERM drain of the successor (exit 0). No ``!err``
+    and one answer per row; every answer is its row's ``task=pred`` column
+    of the model then serving (either model's inside a swap); #metrics
+    parses and its quantiles agree with #stats; model_generation goes 1,
+    2, 3 and then 1 on the successor; the gather launches equal the
+    executors' dispatches plus the blue/green warm's."""
+    import dataclasses
+
+    import torch
+    from difacto_tpu_torch.serve import (ModelReloader, PredictExecutor,
+                                         ServeClient, ServeServer,
+                                         open_serving_store, run_takeover)
+    from difacto_tpu_torch.serve.fleet import spawn_successor
+    from difacto_tpu_torch.store.local import SlotStore
+    t_phase = time.monotonic()
+    C = uparam.hash_capacity
+    rows_file = os.path.join(work, "criteo.txt")
+    with open(rows_file, "rb") as f:
+        rows = f.read().splitlines()
+    model_a = os.path.join(work, "model")
+    col_a = [l.split(b"\t")[1] for l in lines]
+    model_b, col_b = _pred_column(work, "life_b", conf, uparam, SEED + 16)
+    param_g = dataclasses.replace(uparam, hash_capacity=C // 2)
+    model_g, col_g = _pred_column(work, "life_g", conf, param_g, SEED + 17)
+    for name, col in (("b", col_b), ("g", col_g)):
+        if sum(x != y for x, y in zip(col_a, col)) < len(col_a) // 2:
+            raise AssertionError(f"model {name} answers like phase 3's")
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip() \
+        if DEV == "cuda" else "no card"
+    log(f"  compute mode {mode!r}; models b (same geometry) and g "
+        f"(hash_capacity {C // 2}) saved and scored in "
+        f"{time.monotonic() - t_phase:.1f} s [{smi}]")
+
+    store, _, _ = open_serving_store(model_a, device=DEV)
+    srv = ServeServer(store, data_format="criteo", takeover=True).start()
+    del store
+    srv.reloader = ModelReloader(srv.executor, model_a, server=srv)
+    blue = srv.executor
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()
+    eps = [("127.0.0.1", dead_port), (srv.host, srv.port)]
+    check = rows[:CHECK_ROWS]
+    procs, box = [], {}
+    # the server's side of each window: every predict's start and
+    # seconds, and each store load's seconds
+    predicts = []
+    pred_orig = PredictExecutor.predict
+
+    def timed_predict(self, blk):
+        t = time.monotonic()
+        try:
+            return pred_orig(self, blk)
+        finally:
+            predicts.append((t, time.monotonic() - t))
+
+    PredictExecutor.predict = timed_predict
+    loads, restore_loads = _timing(SlotStore, ["load"])
+    _reset_counts()
+    try:
+        with ServeClient(endpoints=eps, retries=5, eject_after=1,
+                         reprobe_s=300.0) as c:
+            if c.failovers < 1 or c.port != srv.port:
+                raise AssertionError("the client never failed over past "
+                                     "the dead port")
+            if _score_all(c, check) != col_a[:CHECK_ROWS]:
+                raise AssertionError("answers differ from phase 3's pred")
+            g, o, s = _start_loadgen(work, "probe", mode="closed",
+                                     endpoints=eps, rows=rows_file,
+                                     conns=LIFE_CONNS, window=256,
+                                     seconds=LIFE_PROBE_S)
+            procs.append(g)
+            probe = _finish_loadgen(work, "probe", g, o, s)
+            if probe["bad"]:
+                raise AssertionError(f"rate probe: {probe['bad']} rows "
+                                     "answered !err or !shed")
+            rate_max = probe["rows"] / probe["seconds"]
+            rate = 0.5 * rate_max
+            window = max(1, int(round(rate / OPEN_CONNS * OPEN_TICK_S)))
+            log(f"  sustained {rate_max:.0f} rows/s closed-loop "
+                f"({LIFE_CONNS} connections x 256-row windows, "
+                f"{probe['seconds']:.1f} s); offering {rate:.0f} rows/s "
+                f"open-loop on {OPEN_CONNS} connections, {window}-row "
+                f"windows [{smi}]")
+            g, o, s = _start_loadgen(work, "open", mode="open",
+                                     endpoints=eps, rows=rows_file,
+                                     conns=OPEN_CONNS, window=window,
+                                     rate=rate)
+            procs.append(g)
+            time.sleep(OPEN_BASE_S)
+            t_base = time.monotonic()
+            st_base = c.stats()
+            base = _peak_reset()
+            ev = {}
+            for name, model, want in (("reload", model_b, col_b),
+                                      ("bluegreen", model_g, col_g)):
+                t0 = time.monotonic()
+                res = c.reload(model)
+                t1 = time.monotonic()
+                if not res.get("ok"):
+                    raise AssertionError(f"{name}: {res}")
+                ev[name] = (t0, t1, res["model_generation"])
+                if _score_all(c, check) != want[:CHECK_ROWS]:
+                    raise AssertionError(f"answers after the {name} differ "
+                                         "from the pred column")
+                time.sleep(SETTLE_S)
+            st = c.stats()
+            green = srv.executor
+            if green is blue or st["bluegreen_swaps"] != 1 \
+                    or [ev[n][2] for n in ev] != [2, 3]:
+                raise AssertionError(f"swaps: {st}, {ev}")
+            # blue and its table go once the last reference does
+            blue_dispatches = blue.stats()["dispatches"]
+            del blue
+            gc.collect()
+            peak = (torch.cuda.max_memory_allocated() - base
+                    if DEV == "cuda" else 0)
+            held = (torch.cuda.memory_allocated() - base
+                    if DEV == "cuda" else 0)
+            # phase 3's table was resident at the start, g's (half its
+            # rows) is now: allocated memory fell by g's table
+            table = green.store.state.VVg
+            g_bytes = table.numel() * table.element_size()
+            del table
+            if DEV == "cuda" and held > -g_bytes + (256 << 20):
+                raise AssertionError(
+                    f"{held / 2 ** 30:.3f} GiB more allocated after the "
+                    "swaps than before: an old table was not freed")
+
+            def spawn(ready_file):
+                box["proc"] = spawn_successor(
+                    model_g, srv.port, ready_file, ["data_format=criteo"],
+                    host=srv.host, device=DEV)
+                return box["proc"]
+
+            tk0 = time.monotonic()
+            rep = run_takeover(srv.host, srv.port, spawn_fn=spawn,
+                               wait_s=600.0)
+            tk1 = time.monotonic()
+        lg = _finish_loadgen(work, "open", g, o, s)
+        t_stop = time.monotonic()
+        deadline = time.monotonic() + 60
+        while not srv._is_closed():
+            if time.monotonic() > deadline:
+                raise AssertionError("the incumbent never drained")
+            time.sleep(0.05)
+        counts = _counts()
+        gathers = (blue_dispatches + green.stats()["dispatches"]
+                   + green._warmed)
+        with ServeClient(srv.host, srv.port) as c2:
+            if _score_all(c2, check) != col_g[:CHECK_ROWS]:
+                raise AssertionError("the successor's answers differ from "
+                                     "the pred column")
+            h = c2.health()
+            st2 = c2.stats()
+            if st2["responses"] > STATS_WINDOW:
+                raise AssertionError(f"the successor answered "
+                                     f"{st2['responses']} rows, more than "
+                                     "#stats' window")
+            agree = _metrics_agree(c2.metrics(), st2)
+        if h["server_id"] != rep["successor"] or h["model_generation"] != 1:
+            raise AssertionError(f"successor health {h}, report {rep}")
+        proc = box["proc"]
+        t2 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        drain_s = time.monotonic() - t2
+        if rc != 0:
+            raise AssertionError(f"the successor exited {rc} on SIGTERM")
+    finally:
+        PredictExecutor.predict = pred_orig
+        restore_loads()
+        for p in procs + ([box["proc"]] if "proc" in box else []):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        srv.close()
+    # every row answered once, by the model then serving
+    idx = np.asarray(lg["idx"])
+    send, recv = np.asarray(lg["send"]), np.asarray(lg["recv"])
+    lat = recv - np.asarray(lg["sched"])
+    reply = [r.encode() for r in lg["reply"]]
+    bad = [r for r in reply if r.startswith(b"!")]
+    if bad:
+        raise AssertionError(f"{len(bad)} open-loop rows answered {bad[0]}")
+    # the model a row met is the one serving when its batch was scored,
+    # between its send and its answer: A until the first swap committed,
+    # B between the two swaps, G after the second
+    (rb0, rb1, _), (bg0, bg1, _) = ev["reload"], ev["bluegreen"]
+    for i, (k, r) in enumerate(zip(idx, reply)):
+        allowed = ({col_a[k]} if send[i] < rb1 else set()) \
+            | ({col_b[k]} if send[i] < bg1 and recv[i] > rb0 else set()) \
+            | ({col_g[k]} if recv[i] > bg0 else set())
+        if r not in allowed:
+            raise AssertionError(f"open-loop row {k} sent {send[i]:.3f} "
+                                 f"answered {r!r}, not the serving "
+                                 "model's pred")
+
+    def sel(lo, hi):
+        return lat[(send >= lo) & (send < hi)]
+
+    # the baseline: the second half of the open loop before any event
+    base_l, rb_l, bg_l = (sel(t_base - OPEN_BASE_S / 2, t_base),
+                          sel(rb0, rb1),
+                          sel(bg0, bg1))
+    to_l = sel(tk0, tk1)
+    pt = np.asarray([t for t, _ in predicts])
+    pd = np.asarray([x for _, x in predicts])
+
+    def server_side(lo, hi):
+        d = pd[(pt >= lo) & (pt < hi)]
+        return (f"{len(d)} predicts, median {_pct(d, 50):.3f} ms, max "
+                f"{_pct(d, 100):.3f} ms" if len(d) else "no predict")
+
+    out = {
+        "rate_max": rate_max, "rate": rate, "rows": len(idx),
+        "p50": _pct(base_l, 50), "p99": _pct(base_l, 99),
+        "stats_p50": st_base.get("p50_ms"), "stats_p99":
+            st_base.get("p99_ms"),
+        "reload_s": rb1 - rb0, "reload_p99": _pct(rb_l, 99),
+        "bluegreen_s": bg1 - bg0, "bluegreen_p99": _pct(bg_l, 99),
+        "warm_ms": st["last_warm_ms"], "peak_gib": peak / 2 ** 30,
+        "held_gib": held / 2 ** 30, "warm_s": rep["warm_s"],
+        "gap_ms": rep["takeover_gap_ms"], "takeover_p99": _pct(to_l, 99),
+        "drain_s": drain_s, "launches": counts}
+    if counts["gather_rows_cuda"] != gathers or \
+            counts["fm_update_rows_cuda"] or counts["scatter_rows_cuda"]:
+        raise AssertionError(f"phase 16 (p) launches {counts}, want "
+                             f"{gathers} gathers (dispatches + warm) and "
+                             "no push")
+    # does warm_workers gain anything? green's warm set again, on 1 and
+    # on 4 threads in turns (measurement launches, after the count)
+    caps, keys = green.warm_set()
+    warm = {1: [], 4: []}
+    for workers in (1, 4, 4, 1):
+        warm[workers].append(_warm_ms(green.store, caps, keys, workers))
+    log(f"  open loop at {rate:.0f} rows/s: {len(idx)} rows, every one "
+        f"answered once ({lg['resent']} shed rows sent again, "
+        f"{lg['failovers']} client failovers), no !err; baseline p50 "
+        f"{out['p50']:.3f} ms p99 {out['p99']:.3f} ms on the client's "
+        f"clock, #stats p50 {out['stats_p50']} ms p99 {out['stats_p99']} ms"
+        f" [{smi}]")
+    log(f"  the server's predicts: baseline "
+        f"{server_side(t_base - OPEN_BASE_S / 2, t_base)}; inside the "
+        f"same-geometry reload {server_side(rb0, rb1)}; inside the "
+        f"blue/green {server_side(bg0, bg1)}; inside the takeover "
+        f"{server_side(tk0, tk1)}; store loads "
+        f"{loads['load'][0]:.3f} s over {loads['load'][1]} [{smi}]")
+    log(f"  same-geometry #reload (swap_store): {out['reload_s']:.3f} s, "
+        f"p99 inside it {out['reload_p99']:.3f} ms; blue/green #reload to "
+        f"hash_capacity {C // 2}: {out['bluegreen_s']:.3f} s, warm "
+        f"{out['warm_ms']:.3f} ms over {green._warmed} buckets, p99 inside "
+        f"it {out['bluegreen_p99']:.3f} ms; peak allocated across both "
+        f"{out['peak_gib']:.3f} GiB above the start, "
+        f"{out['held_gib']:+.3f} GiB allocated after than before (the 2 "
+        f"GiB tables freed, the 1 GiB one held); the same warm set again "
+        f"on 1 thread {', '.join(f'{x:.3f}' for x in warm[1])} ms, on 4 "
+        f"{', '.join(f'{x:.3f}' for x in warm[4])} ms [{smi}]")
+    log(f"  takeover: successor {rep['successor']} (pid {h['pid']}) ready "
+        f"after warm_s {rep['warm_s']} s, takeover_gap_ms "
+        f"{rep['takeover_gap_ms']}, p99 inside the takeover "
+        f"{out['takeover_p99']:.3f} ms; #metrics vs #stats on the "
+        f"successor: {agree}; SIGTERM drained it in {drain_s:.3f} s, "
+        f"exit 0; generations 1 -> 2 -> 3, successor 1; launches "
+        f"{counts} = dispatches + warm [{smi}]")
+    log(f"phase 16 (p) ok in {time.monotonic() - t_phase:.1f} s: reload, "
+        "blue/green, takeover and drain under open-loop load")
+    return out
+
+
+def phase_online(work: str, conf: list, uparam, smi: str) -> dict:
+    """Phase 16 (q): the online loop at the same width. A ServeServer
+    over phase 3's model with an OnlineLog (1,000-row segments,
+    ``label_delay_s`` 0.5, ``negative`` default) and a ModelReloader on
+    the trainer's ``model_out``; an OnlineTrainer thread on the card
+    (batch 1,000, ``online_ckpt_interval_s`` 2, ``online_endpoints`` the
+    server). A client offers >= 20,000 of phase 3's rows as ``#score`` at
+    1,000 rows/s, with ``#label`` behind every other one, until the served
+    generation has advanced twice. After ``log.end`` the trainer drains;
+    ``python -m difacto_tpu_torch task=online online_replay=1`` over the
+    same log leaves the online final checkpoint array for array, byte for
+    byte; the served answers after the last reload equal ``task=pred`` of
+    the final checkpoint; the launches equal the server's dispatches plus
+    one gather and one push per training batch and one gather and one
+    count push per batch of segment 0."""
+    from difacto_tpu_torch.obs import REGISTRY
+    from difacto_tpu_torch.online import OnlineLog, OnlineParam, \
+        OnlineTrainer
+    from difacto_tpu_torch.online import loop as online_loop
+    from difacto_tpu_torch.online.log import read_index
+    from difacto_tpu_torch.serve import (ModelReloader, ServeClient,
+                                         ServeServer, open_serving_store)
+    t_phase = time.monotonic()
+    d = os.path.join(work, "online")
+    log_dir, model = os.path.join(d, "olog"), os.path.join(d, "model")
+    rows_file = os.path.join(work, "criteo.txt")
+    with open(rows_file, "rb") as f:
+        check = f.read().splitlines()[:CHECK_ROWS]
+    olog = OnlineLog(log_dir, segment_rows=ONLINE_SEG, label_delay_s=0.5,
+                     label_default="negative")
+    store, _, _ = open_serving_store(os.path.join(work, "model"),
+                                     device=DEV)
+    srv = ServeServer(store, data_format="criteo", online_log=olog).start()
+    del store
+    srv.reloader = ModelReloader(srv.executor, model, server=srv)
+    ex = srv.executor
+    learn = conf + [("model_out", model), ("has_aux", "1"),
+                    ("num_producers", "1"), ("producer_mode", "thread")]
+    tr = OnlineTrainer(OnlineParam(
+        online_log_dir=log_dir, online_ckpt_interval_s=2.0,
+        online_endpoints=f"{srv.host}:{srv.port}"), learn, device=DEV)
+    ln = tr.learner
+    seg_s, saves, pushes = [], [], []
+    run_epoch, save_ckpt = ln._run_epoch, ln._save_checkpoint
+    push = online_loop.push_reload
+
+    def timed_epoch(*a):
+        t = time.perf_counter()
+        run_epoch(*a)
+        sync()
+        seg_s.append(time.perf_counter() - t)
+
+    def timed_save(*a):
+        t = time.perf_counter()
+        save_ckpt(*a)
+        saves.append(time.perf_counter() - t)
+
+    def timed_push(*a, **kw):
+        t = time.monotonic()
+        res = push(*a, **kw)
+        pushes.append((t, time.monotonic(), ex.generation, res))
+        return res
+
+    ln._run_epoch, ln._save_checkpoint = timed_epoch, timed_save
+    online_loop.push_reload = timed_push
+    behind, stop_mon = [], threading.Event()
+
+    def monitor():
+        while not stop_mon.wait(0.25):
+            behind.append((REGISTRY.value("train_behind_serve_s"),
+                           REGISTRY.value("online_rows_behind")))
+
+    res = {}
+    tt = threading.Thread(target=lambda: res.update(trained=tr.run()))
+    mon = threading.Thread(target=monitor)
+    g = None
+    _reset_counts()
+    try:
+        tt.start()
+        mon.start()
+        g, o, s = _start_loadgen(work, "online", mode="online",
+                                 endpoints=[(srv.host, srv.port)],
+                                 rows=rows_file, rate=ONLINE_RATE,
+                                 min_rows=ONLINE_ROWS)
+        deadline = time.monotonic() + 240
+        while ex.generation < 3:
+            if time.monotonic() > deadline or not tt.is_alive():
+                raise AssertionError(f"the served generation reached only "
+                                     f"{ex.generation} under load")
+            time.sleep(0.1)
+        lg = _finish_loadgen(work, "online", g, o, s)
+        time.sleep(0.6)             # past the last label horizon
+        olog.end()
+        tt.join(timeout=600)
+        if tt.is_alive():
+            raise AssertionError("the trainer never drained the log")
+        stop_mon.set()
+        mon.join()
+        counts = _counts()
+        st = ex.stats()
+        with ServeClient(srv.host, srv.port) as c:
+            answers = _score_all(c, check)
+    finally:
+        tr.stop()
+        stop_mon.set()
+        online_loop.push_reload = push
+        if g is not None and g.poll() is None:
+            g.kill()
+            g.wait()
+        srv.close()
+    if lg["err"] or lg["acked"] != lg["labels"]:
+        raise AssertionError(f"online client: {lg}")
+    if srv.stats_snapshot()["bluegreen_swaps"] or srv.executor is not ex:
+        raise AssertionError("the online loop swapped executors")
+    under = sum(1 for t0, t1, _, r in pushes
+                if r["ok"] and t1 <= lg["t1"])
+    if under < 2:
+        raise AssertionError(f"{under} generation(s) landed under load")
+    idx = read_index(log_dir)
+    bs = int(dict(conf)["batch_size"])
+    n_batches = sum(-(-e["rows"] // bs) for e in idx)
+    seg0 = -(-idx[0]["rows"] // bs)
+    want = {"gather_rows_cuda": st["dispatches"] + n_batches + seg0,
+            "fm_update_rows_cuda": n_batches, "scatter_rows_cuda": seg0}
+    if counts != want:
+        raise AssertionError(f"phase 16 (q) launches {counts}, want {want}"
+                             f" ({st['dispatches']} predicts, {n_batches} "
+                             f"training batches, {seg0} in segment 0)")
+    # the offline replay of the same sealed log
+    replay = os.path.join(d, "replay")
+    wall_r, _ = _cli([f"{k}={v}" for k, v in learn if k != "model_out"]
+                     + ["task=online", "online_replay=1",
+                        f"online_log_dir={log_dir}",
+                        f"model_out={replay}", "online_ckpt_interval_s=0",
+                        f"device={DEV}"])
+    with np.load(model + "_part-0") as a, np.load(replay + "_part-0") as b:
+        if set(a.files) != set(b.files) or any(
+                a[k].tobytes() != b[k].tobytes() for k in a.files):
+            raise AssertionError("the replay's final checkpoint differs "
+                                 "from the online one")
+    col = _pred_of(work, "online_final", conf, model)
+    if answers != col[:CHECK_ROWS]:
+        raise AssertionError("answers after the last reload differ from "
+                             "task=pred of the final checkpoint")
+    lat = [t1 - t0 for t0, t1, _, r in pushes if r["ok"]]
+    out = {"segments": len(idx), "rows": sum(e["rows"] for e in idx),
+           "seg_s": float(np.median(seg_s)), "save_s": float(np.median(
+               saves)), "push_s": lat, "generations": ex.generation,
+           "behind_s_max": max(b for b, _ in behind),
+           "rows_behind_max": max(r for _, r in behind),
+           "replay_s": wall_r, "launches": counts}
+    log(f"  online: {lg['sent']} #score rows ({lg['labels']} #label, all "
+        f"joined), {out['rows']} rows in {out['segments']} segments, "
+        f"trained through {res['trained']}; a segment pass {out['seg_s']:.3f}"
+        f" s (median), a checkpoint {out['save_s']:.3f} s, reload push -> "
+        f"model_generation {', '.join(f'{x:.3f}' for x in lat)} s; "
+        f"train_behind_serve_s max {out['behind_s_max']:.3f}, "
+        f"online_rows_behind max {out['rows_behind_max']:.0f}; served "
+        f"generation {ex.generation} ({under} under load) [{smi}]")
+    log(f"  replay (python -m difacto_tpu_torch task=online "
+        f"online_replay=1): {wall_r:.1f} s, final checkpoint byte for byte "
+        f"the online one; answers after the last reload = its task=pred; "
+        f"launches {counts} = predicts + batches + segment 0's [{smi}]")
+    log(f"phase 16 (q) ok in {time.monotonic() - t_phase:.1f} s: serve -> "
+        "log -> train -> reload")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -2779,15 +3554,28 @@ def main(argv=None) -> int:
         phase_batch_learners(work, smi)
         tq = phase_capacity(work, conf, uparam, ts)
         del ts
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 16 times a server on the host's clock: the objects fifteen
+        # phases left behind are moved out of the collector's generations,
+        # so that its full collections do not pause the server's threads
+        log(f"  before phase 16: {threading.active_count()} threads, "
+            f"{len(gc.get_objects())} objects tracked; frozen")
+        gc.freeze()
+        try:
+            tp = phase_lifecycle(work, conf, uparam, lines, smi)
+            to = phase_online(work, conf, uparam, smi)
+        finally:
+            gc.unfreeze()
         if any(m in sys.modules for m in ("jax", "difacto_tpu",
                                           "ml_dtypes")):
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
-        # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13 and
-        # 15, each read just after its own run
+        # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15
+        # and 16 (p) and (q), each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
-              for c in COUNTERS}
+              + tp["launches"][c] + to["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

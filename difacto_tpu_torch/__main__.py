@@ -22,10 +22,11 @@
   reference's src/reader/dump.h, the JAX package's bytes).
 - ``task=convert`` — text or rec input to libsvm text or the binary rec
   cache (data/converter.py), which ``data_format=rec`` trains from.
+- ``task=online`` — the tailing trainer over a serving replica's training
+  log (online/__init__.py run_online).
 
 ``device=cuda`` (the default) runs on the card and raises when there is
 none; ``device=cpu`` runs on the CPU (convert runs on the host alone).
-``task=online`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -194,7 +195,7 @@ def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m difacto_tpu_torch [config_file] "
-              "task=train|pred|serve|dump|convert key1=val1 ...",
+              "task=train|pred|serve|online|dump|convert key1=val1 ...",
               file=sys.stderr)
         return 1
     param, remain = DifactoParam.init_allow_unknown(parse_cli_args(argv))
@@ -217,10 +218,9 @@ def main(argv: Optional[list] = None) -> int:
         conv = Converter()
         warn_unknown(conv.init(remain))
         conv.run()
-    else:
-        raise NotImplementedError(
-            f"task={param.task} is not ported yet (ROADMAP.md, Queue 1: "
-            "the online log)")
+    elif param.task == "online":
+        from .online import run_online
+        warn_unknown(run_online(remain, device=param.device))
     return 0
 
 

@@ -109,6 +109,34 @@ class Param:
 _FIELD_TYPES = {"int": int, "float": float, "str": str, "bool": bool}
 
 
+def parse_endpoints(spec) -> List[Tuple[str, int]]:
+    """``"h1:p1,h2:p2"`` (or a list of ``"h:p"`` strings / ``(h, p)``
+    pairs) -> ``[(host, port), ...]``: the endpoint-list grammar of the
+    failover client (serve/client.py) and the online loop's
+    ``online_endpoints``."""
+    parts = ([p for p in spec.split(",") if p.strip()]
+             if isinstance(spec, str) else list(spec))
+    out: List[Tuple[str, int]] = []
+    for p in parts:
+        if isinstance(p, (tuple, list)):
+            host, port = p
+        else:
+            host, _, port = str(p).strip().rpartition(":")
+            if not host:
+                raise ValueError(
+                    f"bad endpoint {p!r} (want host:port)")
+        out.append((host, int(port)))
+    if not out:
+        raise ValueError(f"empty endpoint list: {spec!r}")
+    return out
+
+
+def format_endpoints(eps) -> str:
+    """Inverse of :func:`parse_endpoints`: ``[(h, p), ...]`` ->
+    ``"h1:p1,h2:p2"``."""
+    return ",".join(f"{h}:{int(p)}" for h, p in parse_endpoints(eps))
+
+
 def warn_unknown(remain: KWArgs) -> None:
     """Log unconsumed keys at the end of the config chain."""
     for k, v in remain:

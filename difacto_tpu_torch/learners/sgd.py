@@ -451,8 +451,11 @@ class SGDLearner(Learner):
                 root=os.path.dirname(p.model_out) or ".")
 
     # -------------------------------------------------------------- run
-    def run(self) -> None:
-        """RunScheduler (sgd_learner.cc:52-122)."""
+    def _init_run_state(self) -> None:
+        """Per-run state the epoch loop depends on: the metrics flusher
+        and the report accumulator. Shared by run() and the online
+        trainer (online/trainer.py), which drives _run_epoch once per
+        sealed log segment."""
         p = self.param
         self._start_time = time.monotonic()
         if p.metrics_path and self._flusher is None:
@@ -463,6 +466,11 @@ class SGDLearner(Learner):
         self._report = ReportProg()
         self._last_nnz = 0.0
         self._last_row_t = time.monotonic()
+
+    def run(self) -> None:
+        """RunScheduler (sgd_learner.cc:52-122)."""
+        p = self.param
+        self._init_run_state()
         pre_loss, pre_val_auc = 0.0, 0.0
         k = 0
         if p.auto_resume and p.model_out:

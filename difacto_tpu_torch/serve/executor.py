@@ -14,6 +14,14 @@ The executor never mutates the store: in a hashed store unknown ids hash
 to slots whose rows are whatever the table holds; in a dictionary store
 they map to the trash slot, whose w is 0 and whose embedding is never
 live, as in the JAX package.
+
+Hot reload (serve/reload.py) swaps a freshly loaded store of the same
+geometry under the executor (:meth:`PredictExecutor.swap_store`); a
+geometry change builds a second executor, seeds it with this one's
+sticky caps (:meth:`seed_caps`) and runs one padded predict per recorded
+bucket (:meth:`warm_bucket`) before the server retargets its batcher.
+Nothing is compiled here: a warm launches the gather on the new table and
+primes the caching allocator's blocks for those shapes.
 """
 
 from __future__ import annotations
@@ -55,17 +63,93 @@ class PredictExecutor:
         self._mu = threading.Lock()
         self._buckets: dict = {}   # statics key -> dispatch count
         self._dispatches = 0
+        self._warmed = 0           # buckets registered by warm_bucket()
+        self.generation = 1        # advances once per hot reload
 
     def stats(self) -> dict:
+        """{'buckets_compiled', 'bucket_hits', 'dispatches',
+        'model_generation'} under the JAX executor's names and arithmetic:
+        a bucket counts at its first occurrence; a warmed bucket was
+        registered without a dispatch, so it does not deflate the hits."""
         with self._mu:
-            return {"buckets": len(self._buckets),
-                    "bucket_hits": self._dispatches - len(self._buckets),
-                    "dispatches": self._dispatches}
+            return {"buckets_compiled": len(self._buckets),
+                    "bucket_hits": self._dispatches
+                    - (len(self._buckets) - self._warmed),
+                    "dispatches": self._dispatches,
+                    "model_generation": self.generation}
+
+    # ------------------------------------------------------- warm replay
+    def warm_set(self) -> Tuple[dict, list]:
+        """(sticky-cap snapshot, recorded bucket keys): what a blue/green
+        successor needs to pad every batch this executor served to the
+        same shapes and to warm them before the swap."""
+        with self._mu:
+            return self.shapes.snapshot(), list(self._buckets)
+
+    def seed_caps(self, caps: dict) -> None:
+        """Adopt another executor's sticky caps, so a batch that was a
+        bucket hit there stays one here."""
+        self.shapes.absorb(caps)
+
+    def warm_bucket(self, key: Tuple[int, int, int, int, bool]) -> None:
+        """One predict of a synthetic single-row batch padded to the
+        bucket ``key``'s caps, on this executor's store: it launches the
+        gather on the new table and allocates the shapes a later request
+        of that bucket needs. Registers the key without counting a
+        dispatch."""
+        b_cap, nnz_cap, u_cap, row_cap, binary = key
+        store = self.store
+        dev = store.device
+        blk = RowBlock(
+            offset=np.array([0, 1], dtype=np.int64),
+            label=np.zeros(1, dtype=np.float32),
+            index=np.zeros(1, dtype=np.uint32),
+            value=None if binary else np.ones(1, dtype=np.float32),
+            weight=None)
+        padded = pad_slots_oob(np.zeros(1, dtype=np.int32), u_cap,
+                               store.state.capacity)
+        i32, f32, _ = pack_batch(blk, 1, padded, b_cap, nnz_cap, u_cap)
+        batch, slots_t, _ = unpack_batch(
+            torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
+            b_cap, nnz_cap, u_cap, row_cap, binary=binary)
+        pred, _, _ = self._step(store.state, batch, slots_t)
+        pred.cpu()                 # the warm ends when its launch does
+        with self._mu:
+            if key not in self._buckets:
+                self._buckets[key] = 0
+                self._warmed += 1
+
+    # ------------------------------------------------------------- swap
+    def swap_store(self, store: SlotStore) -> int:
+        """The same-geometry hot-reload commit point: one attribute
+        assignment. ``predict`` snapshots ``self.store`` once per call, so
+        a batch in flight finishes on the model it started with. A store
+        of another geometry (:func:`model.store_geometry`) is refused, and
+        the old model keeps serving; the reloader routes it through the
+        blue/green executor swap instead."""
+        from .model import store_geometry
+        old = self.store
+        if store_geometry(store.param) != store_geometry(old.param):
+            raise ValueError(
+                f"hot-reload geometry mismatch: serving "
+                f"(V_dim={old.param.V_dim}, "
+                f"hash_capacity={old.param.hash_capacity}) vs new model "
+                f"(V_dim={store.param.V_dim}, "
+                f"hash_capacity={store.param.hash_capacity}); in-place "
+                "swap keeps the store functions, so a geometry change "
+                "must go through the blue/green executor swap "
+                "(serve/reload.py, requires a server-attached reloader)")
+        with self._mu:
+            self.store = store
+            self.generation += 1
+            return self.generation
 
     def predict(self, blk: RowBlock) -> Tuple[np.ndarray, torch.Tensor,
                                               torch.Tensor]:
         """Score a raw-id row block: (clamped raw margins of the real rows
         on the host, objv, auc on the device)."""
+        # ONE store snapshot per batch: a concurrent swap_store never
+        # splits a batch across two models
         store = self.store
         dev = store.device
         if blk.size == 0:

@@ -5,7 +5,8 @@ difacto_tpu/serve/model.py).
 (hashed or dictionary, FM or the flat V_dim=0 table) on ``device`` with
 a weights-only, manifest-verified load. The geometry (V_dim,
 hash_capacity, slot_dtype) comes from the checkpoint itself; a corrupt
-newest file walks back to the newest generation that verifies.
+newest file walks back to the newest generation that verifies, unless the caller (a hot reload) asks
+for no walk-back.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ from ..config import KWArgs
 from ..utils import stream
 
 log = logging.getLogger("difacto_tpu_torch")
+
+
+def store_geometry(param) -> Tuple[int, int, str]:
+    """(V_dim, hash_capacity, slot_dtype): what a predict executor's
+    store functions (``make_fns(param)``) were built for. An in-place hot
+    reload (executor.swap_store) needs it unchanged; a change goes through
+    the blue/green executor swap (serve/reload.py)."""
+    return (param.V_dim, param.hash_capacity, param.slot_dtype)
 
 
 def resolve_model_path(uri: str) -> str:
@@ -67,8 +76,10 @@ def open_serving_store(model_in: str, kwargs: KWArgs = (),
     """Read-only SlotStore on ``device`` loaded weights-only from
     ``model_in``; updater keys in ``kwargs`` (l1_shrk, V_dtype, ...) are
     consumed, the geometry is the checkpoint's. Returns (store, meta,
-    leftover kwargs). With ``fallback`` a corrupt file walks back to the
-    newest generation of its family that verifies."""
+    leftover kwargs). With ``fallback`` (serve startup) a corrupt file
+    walks back to the newest generation of its family that verifies;
+    ``fallback=False`` (a hot reload) raises instead, so a failed reload
+    keeps the model in memory and never regresses to an older file."""
     from ..utils import manifest as mft
     from ..utils.manifest import CheckpointCorrupt
 

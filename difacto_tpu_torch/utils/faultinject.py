@@ -23,7 +23,22 @@ and kinds).
   durability/replicate.py — ``err`` fails the copy, counted, and the
   scrub pushes it again; ``truncate`` lands a torn copy the scrub
   catches); ``replica.fetch`` (one file copy of a recovery fetch —
-  ``err`` is a dead peer, and the ladder tries the next). The tier's
+  ``err`` is a dead peer, and the ladder tries the next);
+  ``batcher.enqueue`` (serve admission, serve/batcher.py — ``err``
+  answers the row ``!err``, ``delay_ms`` stalls admission);
+  ``serve.sock.read`` / ``serve.sock.write`` (each request line read and
+  each reply written, serve/server.py — ``close`` tears the connection
+  down, which the retrying client must survive); ``serve.handoff`` (the
+  ``#handoff`` line — ``err`` refuses the handoff, no drain);
+  ``reload.warm`` (each bucket of a blue/green warm, serve/reload.py —
+  ``err`` aborts the swap with the old model serving, ``delay_ms``
+  stretches the warm window); ``online.log.append`` (a served row into
+  the online log, online/log.py — ``err`` drops only the log entry,
+  counted in ``online_log_drops_total``, and the row is answered);
+  ``online.label_join`` (a ``#label`` join — ``err`` answers ``!err``,
+  the connection stays up); ``online.seal`` (sealing a segment — ``err``
+  keeps the resolved rows in memory and retries at the next advance).
+  The tier's
   points pass a returned kind to :func:`act_default` (``kill`` dies,
   ``truncate``/``close`` refuse the move), where the JAX package drops
   it. The JAX package's other points are listed in ROADMAP.md (Queue 1,

@@ -62,6 +62,12 @@ def getsize(uri: str) -> int:
     return os.path.getsize(_local(uri))
 
 
+def getmtime(uri: str) -> float:
+    """Last-modified time in seconds (the hot-reload watcher's hint
+    beside manifest generations)."""
+    return os.path.getmtime(_local(uri))
+
+
 def makedirs(uri: str) -> None:
     os.makedirs(_local(uri), exist_ok=True)
 

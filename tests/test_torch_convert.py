@@ -294,7 +294,9 @@ def _canonical_halves(line: bytes, n_scal: int) -> bytes:
 
 
 def test_dump_requires_model_in_and_names_online_as_not_ported():
+    # task=online is ported now: without its log directory it raises
+    # the JAX package's ValueError, not NotImplementedError
     with pytest.raises(ValueError, match="model_in"):
         main(["task=dump", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="online"):
+    with pytest.raises(ValueError, match="online_log_dir"):
         main(["task=online", "device=cpu"])

@@ -11,7 +11,9 @@ process producers leave the host-dedup, thread-producer table bit for
 bit; the cold tier's promotes and demotes (the two kernels at the tier's
 padded sizes) leaving the CPU's table and residency bit for bit, a tiered
 run that repeats and equals its run on the plain versions, and the WAL's
-row round trip and a WAL-on run equal to the WAL-off one.
+row round trip and a WAL-on run equal to the WAL-off one; a hot reload
+on the card while the server scores (no batch torn across models, the
+old table's memory returned) and a blue/green swap.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -21,6 +23,7 @@ conftest (which imports jax):
 
 import functools
 import os
+import time
 
 import numpy as np
 import pytest
@@ -579,3 +582,115 @@ def test_wal_run_on_the_card_equals_wal_off(cuda, criteo_file, tmp_path):
                         ("ckpt_interval", "1"))
     assert torch.equal(on, off)
     assert os.listdir(str(tmp_path / "m.wal"))
+
+
+# ------------------------------------------------------------- reload
+_RCV1 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                     "rcv1_100.libsvm")
+
+
+def _saved_model(path, V_dim, C, seed):
+    """A saved random FM model (written from the CPU)."""
+    from difacto_tpu_torch.store.convert import state_from_numpy
+    from difacto_tpu_torch.store.local import SlotStore
+    p = T.SGDUpdaterParam(V_dim=V_dim, hash_capacity=C)
+    rng = np.random.RandomState(seed)
+    st = SlotStore(p, device="cpu")
+    st.state = state_from_numpy(p, {
+        "w": (rng.randn(C) * 0.1).astype(np.float32),
+        "v_live": rng.rand(C) < 0.5,
+        "V": ((rng.rand(C, V_dim) - 0.5) * 0.2).astype(np.float32)},
+        device="cpu")
+    st.save(path + "_part-0")
+    return path
+
+
+def _column(model, dev):
+    """The probability column ``task=pred`` formats for the fixture rows,
+    scored on ``dev`` (a row's score does not depend on its batch)."""
+    from difacto_tpu_torch.data.parsers import parse_libsvm
+    from difacto_tpu_torch.serve import PredictExecutor, open_serving_store
+    from difacto_tpu_torch.serve.executor import sigmoid
+    store, _, _ = open_serving_store(model, device=dev)
+    with open(_RCV1, "rb") as f:
+        scores = PredictExecutor(store).predict_scores(parse_libsvm(f.read()))
+    return [(b"%g" % float(x)) for x in sigmoid(scores)]
+
+
+@pytest.mark.parametrize("new", ["same_geometry", "bluegreen"])
+def test_reload_on_the_card_while_scoring(cuda, tmp_path, new):
+    """A ``#reload`` on the card under pipelined load: every answer is the
+    old or the new model's for its row (no batch torn across models),
+    answers after the swap are the new model's, the gather launched on the
+    card, the peak held both tables, and the old table's memory is
+    returned once it is dropped."""
+    import gc
+    import threading
+
+    from difacto_tpu_torch.serve import (ModelReloader, ServeClient,
+                                         ServeServer, open_serving_store)
+    C = 1 << 18
+    old = _saved_model(str(tmp_path / "old"), 4, C, 1)
+    newm = _saved_model(str(tmp_path / "new"), 4 if new == "same_geometry"
+                        else 8, C if new == "same_geometry" else C // 2, 2)
+    old_col, new_col = _column(old, cuda), _column(newm, cuda)
+    assert sum(a != b for a, b in zip(old_col, new_col)) > 50
+    with open(_RCV1, "rb") as f:
+        rows = [r for r in f.read().splitlines() if r.strip()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    store, _, _ = open_serving_store(old, device=cuda)
+    table_bytes = store.state.VVg.numel() * store.state.VVg.element_size()
+    srv = ServeServer(store, batch_size=16, max_delay_ms=1.0).start()
+    del store
+    srv.reloader = ModelReloader(srv.executor, old, server=srv)
+    seen, stop = [], threading.Event()
+
+    def load():
+        with ServeClient(srv.host, srv.port) as c:
+            while not stop.is_set():
+                seen.append(c.score_lines(rows))
+
+    t = threading.Thread(target=load)
+    try:
+        launches = fused.gather_rows_cuda.launches
+        with ServeClient(srv.host, srv.port) as c:
+            assert c.score_lines(rows) == old_col
+            t.start()
+            while len(seen) < 2:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(cuda)
+            torch.cuda.reset_peak_memory_stats(cuda)
+            res = c.reload(newm)
+            assert res["ok"] and res["model_generation"] == 2, res
+            peak = torch.cuda.max_memory_allocated(cuda)
+            vvg = srv.executor.store.state.VVg
+            new_bytes = vvg.numel() * vvg.element_size()
+            del vvg
+            n = len(seen)
+            while len(seen) < n + 3:
+                time.sleep(0.01)
+            stop.set()
+            t.join(timeout=60)
+            assert c.score_lines(rows) == new_col
+            st = c.stats()
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(cuda)
+    finally:
+        stop.set()
+        srv.close()
+    assert not t.is_alive() and st["errors"] == 0
+    for resp in seen:
+        for i, r in enumerate(resp):
+            assert r in (old_col[i], new_col[i]), (i, r)
+    assert seen[-1] == new_col
+    assert fused.gather_rows_cuda.launches > launches
+    assert st["bluegreen_swaps"] == (1 if new == "bluegreen" else 0)
+    # both tables were held across the swap
+    assert peak >= base + new_bytes - (16 << 20), (base, peak, new_bytes)
+    # the old table went back: what is held now is about the new table
+    # where the old one was
+    assert after <= base - table_bytes + new_bytes + (64 << 20), \
+        (base, after, table_bytes)

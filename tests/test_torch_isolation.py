@@ -521,3 +521,116 @@ def test_capacity_and_durability_run_with_jax_poisoned(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "ok"
+
+
+_LIFECYCLE = ("difacto_tpu_torch.serve.reload", "difacto_tpu_torch.serve.client",
+              "difacto_tpu_torch.serve.fleet",
+              "difacto_tpu_torch.serve.fleethealth",
+              "difacto_tpu_torch.online", "difacto_tpu_torch.online.log",
+              "difacto_tpu_torch.online.tail",
+              "difacto_tpu_torch.online.loop",
+              "difacto_tpu_torch.online.trainer",
+              "difacto_tpu_torch.utils.reporter")
+
+
+def test_serve_lifecycle_and_online_loop_run_with_jax_poisoned(tmp_path):
+    """The serve lifecycle and the online loop in an interpreter that
+    cannot import jax or difacto_tpu: every new module imports; a server
+    with an online log scores ``#score`` rows and joins ``#label``s, the
+    tailing trainer trains the sealed log on the CPU and pushes its
+    generation back as ``#reload``; a blue/green ``#reload``, ``#metrics``
+    and a drain follow, and no kernel launches."""
+    code = textwrap.dedent(f"""
+        import importlib, json, socket, sys, threading
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        for n in {_LIFECYCLE!r}:
+            importlib.import_module(n)
+        from difacto_tpu_torch.ops import fused
+        from difacto_tpu_torch.online import (OnlineLog, OnlineParam,
+                                              OnlineTrainer)
+        from difacto_tpu_torch.serve import (ModelReloader, ServeClient,
+                                             ServeServer, open_serving_store)
+        from difacto_tpu_torch.store.local import SlotStore
+        from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
+        d = {str(tmp_path)!r}
+        SlotStore(SGDUpdaterParam(V_dim=2, hash_capacity=512),
+                  device="cpu").save(d + "/start_part-0")
+        SlotStore(SGDUpdaterParam(V_dim=4, hash_capacity=256),
+                  device="cpu").save(d + "/green_part-0")
+        olog = OnlineLog(d + "/olog", segment_rows=10, label_delay_s=3600)
+        store, _, _ = open_serving_store(d + "/start", device="cpu")
+        srv = ServeServer(store, batch_size=8, max_delay_ms=1.0,
+                          online_log=olog).start()
+        srv.reloader = ModelReloader(srv.executor, d + "/start",
+                                     server=srv)
+        rows = [open({_RCV1!r}, "rb").read().splitlines()[i]
+                for i in range(30)]
+        with socket.create_connection((srv.host, srv.port)) as c:
+            f = c.makefile("rb")
+            for i, r in enumerate(rows):
+                c.sendall(b"#score %d %s\\n#label %d %s\\n"
+                          % (i, r, i, r.split()[0]))
+                assert not f.readline().startswith(b"!")
+                assert json.loads(f.readline()) == {{"ok": True}}
+        olog.end()
+        tr = OnlineTrainer(OnlineParam(
+            online_log_dir=d + "/olog", online_ckpt_interval_s=0,
+            online_endpoints=f"{{srv.host}}:{{srv.port}}"),
+            [("V_dim", "2"), ("hash_capacity", "512"),
+             ("batch_size", "10"), ("model_out", d + "/m")],
+            device="cpu")
+        assert tr.run() == 2
+        assert srv.executor.generation == 2
+        with ServeClient(srv.host, srv.port) as c:
+            assert c.reload(d + "/green")["model_generation"] == 3
+            assert None not in c.predict(rows[:5])
+            assert "difacto_serve_model_generation 3" in c.metrics()
+        assert srv.drain() >= 0
+        assert fused.gather_rows_cuda.launches == 0
+        assert fused.fm_update_rows_cuda.launches == 0
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_serve_and_online_without_device_raise_on_a_box_without_cuda(
+        monkeypatch, tmp_path):
+    """task=serve and task=online called without ``device=`` refuse to
+    run on the CPU of a box without CUDA, and so does a takeover's
+    successor command line (it names the caller's device)."""
+    from difacto_tpu_torch.__main__ import main
+    from difacto_tpu_torch.serve import fleet
+    from difacto_tpu_torch.store.local import SlotStore
+
+    path = str(tmp_path / "m_part-0")
+    SlotStore(SGDUpdaterParam(V_dim=2, hash_capacity=64),
+              device="cpu").save(path)
+    (tmp_path / "olog").mkdir()
+    (tmp_path / "olog" / "log.end").write_text("end\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["task=serve", f"model_in={path}", "serve_max_seconds=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["task=online", f"online_log_dir={tmp_path / 'olog'}",
+              f"model_out={tmp_path / 'o'}", "V_dim=2",
+              "hash_capacity=64"])
+    seen = {}
+    monkeypatch.setattr(fleet.subprocess, "Popen",
+                        lambda args, **kw: seen.setdefault("args", args))
+    fleet.spawn_successor(path, 1, str(tmp_path / "ready"))
+    assert "device=cuda" in seen["args"]
+    assert seen["args"][1:3] == ["-m", "difacto_tpu_torch"]

@@ -122,8 +122,8 @@ def test_server_answers_equal_pred_column(jax_model, port_pred_lines,
                                           rcv1_path):
     """Serve responses are the port's pred column byte for byte, through a
     micro-batch window other than the pred window (row scores do not
-    depend on their batch); #health answers ready, other control lines
-    answer unsupported."""
+    depend on their batch); #health answers ready, #reload without a
+    reloader attached answers JAX's typed error."""
     with open(rcv1_path, "rb") as f:
         rows = [r for r in f.read().splitlines() if r.strip()]
     store, _, _ = topen(jax_model["model"], device="cpu")
@@ -136,14 +136,14 @@ def test_server_answers_equal_pred_column(jax_model, port_pred_lines,
                 f = c.makefile("rb")
                 got = [f.readline().rstrip(b"\n") for _ in rows]
                 health = f.readline()
-                unsupported = f.readline()
+                no_reloader = f.readline()
                 stats = f.readline()
         finally:
             srv.close()
             srv.close()   # idempotent
     assert got == [l.split(b"\t")[1] for l in port_pred_lines]
     assert b'"status": "ready"' in health
-    assert unsupported == b"!err unsupported\n"
+    assert no_reloader == b"!err no reloader configured (set model_in)\n"
     assert b'"requests": 100' in stats
 
 
