@@ -5,7 +5,8 @@
 
 Drives the port's serving and training paths (and the batch learners,
 phase 14, the capacity tier and the durable training state, phase 15,
-and the serve lifecycle and the online loop, phase 16) at the full width
+the serve lifecycle and the online loop, phase 16, and the serving
+fleet, phase 17) at the full width
 of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
@@ -202,6 +203,37 @@ their plain PyTorch versions. Phases:
     training batches and segment 0's count pushes. Printed: a segment
     pass, a checkpoint, each reload push, ``train_behind_serve_s`` and
     ``online_rows_behind``.
+17. the serving fleet at the same width, over phase 3's model: (r) two
+    in-process ServeServers behind an in-process RouterServer, P2C and
+    then ``balance=affinity`` with ``affinity_capacity`` 4,194,304 (the
+    Criteo rows' leading key I1 puts them all on one owner) and with
+    capacity 0 (the splitmix64 ring, which spreads them over both): 2,000
+    rows through the router equal the pred column, ``#health`` shows
+    both replicas ready, the ``#stats`` backends' rows sum to the rows
+    sent and equal the router's ``#metrics``, each replica's
+    ``#metrics`` agrees with its ``#stats``, the gathers equal the
+    executors' dispatches, the affinity hits are live and on the ring
+    both replicas get rows. Then every part in
+    its own process: (s) two ``task=serve`` replicas and ``python -m
+    difacto_tpu_torch.tools.fleet route`` routers; the closed-loop rate
+    direct to one replica and through the router to one and to two;
+    half the two-replica rate open-loop through the router while
+    ``run_rolling_restart`` replaces both replicas with
+    ``spawn_successor`` processes on the card (no ``!err``, no
+    ``!shed``, every answer the pred column; p50/p99 before and inside
+    the roll, each successor's warm_s). (t) two ``route --takeover``
+    members on one port under ``python -m
+    difacto_tpu_torch.tools.loadgen --endpoints`` (the port's
+    ``run_loadgen_failover``): the member holding the client's
+    connection is SIGKILLed, then ``run_router_group_roll`` replaces the
+    group, no ``!err`` either time. (u) an Autoscaler (min 1, max 2, the
+    load generator's p99 its latency signal) over one replica behind an
+    in-process router at 1.5x that replica's closed-loop rate: exactly
+    one spawn of a ``task=serve`` process on the card, in the router's
+    ``#stats`` and ``#metrics``, and once the load stops exactly one
+    drain; no ``!err``; the seconds from the decision to the first row
+    the new replica answers. nvidia-smi's per-process memory is sampled
+    throughout and every child is reaped.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -210,8 +242,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10, 12, 13, 15 and 16, each counted from 0
-just before its own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16 and 17 (r), each counted
+from 0 just before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -2773,11 +2805,15 @@ def loadgen(spec_path: str) -> None:
       until ``stop`` exists; a ``!shed`` row is sent again (a draining
       replica sheds) and a dropped connection resends its unanswered
       tail (ServeClient), so every row ends with exactly one answer;
+      with ``p99_file``, every 0.25 s the p99 of the rows answered in
+      the last second goes there (``{"t": ..., "p99_ms": ...}``), the
+      client-side view an autoscaler's ``latency_fn`` reads;
     - ``online``: one client sends ``#score <id> <row>`` for every row and
       ``#label <id> <y>`` right behind it for every even id, ``rate``
       rows/s, at least ``min_rows`` rows and then until ``stop`` exists.
-    Times are ``time.monotonic()``, one clock across the machine's
-    processes."""
+    In the closed and open modes the ``sending`` file appears once a
+    first window has come back. Times are ``time.monotonic()``, one clock
+    across the machine's processes."""
     from difacto_tpu_torch.serve.client import ServeClient
 
     with open(spec_path) as f:
@@ -2787,6 +2823,11 @@ def loadgen(spec_path: str) -> None:
     eps = [tuple(e) for e in spec["endpoints"]]
     mode = spec["mode"]
     out = {"mode": mode, "t0": time.monotonic()}
+
+    def answered() -> None:
+        """The first window came back: the ``sending`` file says so."""
+        if not os.path.exists(spec["sending"]):
+            open(spec["sending"], "w").close()
 
     def client():
         return ServeClient(endpoints=eps, retries=20, eject_after=3,
@@ -2804,6 +2845,7 @@ def loadgen(spec_path: str) -> None:
                 while time.monotonic() < end:
                     got = c.score_lines([rows[(i + j) % len(rows)]
                                          for j in range(w)])
+                    answered()
                     counts[k] += len(got)
                     bad[k] += sum(g.startswith(b"!") for g in got)
                     i += w * spec["conns"]
@@ -2850,6 +2892,7 @@ def loadgen(spec_path: str) -> None:
                         if todo:
                             time.sleep(0.005)
                     t_recv = time.monotonic()
+                    answered()
                     recs[k].extend((idx[j], sched, t_send, t_recv,
                                     reply[j].decode()) for j in range(w))
                     n += 1
@@ -2859,6 +2902,15 @@ def loadgen(spec_path: str) -> None:
               for k in range(K)]
         for t in ts:
             t.start()
+        while spec.get("p99_file") and any(t.is_alive() for t in ts):
+            now = time.monotonic()
+            lat = [r[3] - r[1] for rs in recs for r in rs[-4096:]
+                   if r[3] > now - 1.0]
+            with open(spec["p99_file"] + ".tmp", "w") as f:
+                json.dump({"t": now, "p99_ms": _pct(lat, 99)
+                           if lat else 0.0}, f)
+            os.replace(spec["p99_file"] + ".tmp", spec["p99_file"])
+            time.sleep(0.25)
         for t in ts:
             t.join()
         flat = [r for rs in recs for r in rs]
@@ -2906,7 +2958,8 @@ def _start_loadgen(work: str, name: str, **spec):
     result file, the stop file)."""
     root = os.path.dirname(os.path.abspath(__file__))
     spec.update(out=os.path.join(work, f"{name}.json"),
-                stop=os.path.join(work, f"{name}.stop"))
+                stop=os.path.join(work, f"{name}.stop"),
+                sending=os.path.join(work, f"{name}.sending"))
     path = os.path.join(work, f"{name}.spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
@@ -3487,6 +3540,703 @@ def phase_online(work: str, conf: list, uparam, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 17
+FLEET_CHECK = 2000          # rows sent through the in-process router (r)
+FLEET_BASE_S = 3.0          # open-loop seconds before the roll (s)
+FLEET_OVERLOAD = 1.5        # (u) offers this times one replica's rate
+KILL_RUN_S = 8.0            # (t) the load generator's seconds around the kill
+GROUP_RUN_S = 16.0          # (t) the load generator's seconds around the roll
+FLEET_EXTRA = ["data_format=criteo"]   # the replicas' task=serve keys
+SCALE_P99_MS = 1000.0       # (u) the autoscaler's client p99 limit
+
+
+def _free_port() -> int:
+    """A port that was free a moment ago."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _ready_endpoint(proc, ready: str, wait_s: float = 300.0) -> tuple:
+    """Wait for a spawned replica's or router's ready file: (host, port)."""
+    from difacto_tpu_torch.serve.fleet import _wait_ready_file
+    _wait_ready_file(ready, proc, wait_s, 0.05)
+    while True:
+        with open(ready) as f:
+            parts = f.read().split()
+        if len(parts) == 2:
+            return parts[0], int(parts[1])
+        time.sleep(0.02)
+
+
+def _reap(proc, timeout: float = 60.0) -> int:
+    """The process's exit code; killed (and reported so) past ``timeout``."""
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return -9
+
+
+def _smi_apps(stop, out: dict) -> None:
+    """Sample ``nvidia-smi`` until ``stop``: the card's largest
+    ``memory.used`` and the most processes on the card at once."""
+    while not stop.wait(1.0):
+        r = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        d = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60)
+        if r.returncode != 0 or d.returncode != 0:
+            out["error"] = (r.stderr or d.stderr).strip()[:200]
+            return
+        n = sum(1 for l in r.stdout.splitlines() if l.strip())
+        out["max_procs"] = max(out.get("max_procs", 0), n)
+        out["max_used_mib"] = max(out.get("max_used_mib", 0),
+                                  int(d.stdout.split()[0]))
+
+
+def _loadgen_cli(work: str, name: str, endpoint: tuple, qps: float,
+                 seconds: float):
+    """``python -m difacto_tpu_torch.tools.loadgen --endpoints`` (the
+    port's ``run_loadgen_failover``) in its own interpreter."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("DIFACTO_FAULTS", None)
+    with open(os.path.join(work, f"{name}.log"), "wb") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "difacto_tpu_torch.tools.loadgen",
+             "--endpoints", f"{endpoint[0]}:{endpoint[1]}", "--data",
+             os.path.join(work, "criteo.txt"), "--qps", str(qps),
+             "--duration", str(seconds)], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def _loadgen_cli_result(work: str, name: str, proc, timeout=120) -> dict:
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        with open(os.path.join(work, f"{name}.log"), "rb") as f:
+            tail = f.read()[-3000:].decode("utf-8", "replace")
+        raise AssertionError(f"loadgen {name} exited {proc.returncode}:"
+                             f"\n{tail}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _router_rows_metric(text: str) -> dict:
+    """``difacto_router_rows_forwarded_total`` per endpoint from a
+    router's ``#metrics``."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("difacto_router_rows_forwarded_total{"):
+            ep = ln.split('endpoint="')[1].split('"')[0]
+            out[ep] = float(ln.split()[-1])
+        elif ln and not ln.startswith("#") and len(ln.split()) != 2:
+            raise AssertionError(f"#metrics line does not parse: {ln!r}")
+    return out
+
+
+def _open_rows(lg: dict, col: list, what: str) -> tuple:
+    """Check an open-loop run: no ``!`` reply, every answer its row's pred
+    column; returns (send, latency) arrays."""
+    reply = [r.encode() for r in lg["reply"]]
+    bad = [r for r in reply if r.startswith(b"!")]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} rows answered {bad[0]}")
+    wrong = sum(r != col[k] for k, r in zip(lg["idx"], reply))
+    if wrong:
+        raise AssertionError(f"{what}: {wrong} answers differ from the "
+                             "pred column")
+    send = np.asarray(lg["send"])
+    return send, np.asarray(lg["recv"]) - np.asarray(lg["sched"])
+
+
+def phase_fleet_inproc(work: str, lines: list, C: int, smi: str) -> dict:
+    """Phase 17 (r): two in-process ServeServers (``takeover`` on) over
+    phase 3's model at full width behind an in-process RouterServer,
+    first P2C, then ``balance=affinity`` with ``affinity_capacity`` C
+    (the Criteo rows' leading key, the count field I1, hashes every row
+    to one owner) and with capacity 0 (the splitmix64 ring).
+    Each time a pipelined window of 2,000 rows goes through the router:
+    the answers equal the pred column byte for byte, ``#health`` shows the
+    router and both replicas ready, the ``#stats`` backends' rows sum to
+    the rows sent and equal the router's ``#metrics``, each replica's
+    ``#metrics`` agrees with its ``#stats``, and the gather launches equal
+    the two executors' dispatches; under affinity the hit counter is
+    live, and on the ring both replicas get rows."""
+    import torch
+    from difacto_tpu_torch.serve import (RouterServer, ServeClient,
+                                         ServeServer, open_serving_store)
+    t_phase = time.monotonic()
+    with open(os.path.join(work, "criteo.txt"), "rb") as f:
+        rows = f.read().splitlines()[:FLEET_CHECK]
+    col = [l.split(b"\t")[1] for l in lines[:FLEET_CHECK]]
+    model = os.path.join(work, "model")
+    reps = []
+    total = {c: 0 for c in COUNTERS}
+    shown = []
+    try:
+        for _ in range(2):
+            store, _, _ = open_serving_store(model, device=DEV)
+            reps.append(ServeServer(store, data_format="criteo",
+                                    takeover=True).start())
+            del store
+        eps = [(s.host, s.port) for s in reps]
+        for balance, cap in (("p2c", C), ("affinity", C),
+                             ("affinity", 0)):
+            what = balance if balance == "p2c" else f"affinity {cap}"
+            d0 = [s.executor.stats()["dispatches"] for s in reps]
+            _reset_counts()
+            router = RouterServer(eps, balance=balance,
+                                  affinity_capacity=cap).start()
+            try:
+                t0 = time.monotonic()
+                with ServeClient(router.host, router.port,
+                                 timeout=120) as c:
+                    got = c.score_lines(rows)
+                    sync()
+                    wall = time.monotonic() - t0
+                    h, st, text = c.health(), c.stats(), c.metrics()
+            finally:
+                router.close()
+            counts = _counts()
+            disp = sum(s.executor.stats()["dispatches"] - d
+                       for s, d in zip(reps, d0))
+            if got != col:
+                bad = sum(g != w for g, w in zip(got, col))
+                raise AssertionError(f"(r) {what}: {bad} answers through "
+                                     "the router differ from the pred "
+                                     "column")
+            if not (h.get("router") and h["status"] == "ready"
+                    and h["replicas_live"] == 2):
+                raise AssertionError(f"(r) {what}: #health {h}")
+            per = {b["endpoint"]: b["rows"] for b in st["backends"]}
+            if sum(per.values()) != len(rows) or st["rows"] != len(rows):
+                raise AssertionError(f"(r) {what}: #stats backends {per},"
+                                     f" rows {st['rows']}, sent {len(rows)}")
+            if {k: float(v) for k, v in per.items() if v} != \
+                    _router_rows_metric(text):
+                raise AssertionError(f"(r) {what}: #metrics "
+                                     f"{_router_rows_metric(text)} vs "
+                                     f"#stats {per}")
+            if counts["gather_rows_cuda"] != disp or \
+                    counts["fm_update_rows_cuda"] or \
+                    counts["scatter_rows_cuda"]:
+                raise AssertionError(f"(r) {what}: launches {counts}, "
+                                     f"want {disp} gathers (dispatches)")
+            if balance == "affinity" and not (
+                    st["affinity_hits"] > 0 and st["affinity_misses"] == 0
+                    and (cap or min(per.values()) > 0)):
+                raise AssertionError(f"(r) {what}: affinity counters "
+                                     f"{st}")
+            for c_ in COUNTERS:
+                total[c_] += counts[c_]
+            shown.append(
+                f"{what}: {len(rows)} rows in {wall:.3f} s, backends "
+                f"{sorted(per.values())}, {disp} dispatches = "
+                f"{counts['gather_rows_cuda']} gathers"
+                + (f", affinity hits {int(st['affinity_hits'])}"
+                   if balance == "affinity" else ""))
+        agree = []
+        for s in reps:
+            with ServeClient(s.host, s.port) as c:
+                agree.append(_metrics_agree(c.metrics(), c.stats()))
+    finally:
+        for s in reps:
+            s.close()
+        del reps
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  (r) in-process router over two replicas: "
+        f"{'; '.join(shown)}; #metrics vs #stats per replica: "
+        f"{' | '.join(agree)} [{smi}]")
+    log(f"phase 17 (r) ok in {time.monotonic() - t_phase:.1f} s: answers "
+        "through the router (p2c, affinity on the slots and on the ring) = "
+        "pred, launches = dispatches")
+    return {"launches": total}
+
+
+def _cpu_s(pid: int) -> float:
+    """CPU seconds (user + system) process ``pid`` has used, from /proc."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            p = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return 0.0
+    return (int(p[11]) + int(p[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _established(pid: int, port: int) -> int:
+    """Established TCP connections process ``pid`` holds on local port
+    ``port`` (from /proc): which router group member serves a client."""
+    inodes = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                t = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if t.startswith("socket:["):
+                inodes.add(t[8:-1])
+    except OSError:
+        return 0
+    n = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                next(f)
+                for ln in f:
+                    p = ln.split()
+                    if (p[3] == "01" and p[9] in inodes
+                            and int(p[1].rsplit(":", 1)[1], 16) == port):
+                        n += 1
+        except OSError:
+            continue
+    return n
+
+
+def _client_member(client, members, port: int) -> list:
+    """The members of a router group that hold an established connection
+    on ``port`` once ``client`` (a load generator) has connected; empty
+    if it exits first or 60 s pass."""
+    deadline = time.monotonic() + 60
+    while client.poll() is None and time.monotonic() < deadline:
+        held = [m for m in members if _established(m.pid, port)]
+        if held:
+            return held
+        time.sleep(0.05)
+    return []
+
+
+class _Fleet:
+    """Phase 17 (s)-(u)'s processes: every replica, router and load
+    generator started here is reaped by ``close``."""
+
+    def __init__(self, work: str, lines: list, smi: str):
+        self.work, self.smi = work, smi
+        self.model = os.path.join(work, "model")
+        self.rows_file = os.path.join(work, "criteo.txt")
+        self.col = [l.split(b"\t")[1] for l in lines]
+        self.procs = []
+        self.out = {}
+
+    def replica(self, name: str, port: int = 0, host: str = "127.0.0.1"):
+        from difacto_tpu_torch.serve.fleet import spawn_successor
+        ready = os.path.join(self.work, f"{name}.ready")
+        p = spawn_successor(self.model, port or _free_port(), ready,
+                            FLEET_EXTRA, host=host, device=DEV)
+        self.procs.append(p)
+        return p, ready
+
+    def router(self, name: str, endpoints: str, port: int = 0,
+               host: str = "127.0.0.1"):
+        from difacto_tpu_torch.serve.fleet import spawn_router
+        ready = os.path.join(self.work, f"{name}.ready")
+        p = spawn_router(endpoints, port or _free_port(), ready, host=host)
+        self.procs.append(p)
+        return p, ready
+
+    def closed(self, name: str, ep: tuple, conns: int,
+               watch: dict) -> tuple:
+        """Closed-loop rows/s to ``ep`` on ``conns`` connections of
+        256-row windows (phase 16's load generator), and the cores each
+        process of ``watch`` (name -> pid) and the load generator used
+        meanwhile."""
+        g, o, s = _start_loadgen(self.work, name, mode="closed",
+                                 endpoints=[ep], rows=self.rows_file,
+                                 conns=conns, window=256,
+                                 seconds=LIFE_PROBE_S)
+        self.procs.append(g)
+        watch = dict(watch, loadgen=g.pid)
+        while not os.path.exists(s[:-len(".stop")] + ".sending"):
+            if g.poll() is not None:
+                break
+            time.sleep(0.02)
+        c0, t0 = {k: _cpu_s(p) for k, p in watch.items()}, time.monotonic()
+        time.sleep(LIFE_PROBE_S / 2)
+        cores = {k: round((_cpu_s(p) - c0[k]) / (time.monotonic() - t0), 2)
+                 for k, p in watch.items()}
+        r = _finish_loadgen(self.work, name, g, o, s)
+        if r["bad"]:
+            raise AssertionError(f"{name}: {r['bad']} rows answered !")
+        return r["rows"] / r["seconds"], cores
+
+    def open(self, name: str, ep: tuple, rate: float, **spec):
+        window = max(1, int(round(rate / OPEN_CONNS * OPEN_TICK_S)))
+        g, o, s = _start_loadgen(self.work, name, mode="open",
+                                 endpoints=[ep], rows=self.rows_file,
+                                 conns=OPEN_CONNS, window=window, rate=rate,
+                                 **spec)
+        self.procs.append(g)
+        return g, o, s
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def fleet_rates_roll(f: _Fleet) -> tuple:
+    """Phase 17 (s): replicas A and B (``python -m difacto_tpu_torch
+    task=serve``) over phase 3's model and two ``python -m
+    difacto_tpu_torch.tools.fleet route`` routers, one over A and one over
+    A and B: the closed-loop rate (4 connections x 256-row windows)
+    direct to A, through the router to A and to A and B; then half of the
+    two-replica rate open-loop on 16 connections through the router while
+    ``run_rolling_restart`` replaces A and B with ``spawn_successor``
+    processes on the card: no ``!err``, no ``!shed``, every answer the
+    pred column, each incumbent exits 0. Returns the two successors'
+    (process, endpoint) pairs."""
+    from difacto_tpu_torch.serve import ServeClient, run_rolling_restart
+    from difacto_tpu_torch.serve.fleet import spawn_successor
+    t0 = time.monotonic()
+    (pa, ra), (pb, rb) = f.replica("rep_a"), f.replica("rep_b")
+    ep_a, ep_b = _ready_endpoint(pa, ra), _ready_endpoint(pb, rb)
+    warm_ab = time.monotonic() - t0
+    two = f"{ep_a[0]}:{ep_a[1]},{ep_b[0]}:{ep_b[1]}"
+    (p1, r1), (p2, r2) = (f.router("route_a", f"{ep_a[0]}:{ep_a[1]}"),
+                          f.router("route_ab", two))
+    ep_r1, ep_r2 = _ready_endpoint(p1, r1), _ready_endpoint(p2, r2)
+    # each replica's first rows, checked: the warm-up before the rates
+    with open(f.rows_file, "rb") as fh:
+        rows = fh.read().splitlines()[:CHECK_ROWS]
+    for ep in (ep_a, ep_b):
+        with ServeClient(*ep) as c:
+            if _score_all(c, rows) != f.col[:CHECK_ROWS]:
+                raise AssertionError(f"(s) replica {ep} answers differ "
+                                     "from the pred column")
+    # the same rows in flight at each replica: 4 x 256 direct (its queue
+    # cap); the router forwards one 64-row chunk per client connection
+    # at a time, so 16 connections to one replica, 32 to two
+    reps = {"replica A": pa.pid, "replica B": pb.pid}
+    rate_a, cores_a = f.closed("rate_a", ep_a, LIFE_CONNS, reps)
+    rate_r1, cores_r1 = f.closed("rate_r1", ep_r1, 4 * LIFE_CONNS,
+                                 dict(reps, router=p1.pid))
+    rate_r2, cores_r2 = f.closed("rate_r2", ep_r2, 8 * LIFE_CONNS,
+                                 dict(reps, router=p2.pid))
+    p1.terminate()
+    _reap(p1)
+    log(f"  (s) replicas up in {warm_ab:.1f} s (both started together), "
+        f"{CHECK_ROWS} rows each = the pred column; closed-loop "
+        f"(256-row windows): direct to one replica on {LIFE_CONNS} "
+        f"connections {rate_a:.0f} rows/s (cores {cores_a}); through the "
+        f"router to one on {4 * LIFE_CONNS} {rate_r1:.0f} "
+        f"({rate_r1 / rate_a:.2f}x; cores {cores_r1}), to two on "
+        f"{8 * LIFE_CONNS} {rate_r2:.0f} ({rate_r2 / rate_a:.2f}x; cores "
+        f"{cores_r2}) [{f.smi}]")
+    rate = 0.5 * rate_r2
+    g, o, s = f.open("roll", ep_r2, rate)
+    while not os.path.exists(s[:-len(".stop")] + ".sending"):
+        if g.poll() is not None:
+            raise AssertionError("(s) the load generator exited early")
+        time.sleep(0.02)
+    # the cores the serving processes (and the load generator) use before
+    # and inside the roll; an incumbent that exits stays readable as a
+    # zombie until it is reaped after the roll
+    serving = {"replicas": (pa.pid, pb.pid), "router": (p2.pid,),
+               "loadgen": (g.pid,)}
+
+    def cpu() -> dict:
+        return {k: sum(_cpu_s(p) for p in ps) for k, ps in serving.items()}
+
+    tb0, cb0 = time.monotonic(), cpu()
+    time.sleep(FLEET_BASE_S)
+    succ = {}
+
+    def spawn(i, host, port, ready_file):
+        p = spawn_successor(f.model, port, ready_file, FLEET_EXTRA,
+                            host=host, device=DEV)
+        f.procs.append(p)
+        succ[i] = p
+        return p
+
+    tr0, cb1 = time.monotonic(), cpu()
+    roll = run_rolling_restart(two, spawn_fn=spawn, wait_s=600.0)
+    tr1, cb2 = time.monotonic(), cpu()
+    succ_cpu = sum(_cpu_s(p.pid) for p in succ.values())
+    cores_before = {k: round((cb1[k] - cb0[k]) / (tr0 - tb0), 2)
+                    for k in cb0}
+    cores_inside = {k: round((cb2[k] - cb1[k]) / (tr1 - tr0), 2)
+                    for k in cb0}
+    cores_inside["successors"] = round(succ_cpu / (tr1 - tr0), 2)
+    time.sleep(SETTLE_S)
+    lg = _finish_loadgen(f.work, "roll", g, o, s)
+    if not roll["ok"]:
+        raise AssertionError(f"(s) rolling restart: {roll}")
+    rcs = [_reap(pa), _reap(pb)]
+    if rcs != [0, 0]:
+        raise AssertionError(f"(s) the incumbents exited {rcs}")
+    if lg["resent"]:
+        raise AssertionError(f"(s) {lg['resent']} rows answered !shed "
+                             "during the roll")
+    send, lat = _open_rows(lg, f.col, "(s) roll")
+    before = lat[(send >= tr0 - FLEET_BASE_S / 2) & (send < tr0)]
+    inside = lat[(send >= tr0) & (send < tr1)]
+    with ServeClient(*ep_r2) as c:
+        h = c.health()
+    if h["replicas_live"] != 2 or {r["server_id"] for r in h["replicas"]} \
+            != {r["successor"] for r in roll["replicas"]}:
+        raise AssertionError(f"(s) after the roll: {h}")
+    p2.terminate()
+    _reap(p2)
+    f.out.update(rate_a=rate_a, rate_r1=rate_r1, rate_r2=rate_r2,
+                 roll_p50=_pct(before, 50), roll_p99=_pct(before, 99),
+                 in_p50=_pct(inside, 50), in_p99=_pct(inside, 99),
+                 roll_s=tr1 - tr0,
+                 warm_s=[r["warm_s"] for r in roll["replicas"]],
+                 cores_before=cores_before, cores_inside=cores_inside)
+    o_ = f.out
+    log(f"  (s) open loop at {rate:.0f} rows/s through the router, "
+        f"{len(send)} rows, every one the pred column, no !err, no !shed "
+        f"({lg['failovers']} client failovers); p50/p99 "
+        f"{o_['roll_p50']:.3f}/{o_['roll_p99']:.3f} ms before the roll, "
+        f"{o_['in_p50']:.3f}/{o_['in_p99']:.3f} ms inside it "
+        f"({o_['roll_s']:.1f} s); successors' warm_s {o_['warm_s']}; the "
+        f"cores used before the roll {cores_before}, inside it "
+        f"{cores_inside} ({os.cpu_count()} CPUs); the incumbents exited 0 "
+        f"[{f.smi}]")
+    eps = [r["endpoint"].rsplit(":", 1) for r in roll["replicas"]]
+    return [(succ[i], (h_, int(p_))) for i, (h_, p_) in enumerate(eps)]
+
+
+def fleet_group(f: _Fleet, reps: list) -> None:
+    """Phase 17 (t): two ``route`` members on one ``SO_REUSEPORT`` port
+    over ``reps`` under the port's ``run_loadgen_failover`` (``python -m
+    difacto_tpu_torch.tools.loadgen``, its own interpreter): the member
+    holding the client's connection is SIGKILLed, no ``!err``; a third
+    member restores the group, then ``run_router_group_roll`` replaces
+    both members under load: no ``!err``, successors distinct from the
+    incumbents, which exit 0."""
+    from difacto_tpu_torch.serve import run_router_group_roll
+    from difacto_tpu_torch.serve.fleet import spawn_router
+    eps = ",".join(f"{h}:{p}" for _, (h, p) in reps)
+    gport = _free_port()
+    m1, q1 = f.router("group_1", eps, gport)
+    m2, q2 = f.router("group_2", eps, gport)
+    ep_g = _ready_endpoint(m1, q1)
+    _ready_endpoint(m2, q2)
+    qps = min(2000.0, 0.25 * f.out["rate_r2"])
+    lk = _loadgen_cli(f.work, "group_kill", ep_g, qps, KILL_RUN_S)
+    f.procs.append(lk)
+    held = _client_member(lk, (m1, m2), gport)
+    if len(held) != 1:
+        raise AssertionError(f"(t) the client's connection: {held}")
+    victim = held[0]
+    time.sleep(2.0)
+    victim.send_signal(signal.SIGKILL)
+    kill = _loadgen_cli_result(f.work, "group_kill", lk)
+    if kill["err"] or kill["ok"] < kill["sent"] // 2:
+        raise AssertionError(f"(t) member kill: {kill}")
+    _reap(victim)
+    alive = m2 if victim is m1 else m1
+    m3, q3 = f.router("group_3", eps, gport)
+    _ready_endpoint(m3, q3)
+    lr = _loadgen_cli(f.work, "group_roll", ep_g, qps, GROUP_RUN_S)
+    f.procs.append(lr)
+    if not _client_member(lr, (alive, m3), gport):
+        raise AssertionError("(t) the load generator never connected")
+    time.sleep(1.0)
+    rsucc = []
+
+    def rspawn(i, host, port, ready_file):
+        p = spawn_router(eps, port, ready_file, host=host)
+        f.procs.append(p)
+        rsucc.append(p)
+        return p
+
+    tg0 = time.monotonic()
+    groll = run_router_group_roll(ep_g[0], ep_g[1], group_size=2,
+                                  spawn_fn=rspawn, endpoints=eps,
+                                  wait_s=300.0)
+    tg1 = time.monotonic()
+    grp = _loadgen_cli_result(f.work, "group_roll", lr)
+    if not groll["ok"]:
+        raise AssertionError(f"(t) group roll: {groll}")
+    incs = {r["incumbent"] for r in groll["routers"]}
+    succs = {r["successor"] for r in groll["routers"]}
+    if incs & succs or len(succs) != 2:
+        raise AssertionError(f"(t) group roll: {groll}")
+    if grp["err"] or grp["ok"] < grp["sent"] // 2:
+        raise AssertionError(f"(t) load through the group roll: {grp}")
+    rcs = [_reap(alive), _reap(m3)]
+    if rcs != [0, 0]:
+        raise AssertionError(f"(t) the rolled members exited {rcs}")
+    for p in rsucc:
+        p.terminate()
+        _reap(p)
+    f.out.update(kill_max=kill.get("max_ms"), kill_p99=kill.get("p99_ms"),
+                 group_roll_s=tg1 - tg0, group_max=grp.get("max_ms"),
+                 group_p99=grp.get("p99_ms"))
+    log(f"  (t) router group on port {gport} at {qps:.0f} rows/s: the "
+        f"member holding the client's connection SIGKILLed; {kill['ok']} "
+        f"of {kill['sent']} rows ok, {kill['shed']} shed, no !err, max "
+        f"{kill.get('max_ms')} ms, p99 {kill.get('p99_ms')} ms; the group "
+        f"rolled in {tg1 - tg0:.1f} s (successors' warm_s "
+        f"{[r['warm_s'] for r in groll['routers']]}): {grp['ok']} of "
+        f"{grp['sent']} rows ok, {grp['shed']} shed, no !err, max "
+        f"{grp.get('max_ms')} ms, p99 {grp.get('p99_ms')} ms; the "
+        f"incumbents exited 0 [{f.smi}]")
+
+
+def fleet_autoscale(f: _Fleet, rep: tuple) -> None:
+    """Phase 17 (u): an in-process RouterServer over replica ``rep`` and
+    an Autoscaler (min 1, max 2) that spawns ``task=serve`` processes on
+    the card, reading the load generator's p99 as its latency signal.
+    1.5x the replica's closed-loop rate offered open-loop makes exactly
+    one spawn, which joins the router's ``#stats`` backends and
+    shows in its ``#metrics`` (``autoscale_spawns_total``); once the load
+    stops, exactly one drain, and the drained replica exits 0. No
+    ``!err``; every answer is the pred column."""
+    from difacto_tpu_torch.obs import REGISTRY
+    from difacto_tpu_torch.serve import Autoscaler, RouterServer
+    ring = os.path.join(f.work, "fleet.ring")
+    rtr = RouterServer([rep], endpoints_file=ring).start()
+    spawned = []
+
+    def spawn(idx):
+        t = time.monotonic()
+        p, ready = f.replica(f"scale_{idx}")
+        spawned.append((t, _ready_endpoint(p, ready), p))
+        return spawned[-1][1]
+
+    p99_file = os.path.join(f.work, "scale.p99")
+
+    def client_p99() -> float:
+        """The load generator's p99 over its last second; 0 once it has
+        stopped writing (no traffic)."""
+        try:
+            with open(p99_file) as fh:
+                d = json.load(fh)
+        except (OSError, ValueError):
+            return 0.0
+        return d["p99_ms"] if time.monotonic() - d["t"] < 2.0 else 0.0
+
+    spawns0 = REGISTRY.value("autoscale_spawns_total")
+    drains0 = REGISTRY.value("autoscale_drains_total")
+    # behind a router a replica's admission queue stays short (the router
+    # forwards one 64-row chunk per client connection at a time, and the
+    # backlog waits in front of it), so the client's p99 is the signal
+    # that sees the overload
+    scaler = Autoscaler([rep], spawn, router=(rtr.host, rtr.port),
+                        min_replicas=1, max_replicas=2, endpoints_file=ring,
+                        latency_fn=client_p99, up_p99_ms=SCALE_P99_MS,
+                        # and a loaded replica's queue holds a few chunks,
+                        # so idle means a queue that is all but empty
+                        down_queue_frac=0.01,
+                        # #health's shed_rate is a lifetime fraction: after
+                        # a shed it never returns to 0, so the idle test
+                        # reads the queue alone
+                        down_shed_rate=1.0)
+    try:
+        urate = FLEET_OVERLOAD * f.out["rate_a"]
+        g, o, s = f.open("scale", (rtr.host, rtr.port), urate,
+                         p99_file=p99_file)
+        scaler.start()
+        t_first = None
+        deadline = time.monotonic() + 180
+        while t_first is None:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"(u) no scale-up: {scaler.events}")
+            if spawned:
+                key = f"{spawned[0][1][0]}:{spawned[0][1][1]}"
+                if any(b["endpoint"] == key and b["rows"] > 0
+                       for b in rtr.backends_snapshot()):
+                    t_first = time.monotonic()
+            time.sleep(0.02)
+        st_up = rtr.stats_snapshot()
+        text_up = rtr.metrics_text()
+        time.sleep(SETTLE_S)
+        lg = _finish_loadgen(f.work, "scale", g, o, s)
+        t_stop = time.monotonic()
+        while REGISTRY.value("autoscale_drains_total") == drains0:
+            if time.monotonic() > t_stop + 120:
+                raise AssertionError(f"(u) no drain after the load: "
+                                     f"{scaler.events}")
+            time.sleep(0.05)
+        t_drain = time.monotonic()
+        time.sleep(3 * scaler.poll_s)
+    finally:
+        scaler.close()
+        rtr.close()
+    if [e["action"] for e in scaler.events] != ["up", "down"]:
+        raise AssertionError(f"(u) autoscaler events {scaler.events}")
+    if REGISTRY.value("autoscale_spawns_total") - spawns0 != 1:
+        raise AssertionError("(u) autoscale_spawns_total did not move by 1")
+    key = f"{spawned[0][1][0]}:{spawned[0][1][1]}"
+    if key not in {b["endpoint"] for b in st_up["backends"]}:
+        raise AssertionError(f"(u) the spawn is not in the router's "
+                             f"#stats: {st_up['backends']}")
+    if not re.search(r"^difacto_autoscale_spawns_total \d", text_up, re.M):
+        raise AssertionError("(u) autoscale_spawns_total is not in the "
+                             "router's #metrics")
+    rc = _reap(spawned[0][2])
+    if rc != 0:
+        raise AssertionError(f"(u) the drained replica exited {rc}")
+    send, lat = _open_rows(lg, f.col, "(u) autoscale")
+    f.out.update(spawn_to_routed_s=t_first - spawned[0][0],
+                 stop_to_drain_s=t_drain - t_stop)
+    log(f"  (u) autoscaler over one replica at {urate:.0f} rows/s "
+        f"({FLEET_OVERLOAD}x its closed-loop rate): events "
+        f"{[(round(e['t'], 2), e['action'], e['endpoint'])
+            for e in scaler.events]}; "
+        f"{f.out['spawn_to_routed_s']:.2f} s from the scale-up decision to "
+        f"the first row answered by the new replica; {len(send)} rows, "
+        f"every one the pred column, no !err ({lg['resent']} shed rows "
+        f"sent again); the drain {f.out['stop_to_drain_s']:.1f} s after "
+        f"the load stopped, the drained replica exited 0; p50/p99 over the "
+        f"run {_pct(lat, 50):.3f}/{_pct(lat, 99):.3f} ms [{f.smi}]")
+
+
+def phase_fleet(work: str, lines: list, smi: str) -> dict:
+    """Phase 17 (s), (t), (u): the fleet with every part in its own
+    process on the card (the autoscaler's router in this one, so that its
+    ``#metrics`` holds the autoscaler's counters), nvidia-smi's
+    per-process memory sampled throughout."""
+    from difacto_tpu_torch.serve.fleet import drain_endpoint
+    t_phase = time.monotonic()
+    f = _Fleet(work, lines, smi)
+    stop, apps = threading.Event(), {}
+    sampler = threading.Thread(target=_smi_apps, args=(stop, apps),
+                               daemon=True)
+    if DEV == "cuda":
+        sampler.start()
+    try:
+        reps = fleet_rates_roll(f)
+        fleet_group(f, reps)
+        (pa, ep_a), (pb, ep_b) = reps
+        drain_endpoint(*ep_b)
+        if _reap(pb) != 0:
+            raise AssertionError("a drained replica did not exit 0")
+        fleet_autoscale(f, ep_a)
+        pa.terminate()
+        if _reap(pa) != 0:
+            raise AssertionError("the last replica did not exit 0 on "
+                                 "SIGTERM")
+    finally:
+        stop.set()
+        f.close()
+    if DEV == "cuda":
+        sampler.join()
+    f.out["smi"] = apps
+    log(f"  nvidia-smi per-process memory over (s)-(u): "
+        + (f"the card's memory.used at most {apps['max_used_mib']} MiB "
+           f"with at most {apps['max_procs']} processes on it"
+           if "max_used_mib" in apps
+           else f"not available ({apps.get('error', 'no sample')})")
+        + f" [{smi}]")
+    log(f"phase 17 (s)-(u) ok in {time.monotonic() - t_phase:.1f} s: "
+        "rates, a rolling restart, a router group kill and roll, an "
+        "autoscale up and down, no !err")
+    return f.out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -3565,17 +4315,22 @@ def main(argv=None) -> int:
         try:
             tp = phase_lifecycle(work, conf, uparam, lines, smi)
             to = phase_online(work, conf, uparam, smi)
+            t17 = time.monotonic()
+            tf = phase_fleet_inproc(work, lines, C, smi)
+            phase_fleet(work, lines, smi)
+            log(f"phase 17 ok in {time.monotonic() - t17:.1f} s: the fleet")
         finally:
             gc.unfreeze()
         if any(m in sys.modules for m in ("jax", "difacto_tpu",
                                           "ml_dtypes")):
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
-        # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15
-        # and 16 (p) and (q), each read just after its own run
+        # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15,
+        # 16 (p) and (q) and 17 (r), each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
-              + tp["launches"][c] + to["launches"][c] for c in COUNTERS}
+              + tp["launches"][c] + to["launches"][c] + tf["launches"][c]
+              for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

@@ -2,11 +2,12 @@
 weights-only store on the card (model.py), the bucketed predict executor
 (executor.py), a dynamic micro-batcher (batcher.py), a threaded TCP
 front-end (server.py), hot reload with blue/green swaps (reload.py), the
-single-replica takeover and drain over the wire (fleet.py), the retrying
-failover client (client.py) and the shared endpoint blacklist
-(fleethealth.py). ``task=serve`` (__main__.py) is the CLI entry. The
-router, the rolling restart and the autoscaler are not ported yet
-(ROADMAP.md)."""
+takeover, the health-gated rolling restart and the router group roll
+over the wire (fleet.py), the retrying failover client (client.py), the
+shared endpoint blacklist (fleethealth.py), the router in front of N
+replicas (router.py) and the autoscaler that sizes them
+(autoscale.py). ``task=serve`` (__main__.py) is the CLI entry;
+``python -m difacto_tpu_torch.tools.fleet`` runs the fleet."""
 
 from __future__ import annotations
 
@@ -15,13 +16,17 @@ from dataclasses import dataclass, field
 
 from ..config import KWArgs, Param
 from ..utils.manifest import CheckpointCorrupt
+from .autoscale import Autoscaler
 from .batcher import MicroBatcher, ServeStats
 from .client import ServeClient
 from .executor import PredictExecutor, sigmoid
-from .fleet import drain_endpoint, run_takeover
+from .fleet import (HealthGate, drain_endpoint, notify_backends,
+                    run_rolling_restart, run_router_group_roll,
+                    run_takeover, spawn_router)
 from .fleethealth import FleetHealth
 from .model import model_meta, open_serving_store, resolve_model_path
 from .reload import ModelReloader
+from .router import RouterServer
 from .server import ServeServer
 
 log = logging.getLogger("difacto_tpu_torch")
@@ -144,5 +149,7 @@ def run_serve(kwargs: KWArgs, device="cuda") -> KWArgs:
 __all__ = ["ServeParam", "run_serve", "ServeServer", "ServeClient",
            "PredictExecutor", "MicroBatcher", "ServeStats", "sigmoid",
            "model_meta", "open_serving_store", "resolve_model_path",
-           "ModelReloader", "CheckpointCorrupt", "FleetHealth",
-           "run_takeover", "drain_endpoint"]
+           "ModelReloader", "CheckpointCorrupt", "RouterServer",
+           "FleetHealth", "HealthGate", "run_rolling_restart",
+           "run_takeover", "Autoscaler", "run_router_group_roll",
+           "notify_backends", "spawn_router", "drain_endpoint"]

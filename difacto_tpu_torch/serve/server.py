@@ -113,6 +113,7 @@ class ServeServer:
         self._sock.settimeout(0.25)
         self.host, self.port = self._sock.getsockname()[:2]
         self._stop = threading.Event()
+        self._done = threading.Event()     # set once close() has finished
         self._mu = threading.Lock()
         self._closed = False
         self._accept_thread: Optional[threading.Thread] = None
@@ -135,8 +136,11 @@ class ServeServer:
         return self
 
     def wait(self, timeout: Optional[float] = None) -> None:
-        """Block until close() (or the timeout elapses)."""
-        self._stop.wait(timeout)
+        """Block until close() has finished (or the timeout elapses). A
+        ``#handoff`` closes the server on its own thread: the caller that
+        exits the process after this returns must not tear the
+        interpreter down under a batch still running there."""
+        self._done.wait(timeout)
 
     def _is_closed(self) -> bool:
         with self._mu:
@@ -169,6 +173,7 @@ class ServeServer:
             if t is not me:
                 t.join()
         self.batcher.close()
+        self._done.set()
 
     def drain(self, timeout_s: Optional[float] = None) -> float:
         """Graceful shutdown: stop accepting, answer new rows ``!shed

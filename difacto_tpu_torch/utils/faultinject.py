@@ -37,7 +37,17 @@ and kinds).
   counted in ``online_log_drops_total``, and the row is answered);
   ``online.label_join`` (a ``#label`` join — ``err`` answers ``!err``,
   the connection stays up); ``online.seal`` (sealing a segment — ``err``
-  keeps the resolved rows in memory and retries at the next advance).
+  keeps the resolved rows in memory and retries at the next advance);
+  ``router.forward`` (each backend forward of the router,
+  serve/router.py — ``err`` and ``close`` model a backend failing
+  mid-chunk and surface as a tail retry on a peer, never a client
+  error); ``router.takeover`` (the router's ``#handoff`` — ``err``
+  refuses the roll before any state changes, the router keeps routing);
+  ``fleet.handoff`` (each replica's handoff step of a rolling restart,
+  serve/fleet.py — ``err`` aborts the rollout with the incumbent still
+  serving); ``autoscale.spawn`` (the autoscaler's scale-up decision,
+  serve/autoscale.py — ``err`` refuses the spawn, counted in
+  ``autoscale_aborts_total``, and the loop keeps measuring).
   The tier's
   points pass a returned kind to :func:`act_default` (``kill`` dies,
   ``truncate``/``close`` refuse the move), where the JAX package drops

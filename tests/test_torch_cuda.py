@@ -13,7 +13,9 @@ padded sizes) leaving the CPU's table and residency bit for bit, a tiered
 run that repeats and equals its run on the plain versions, and the WAL's
 row round trip and a WAL-on run equal to the WAL-off one; a hot reload
 on the card while the server scores (no batch torn across models, the
-old table's memory returned) and a blue/green swap.
+old table's memory returned) and a blue/green swap; a router over two
+replicas on the card (the pred column, one gather per dispatch) and a
+rolling restart on the card that returns the incumbents' memory.
 
 On a machine with a GPU and without jax, run these without the suite's
 conftest (which imports jax):
@@ -694,3 +696,128 @@ def test_reload_on_the_card_while_scoring(cuda, tmp_path, new):
     # where the old one was
     assert after <= base - table_bytes + new_bytes + (64 << 20), \
         (base, after, table_bytes)
+
+
+@pytest.mark.parametrize("balance", ["p2c", "affinity"])
+def test_router_over_two_card_replicas_equals_pred(cuda, tmp_path, balance):
+    """The router in front of two replicas on the card: every answer is
+    the model's pred column, both replicas launched the gather (one launch
+    per dispatch), and the router's ``#stats`` counts every row."""
+    from difacto_tpu_torch.serve import (RouterServer, ServeClient,
+                                         ServeServer, open_serving_store)
+    model = _saved_model(str(tmp_path / "m"), 4, 1 << 18, 3)
+    col = _column(model, cuda)
+    with open(_RCV1, "rb") as f:
+        rows = [r for r in f.read().splitlines() if r.strip()]
+    reps = []
+    for _ in range(2):
+        store, _, _ = open_serving_store(model, device=cuda)
+        reps.append(ServeServer(store, batch_size=32,
+                                max_delay_ms=1.0).start())
+    router = None
+    launches = fused.gather_rows_cuda.launches
+    try:
+        # the splitmix64 ring (capacity 0) spreads rcv1's leading keys;
+        # the capacity arithmetic would put them all in one range
+        router = RouterServer([(s.host, s.port) for s in reps],
+                              balance=balance).start()
+        with ServeClient(router.host, router.port) as c:
+            got = [c.score_lines(rows) for _ in range(3)]
+            st = c.stats()
+        dispatches = [s.executor.stats()["dispatches"] for s in reps]
+    finally:
+        if router is not None:
+            router.close()
+        for s in reps:
+            s.close()
+    assert all(g == col for g in got)
+    assert st["rows"] == 300 and st["errors"] == 0, st
+    assert all(b["rows"] > 0 for b in st["backends"]), st
+    assert all(d > 0 for d in dispatches), dispatches
+    assert fused.gather_rows_cuda.launches - launches == sum(dispatches)
+
+
+def test_rolling_restart_on_the_card_returns_memory(cuda, tmp_path):
+    """Two replicas on the card rolled behind the router, each successor
+    built on the card beside its incumbent: the answers stay the pred
+    column, the peak is the fleet plus one store load (one successor at a
+    time; each incumbent is dropped once it has closed), the allocated
+    memory after the roll is the fleet's two tables again, and closing
+    everything returns it all."""
+    import gc
+
+    from difacto_tpu_torch.serve import (RouterServer, ServeClient,
+                                         ServeServer, open_serving_store,
+                                         run_rolling_restart)
+    C = 1 << 20
+    model = _saved_model(str(tmp_path / "m"), 8, C, 4)
+    col = _column(model, cuda)
+    with open(_RCV1, "rb") as f:
+        rows = [r for r in f.read().splitlines() if r.strip()]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    store, _, _ = open_serving_store(model, device=cuda)
+    del store
+    gc.collect()
+    torch.cuda.synchronize()
+    load_peak = torch.cuda.max_memory_allocated(cuda) - base
+
+    def serve(**kw):
+        store, _, _ = open_serving_store(model, device=cuda)
+        return ServeServer(store, batch_size=32, max_delay_ms=1.0,
+                           takeover=True, **kw).start()
+
+    incumbents = [serve(), serve()]
+    eps = [(s.host, s.port) for s in incumbents]
+    successors = []
+
+    def spawn(i, host, port, ready_file):
+        if i:
+            # the roll hands off to replica i only once incumbent i-1
+            # has closed its connections; drop it so its table goes
+            prev = incumbents[i - 1]
+            prev.wait(60.0)
+            prev._handoff_thread.join(60.0)
+            assert prev._is_closed()
+            incumbents[i - 1] = prev = None
+            gc.collect()
+        s = serve(host=host, port=port)
+        s.ready_file = ready_file
+        with open(ready_file, "w") as f:
+            f.write(f"{host} {port}\n")
+        successors.append(s)
+
+    router = RouterServer(eps).start()
+    try:
+        torch.cuda.synchronize()
+        fleet = torch.cuda.memory_allocated(cuda) - base
+        table = fleet // 2
+        torch.cuda.reset_peak_memory_stats(cuda)
+        with ServeClient(router.host, router.port) as c:
+            assert c.score_lines(rows) == col
+            roll = run_rolling_restart(eps, spawn_fn=spawn, wait_s=120.0)
+            assert roll["ok"], roll
+            assert c.score_lines(rows) == col
+        peak = torch.cuda.max_memory_allocated(cuda) - base
+        assert incumbents[1]._is_closed()
+        del incumbents[:]
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(cuda) - base
+    finally:
+        router.close()
+        for srv in incumbents + successors:
+            if srv is not None:
+                srv.close()
+        srv = None
+    del successors[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(cuda) - base
+    assert table > 0 and peak <= fleet + load_peak + (64 << 20), \
+        (peak, fleet, table, load_peak)
+    assert abs(held - fleet) <= (64 << 20), (held, fleet)
+    assert after <= (64 << 20), after

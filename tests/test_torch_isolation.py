@@ -19,6 +19,10 @@
 - The capacity levers (admission on worker processes that still import
   neither torch nor jax, the cold tier, eviction) and the durability legs
   (the WAL with bf16 rows, replicas, the recovery ladder) run there too.
+- The router, the autoscaler and the fleet tools import and run there
+  too, with the repo's ``launch.py`` poisoned as well: a router round
+  trip, the load generator, a rolling restart, a ``#backends`` nudge and
+  an autoscaler step.
 ``ml_dtypes`` is poisoned beside jax: the card machine need not have it.
 """
 
@@ -634,3 +638,92 @@ def test_serve_and_online_without_device_raise_on_a_box_without_cuda(
     fleet.spawn_successor(path, 1, str(tmp_path / "ready"))
     assert "device=cuda" in seen["args"]
     assert seen["args"][1:3] == ["-m", "difacto_tpu_torch"]
+
+
+_FLEET = ("difacto_tpu_torch.serve.router", "difacto_tpu_torch.serve.autoscale",
+          "difacto_tpu_torch.serve.fleet", "difacto_tpu_torch.tools",
+          "difacto_tpu_torch.tools.fleet", "difacto_tpu_torch.tools.loadgen",
+          "difacto_tpu_torch.tools.takeover")
+
+
+def test_fleet_runs_with_jax_poisoned(tmp_path):
+    """The router, the autoscaler and the fleet tools in an interpreter
+    that cannot import jax, difacto_tpu or the repo's ``launch.py``: every
+    module imports; a router over two CPU replicas answers a round trip
+    and the load generator, a rolling restart with an in-process
+    successor passes the health gate, ``notify_backends`` reaches the
+    router, an autoscaler step measures the fleet, and no kernel
+    launches."""
+    code = textwrap.dedent(f"""
+        import importlib, json, sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu",
+                                          "ml_dtypes", "launch"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        for n in {_FLEET!r}:
+            importlib.import_module(n)
+        from difacto_tpu_torch.ops import fused
+        from difacto_tpu_torch.serve import (Autoscaler, RouterServer,
+                                             ServeClient, ServeServer,
+                                             notify_backends,
+                                             open_serving_store,
+                                             run_rolling_restart)
+        from difacto_tpu_torch.store.local import SlotStore
+        from difacto_tpu_torch.tools.loadgen import run_loadgen
+        from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
+        d = {str(tmp_path)!r}
+        SlotStore(SGDUpdaterParam(V_dim=2, hash_capacity=512),
+                  device="cpu").save(d + "/m_part-0")
+
+        def serve(**kw):
+            store, _, _ = open_serving_store(d + "/m", device="cpu")
+            return ServeServer(store, takeover=True, **kw).start()
+
+        reps = [serve(), serve()]
+        eps = [(s.host, s.port) for s in reps]
+        router = RouterServer(eps).start()
+        rows = open({_RCV1!r}, "rb").read().splitlines()[:40]
+        with ServeClient(router.host, router.port) as c:
+            got = c.score_lines(rows)
+            assert len(got) == 40 and not any(g.startswith(b"!")
+                                              for g in got)
+            assert c.health()["replicas_live"] == 2
+        rep = run_loadgen(router.host, router.port, rows, qps=50,
+                          duration_s=1.0)
+        assert rep["err"] == 0 and rep["ok"] > 0, rep
+
+        def spawn(i, host, port, ready_file):
+            s = serve(host=host, port=port)
+            s.ready_file = ready_file
+            open(ready_file, "w").write(f"{{host}} {{port}}\\n")
+            reps.append(s)
+
+        roll = run_rolling_restart(eps[:1], spawn_fn=spawn, wait_s=30.0)
+        assert roll["ok"], roll
+        ack = notify_backends(router.host, router.port, "remove",
+                              f"{{eps[1][0]}}:{{eps[1][1]}}")
+        assert ack["ok"] and len(list(ack["routers"].values())[0][
+            "backends"]) == 1, ack
+        scaler = Autoscaler(eps[:1], lambda i: None, min_replicas=1)
+        m = scaler.step()
+        assert m["reachable"] == 1 and m["action"] is None, m
+        router.close()
+        for s in reps:
+            s.close()
+        assert fused.gather_rows_cuda.launches == 0
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "difacto_tpu",
+                                      "ml_dtypes", "launch")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == "ok"
