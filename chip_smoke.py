@@ -5,8 +5,8 @@
 
 Drives the port's serving and training paths (and the batch learners,
 phase 14, the capacity tier and the durable training state, phase 15,
-the serve lifecycle and the online loop, phase 16, and the serving
-fleet, phase 17) at the full width
+the serve lifecycle and the online loop, phase 16, the serving fleet,
+phase 17, and the fault points and tracers, phase 18) at the full width
 of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
@@ -32,7 +32,8 @@ their plain PyTorch versions. Phases:
    pred file's probability column; ``#health`` answers ready;
 5. the gather's device time (torch.profiler) at the main path's own slot
    vectors, its bound, the plain version's time and one
-   ``torch.index_select`` as a yardstick;
+   ``torch.index_select`` as a yardstick; the same in seeded bf16 and
+   int8 tables of the main path's geometry;
 6. the scatter kernel against ``fm_update_rows_ref`` / ``scatter_rows_ref``
    on the card, byte for byte, epilogue on and off: fp32, bf16, int8 and
    fp8 containers; the in-pad layout, the appended layout with its gap
@@ -63,7 +64,7 @@ their plain PyTorch versions. Phases:
    ``index_copy_`` of the in-bounds rows, which computes the same
    function. The timing loop cycles 5 payloads, more than the L2 holds;
    the push is timed L2-warm as well (one payload repeated), and in
-   bf16 and int8 tables of the same shape. With ``--parent DIR`` (a
+   bf16, int8 and fp8 tables of the same shape. With ``--parent DIR`` (a
    checkout of another commit, e.g. unpacked with ``git archive`` under
    the ignored ``difacto_tpu_torch/_build/``), that tree's
    ``scatter_epilogue.cu`` is built beside this one and both are timed
@@ -234,6 +235,29 @@ their plain PyTorch versions. Phases:
     drain; no ``!err``; the seconds from the decision to the first row
     the new replica answers. nvidia-smi's per-process memory is sampled
     throughout and every child is reaped.
+18. the last four fault points and the lock and race tracers, at the
+    same width on phase 12's rows, each step printing one JSON line:
+    (a) ``step.device:err@1:5`` raises ``FaultInjected`` at the sixth
+    dispatched step, after exactly five steps' launches, and counts once
+    into ``faults_fired_total``; (b) ``producer.part:err@1:3`` on one
+    producer thread and on one worker process (through the inherited
+    ``DIFACTO_FAULTS``): the failed parts are retried and the table
+    equals phase 12 run (a)'s bit for bit; (c) ``ckpt.write:kill@1:1``
+    in a ``task=train`` subprocess tears epoch 1's checkpoint and dies,
+    ``auto_resume`` walks past it to epoch 0 and saves run (a)'s model,
+    which ``task=pred`` scores, and ``ckpt.read:err@1`` on a load raises
+    typed; (d) two train epochs and a 1,000-row served window (with an
+    online log and a shedding burst) in a subprocess with
+    ``DIFACTO_LOCKTRACE=1 DIFACTO_RACETRACE=1``: every observed lock
+    edge is in the static graph of ``difacto_tpu_torch/utils/
+    lockorder.json`` (the repo's analyzer over the port, cycle-free, kept
+    current by tests/test_torch_lint.py), every shared field is known
+    safe and every race alarm suppressed; the traced epochs' wall times
+    beside the same epochs untraced in a subprocess of their own; (e)
+    where fsspec imports, one epoch from a ``memory://`` text part and
+    from a ``memory://`` rec2 cache into a ``memory://`` model, and pred
+    from it: tables and predictions equal the local runs' byte for byte
+    (without fsspec one line says it was not run).
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -242,8 +266,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16 and 17 (r), each counted
-from 0 just before its own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r) and 18 (a) and
+(b), each counted from 0 just before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -712,6 +736,31 @@ def phase_measure(store, windows) -> dict:
         f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms "
         f"({moved / 1e6:.2f} MB at 3.35 TB/s) -> "
         f"{bound_ms / ms:.1%} of the bound")
+    # the same slot vectors into bf16 and int8 tables of the main path's
+    # geometry (their layout at this capacity), seeded
+    import dataclasses
+    for kind in ("bf16", "int8"):
+        param = dataclasses.replace(store.param, slot_dtype=kind)
+        tab = _seeded_table(param, C, SEED + 10)
+        rb = tab.shape[1] * tab.element_size()
+        kv = [(tab, s) for _, s in vecs]
+        kp = [(tab, s) for _, s in prefixes]
+        k_ms, k_plain, k_lib = (device_ms(fn, args) for fn, args in (
+            (fused.gather_rows_cuda, kv), (fused.gather_rows_ref, kv),
+            (library, kp)))
+        for t, s in kv[:2]:
+            if not torch.equal(
+                    fused.gather_rows_cuda(t, s).view(torch.uint8),
+                    fused.gather_rows_ref(t, s).view(torch.uint8)):
+                raise AssertionError(f"kernel != plain on a {kind} table")
+        k_moved = real * rb + u_cap * rb + 4 * u_cap
+        k_bound = k_moved / HBM_BYTES_PER_S * 1e3
+        log(f"  gather, {kind} table [{C}, {tab.shape[1]}] {tab.dtype}, "
+            f"u_cap {u_cap}: kernel {k_ms:.5f} ms, plain {k_plain:.5f} ms, "
+            f"index_select {k_lib:.5f} ms, bound {k_bound:.5f} ms "
+            f"({k_moved / 1e6:.2f} MB) -> {k_bound / k_ms:.1%} of the bound")
+        del tab, kv, kp
+        torch.cuda.empty_cache()
     profile_predict(store, windows[:5])
     log("phase 5 ok: measured")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1154,10 +1203,10 @@ def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
             + "".join(f", {n}'s {v / t['ms']:.2f}x"
                       for n, v in t["others_ms"].items()))
 
-    # the push in bf16 and int8 tables of the main path's shape (their
-    # layout at this capacity: in-pad), seeded, at the same slot vectors
-    # and gradients
-    for kind in ("bf16", "int8"):
+    # the push in bf16, int8 and fp8 tables of the main path's shape
+    # (their layout at this capacity: in-pad), seeded, at the same slot
+    # vectors and gradients
+    for kind in ("bf16", "int8", "fp8"):
         param = dataclasses.replace(sp, slot_dtype=kind)
         tab = _seeded_table(param, C, SEED + 9)
         steps_k = [(s, fused.gather_rows_ref(tab, s), gw, gV, vm)
@@ -2533,7 +2582,7 @@ def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
                 if DEV == "cuda" else 0)
         delta = {n: REGISTRY.counter(n).value() - before[n] for n in names}
         tier = ln.store.tier
-        route = ln.obs.snapshot()["hists"]["tier_route_seconds"][()]
+        route = {"sum": ln.tier_route_s, "count": ln.tier_routes}
         out = dict(launches=got, delta=delta, calls=dict(tier.calls),
                    largest=dict(tier.largest), state=_tier_state(tier),
                    bits=ln.store.state.VVg.clone(), walls=walls, peak=peak,
@@ -4237,6 +4286,343 @@ def phase_fleet(work: str, lines: list, smi: str) -> dict:
     return f.out
 
 
+# ------------------------------------------------ phase 18: faults, traces
+LOCKORDER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "difacto_tpu_torch", "utils", "lockorder.json")
+STEP_FAULT_N = 5
+
+
+def _step_line(step: str, **fields) -> None:
+    print(json.dumps({"phase18": step, **fields}), flush=True)
+
+
+def _fired(point: str) -> float:
+    from difacto_tpu_torch.obs import REGISTRY
+    return REGISTRY.value("faults_fired_total", point=point, kind="err")
+
+
+def _cli_faulted(args: list, faults: str = "") -> subprocess.CompletedProcess:
+    """``python -m difacto_tpu_torch args...`` with ``DIFACTO_FAULTS`` set
+    to ``faults`` (or unset)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("DIFACTO_FAULTS", None)
+    if faults:
+        env["DIFACTO_FAULTS"] = faults
+    return subprocess.run([sys.executable, "-m", "difacto_tpu_torch",
+                           *args, f"device={DEV}"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+
+
+def traced_run(spec_path: str) -> None:
+    """Phase 18 (d)'s subprocess, started with ``DIFACTO_LOCKTRACE=1
+    DIFACTO_RACETRACE=1`` (and once without, for the epochs' times): two
+    train epochs on four producer threads, then (traced) a 1,000-row
+    window of ``task=serve``'s server (with an online log) over the
+    saved model, and an 8,000-row burst into its 1,024-row queue, which
+    sheds; dumps the lock edges and the field states, and writes the
+    epochs' wall times and the answers."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    global DEV
+    DEV = spec["device"]
+    from difacto_tpu_torch.online.log import OnlineLog
+    from difacto_tpu_torch.serve import (ServeClient, ServeServer,
+                                         open_serving_store)
+    from difacto_tpu_torch.utils import locktrace, shared
+    ln, _, walls, _ = _train([tuple(kv) for kv in spec["kwargs"]])
+    del ln
+    epochs = [w[2] for w in walls]
+    if not spec["serve"]:
+        with open(spec["out"], "w") as f:
+            json.dump({"epoch_s": epochs}, f)
+        return
+    store, _, _ = open_serving_store(spec["model"], device=DEV)
+    log_ = OnlineLog(spec["log_dir"], segment_rows=500)
+    srv = ServeServer(store, data_format="criteo", batch_size=256,
+                      online_log=log_).start()
+    with open(spec["rows"], "rb") as f:
+        rows = [r for r in f.read().splitlines() if r]
+    try:
+        with ServeClient(srv.host, srv.port) as c:
+            window = c.predict(rows[:1000])
+        with ServeClient(srv.host, srv.port) as c:
+            burst = c.predict(rows[:2000] * 4)
+    finally:
+        srv.close()
+        log_.end()
+    locktrace.dump(spec["locks"])
+    shared.dump(spec["fields"])
+    with open(spec["out"], "w") as f:
+        json.dump({"epoch_s": epochs, "window": window,
+                   "shed": sum(g is None for g in burst)}, f)
+
+
+def phase_faults(work: str, conf: list, bits_a, smi: str) -> dict:
+    """Phase 18: the last four fault points and the lock and race tracers
+    at full width, on phase 12's rows. Returns the launches of its
+    counted runs."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.serve import open_serving_store
+    from difacto_tpu_torch.utils import faultinject
+    t18 = time.monotonic()
+    data_in = os.path.join(work, "train.txt")
+    data_val = os.path.join(work, "val.txt")
+    base = conf + [("data_in", data_in), ("stop_rel_objv", "0"),
+                   ("stop_val_auc", "-2"), ("device_cache_mb", "0"),
+                   ("report_interval", "0")]
+    total = {c: 0 for c in COUNTERS}
+
+    def counted(extra):
+        _reset_counts()
+        try:
+            return _train(base + list(extra))
+        finally:
+            for c, n in _counts().items():
+                total[c] += n
+
+    # (a) step.device: the (N+1)-th dispatched step raises, typed; the
+    # kernels ran for exactly N steps (epoch 0: two gathers per step, one
+    # for the count push, and one scatter each way)
+    n = STEP_FAULT_N
+    fired0 = _fired("step.device")
+    faultinject.configure(f"step.device:err@1:{n}")
+    try:
+        try:
+            counted([("max_num_epochs", "1"), ("num_producers", "1"),
+                     ("producer_mode", "thread")])
+        except faultinject.FaultInjected as e:
+            err = e
+        else:
+            raise AssertionError("step.device:err never raised")
+        stats = faultinject.stats()
+    finally:
+        faultinject.configure("")
+    got = _counts()
+    want = {"gather_rows_cuda": 2 * n, "fm_update_rows_cuda": n,
+            "scatter_rows_cuda": n}
+    fired = _fired("step.device") - fired0
+    if got != want or fired != 1 or stats != {"step.device": 1} \
+            or not isinstance(err, OSError):
+        raise AssertionError(f"(a) launches {got} (want {want}), fired "
+                             f"{fired}, {stats}, {type(err).__name__}")
+    _step_line("a", fault=f"step.device:err@1:{n}", error=type(err).__name__,
+               fired=fired, launches=got)
+
+    # (b) producer.part: every 4th part attempt fails and is retried, on
+    # one producer thread and on one worker process (armed through the
+    # DIFACTO_FAULTS it inherits); the table is run (a)'s of phase 12
+    ab = [("data_val", data_val), ("max_num_epochs", "2"),
+          ("num_producers", "1"), ("has_aux", "1")]
+    out_b = {}
+    for mode in ("thread", "process"):
+        if mode == "thread":
+            faultinject.configure("producer.part:err@1:3")
+        else:
+            os.environ["DIFACTO_FAULTS"] = "producer.part:err@1:3"
+        try:
+            ln, prog, walls, _ = counted(ab + [("producer_mode", mode)])
+            local = faultinject.stats().get("producer.part", 0)
+        finally:
+            faultinject.configure("")
+            os.environ.pop("DIFACTO_FAULTS", None)
+        retries = ln.obs.value("producer_part_retries_total")
+        fired = ln.obs.value("faults_fired_total", point="producer.part",
+                             kind="err") if mode == "process" else local
+        same = _bits_equal(ln.store.state.VVg.cpu(), bits_a)
+        if retries < 1 or fired != retries or not same \
+                or ln.stage_stats()["producer_mode"] != mode:
+            raise AssertionError(f"(b) {mode}: fired {fired}, retries "
+                                 f"{retries}, table = run (a): {same}")
+        out_b[mode] = {"fired": fired, "retries": retries,
+                       "epoch_s": [round(w[2], 3) for w in walls]}
+        del ln
+        gc.collect()
+        torch.cuda.empty_cache() if DEV == "cuda" else None
+    _step_line("b", fault="producer.part:err@1:3", table_equals_12a=True,
+               **out_b)
+
+    # (c) ckpt.write:kill in a subprocess mid-way through epoch 1's
+    # checkpoint; auto_resume walks past the torn generation and saves
+    # run (a)'s model; task=pred of the result scores; ckpt.read:err on a
+    # load raises typed
+    model = os.path.join(work, "chaos", "m")
+    args = ["task=train", f"data_in={data_in}", f"data_val={data_val}",
+            "max_num_epochs=2", "num_producers=1", "producer_mode=thread",
+            "has_aux=1", "stop_rel_objv=0", "stop_val_auc=-2",
+            "device_cache_mb=0", "report_interval=0", "ckpt_interval=1",
+            "auto_resume=1", f"model_out={model}"] + [
+        f"{k}={v}" for k, v in conf]
+    t0 = time.monotonic()
+    r1 = _cli_faulted(args, "ckpt.write:kill@1:1")
+    torn = f"{model}_iter-1_part-0"
+    if r1.returncode != -signal.SIGKILL or not os.path.exists(torn) \
+            or os.path.exists(torn + ".manifest.json"):
+        raise AssertionError(f"(c) the killed run: rc {r1.returncode}\n"
+                             f"{r1.stderr[-2000:]}")
+    r2 = _cli_faulted(args)
+    if r2.returncode != 0 or "auto-resumed from epoch 0" not in r2.stderr \
+            or "walking back" not in r2.stderr:
+        raise AssertionError(f"(c) the resumed run: rc {r2.returncode}\n"
+                             f"{r2.stderr[-3000:]}")
+    with np.load(model + "_part-0") as z, \
+            np.load(os.path.join(work, "stream_a_part-0")) as za:
+        if sorted(z.files) != sorted(za.files) or not all(
+                np.array_equal(z[k], za[k]) for k in za.files):
+            raise AssertionError("(c) the resumed model != phase 12 run "
+                                 "(a)'s")
+    pred = os.path.join(work, "chaos", "pred")
+    run_pred([("data_in", data_val), ("data_format", "criteo"),
+              ("model_in", model + "_part-0"), ("pred_out", pred),
+              ("batch_size", "1000")], device=DEV)
+    with open(pred + "_part-0") as f:
+        p = np.array([float(ln.split()[-1]) for ln in f])
+    if len(p) != N_VAL or not np.isfinite(p).all() \
+            or not ((p > 0) & (p < 1)).all():
+        raise AssertionError(f"(c) pred of the resumed model: {len(p)} "
+                             "rows, not all probabilities")
+    faultinject.configure("ckpt.read:err@1")
+    try:
+        try:
+            open_serving_store(model + "_part-0", device=DEV)
+        except faultinject.FaultInjected as e:
+            read_err = type(e).__name__
+        else:
+            raise AssertionError("ckpt.read:err never raised")
+        read_fired = faultinject.stats().get("ckpt.read", 0)
+    finally:
+        faultinject.configure("")
+    _step_line("c", fault="ckpt.write:kill@1:1", killed_rc=r1.returncode,
+               resumed_from=0, table_equals_12a=True, pred_rows=len(p),
+               read_fault="ckpt.read:err@1", read_error=read_err,
+               read_fired=read_fired,
+               seconds=round(time.monotonic() - t0, 1))
+
+    # (d) two epochs traced and untraced, each in a subprocess of its own
+    # (the tracers arm at import), then the traced one serves
+    root = os.path.dirname(os.path.abspath(__file__))
+    specs = {}
+    for traced in (True, False):
+        dd = os.path.join(work, "traced" if traced else "untraced")
+        os.makedirs(dd, exist_ok=True)
+        kw = base + [("max_num_epochs", "2"), ("num_producers", "4"),
+                     ("producer_mode", "thread"),
+                     ("model_out", os.path.join(dd, "m"))]
+        spec = specs[traced] = {
+            "device": DEV, "kwargs": kw, "serve": traced,
+            "model": os.path.join(dd, "m"), "rows": data_val,
+            "log_dir": os.path.join(dd, "log"),
+            "locks": os.path.join(dd, "locks.json"),
+            "fields": os.path.join(dd, "fields.json"),
+            "out": os.path.join(dd, "out.json")}
+        with open(os.path.join(dd, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, PYTHONPATH=root)
+        for v in ("DIFACTO_LOCKTRACE", "DIFACTO_RACETRACE"):
+            env.pop(v, None)
+            if traced:
+                env[v] = "1"
+        r = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.traced_run({os.path.join(dd, 'spec.json')!r})"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"(d) the {'' if traced else 'un'}traced "
+                                 f"run failed:\n{r.stderr[-3000:]}")
+    with open(specs[False]["out"]) as f:
+        untraced = json.load(f)["epoch_s"]
+    spec = specs[True]
+    with open(LOCKORDER) as f:
+        static = json.load(f)
+    with open(spec["locks"]) as f:
+        edges = [(e["src"], e["dst"]) for e in json.load(f)["edges"]]
+    with open(spec["fields"]) as f:
+        fields = json.load(f)["fields"]
+    with open(spec["out"]) as f:
+        out = json.load(f)
+    sites, graph = static["sites"], {tuple(e) for e in static["edges"]}
+    bad = [e for e in edges if e[0] not in sites or e[1] not in sites
+           or (sites[e[0]], sites[e[1]]) not in graph]
+    alarms = sorted(fid for fid, rec in fields.items()
+                    if rec["state"] == "shared-modified"
+                    and rec["lockset"] == [])
+    shared_f = [fid for fid, rec in fields.items()
+                if rec["state"] != "exclusive"]
+    window = out["window"]
+    if static["cycles"] or not edges or bad \
+            or any(a not in static["race_suppressed"] for a in alarms) \
+            or any(f not in static["race_traced_known_safe"]
+                   for f in shared_f) or not shared_f \
+            or len(window) != 1000 or any(g is None for g in window) \
+            or out["shed"] == 0:
+        raise AssertionError(f"(d) edges {len(edges)}, not static {bad}, "
+                             f"alarms {alarms}, shared {shared_f}, "
+                             f"shed {out['shed']}")
+    _step_line("d", edges=len(edges), static_edges=len(graph),
+               cycles=0, shared_fields=len(shared_f), alarms=alarms,
+               epoch_s_traced=[round(x, 3) for x in out["epoch_s"]],
+               epoch_s_untraced=[round(x, 3) for x in untraced],
+               window_rows=len(window), burst_shed=out["shed"])
+
+    # (e) remote streams on memory://, where fsspec imports
+    import importlib.util
+    if importlib.util.find_spec("fsspec") is None:
+        _step_line("e", remote="not run: fsspec is not installed")
+    else:
+        _step_line("e", **phase_remote(work, conf, data_in, data_val))
+    log(f"phase 18 ok in {time.monotonic() - t18:.1f} s: fault points and "
+        f"tracing ({smi})")
+    return {"launches": total}
+
+
+def phase_remote(work: str, conf: list, data_in: str, data_val: str
+                 ) -> dict:
+    """Phase 18 (e): one epoch from a ``memory://`` text part and from a
+    ``memory://`` rec2 cache into a ``memory://`` model_out, then pred
+    from it into ``memory://``; tables and predictions equal the local
+    runs' byte for byte."""
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.data.converter import Converter
+    from difacto_tpu_torch.utils import stream
+    with open(data_in, "rb") as f, \
+            stream.open_stream("memory://p18/train.txt", "wb") as g:
+        g.write(f.read())
+    ep = [("max_num_epochs", "1"), ("num_producers", "1"),
+          ("producer_mode", "thread"), ("stop_rel_objv", "0"),
+          ("device_cache_mb", "0"), ("report_interval", "0")]
+    rec = []
+    for out in (os.path.join(work, "p18.rec"), "memory://p18/c.rec"):
+        c = Converter()
+        c.init(conf + [("data_in", data_in), ("data_out", out),
+                       ("data_out_format", "rec"), ("convert_procs", "1")])
+        c.run()
+        rec.append(out)
+    got = {}
+    for name, src, fmt, m in (
+            ("text local", data_in, "criteo", os.path.join(work, "p18t")),
+            ("text remote", "memory://p18/train.txt", "criteo",
+             "memory://p18/t"),
+            ("rec2 local", rec[0], "rec", os.path.join(work, "p18r")),
+            ("rec2 remote", rec[1], "rec", "memory://p18/r")):
+        ln, _, _, _ = _train(conf + ep + [("data_in", src),
+                                          ("data_format", fmt),
+                                          ("model_out", m)])
+        bits = ln.store.state.VVg.clone()
+        del ln
+        run_pred([("data_in", data_val), ("data_format", "criteo"),
+                  ("model_in", m + "_part-0"), ("pred_out", m + ".pred"),
+                  ("batch_size", "1000")], device=DEV)
+        with stream.open_stream(m + ".pred_part-0", "rb") as f:
+            got[name] = (bits, f.read())
+    for kind in ("text", "rec2"):
+        a, b = got[f"{kind} local"], got[f"{kind} remote"]
+        if not _bits_equal(a[0], b[0]) or a[1] != b[1]:
+            raise AssertionError(f"(e) {kind}: remote != local")
+    return {"text_equal": True, "rec2_equal": True,
+            "pred_rows": got["text remote"][1].count(b"\n")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -4303,6 +4689,7 @@ def main(argv=None) -> int:
         ts_launches = ts["launches"]
         phase_batch_learners(work, smi)
         tq = phase_capacity(work, conf, uparam, ts)
+        bits_a = ts["bits_f"]        # phase 12 run (a)'s table, for 18
         del ts
         gc.collect()
         torch.cuda.empty_cache()
@@ -4321,16 +4708,19 @@ def main(argv=None) -> int:
             log(f"phase 17 ok in {time.monotonic() - t17:.1f} s: the fleet")
         finally:
             gc.unfreeze()
+        t18 = phase_faults(work, conf, bits_a, smi)
+        del bits_a
         if any(m in sys.modules for m in ("jax", "difacto_tpu",
                                           "ml_dtypes")):
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
         # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15,
-        # 16 (p) and (q) and 17 (r), each read just after its own run
+        # 16 (p) and (q), 17 (r) and 18 (a) and (b), each read just after
+        # its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
               + tp["launches"][c] + to["launches"][c] + tf["launches"][c]
-              for c in COUNTERS}
+              + t18["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

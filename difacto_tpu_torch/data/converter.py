@@ -26,7 +26,6 @@ from __future__ import annotations
 import functools
 import logging
 import os
-import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -41,6 +40,7 @@ from .rec import write_rec_block
 from .rec2 import SUFFIX as REC2_SUFFIX
 from .reader import Reader, _byte_ranges, _iter_text_chunks, expand_uri
 from .rowblock import RowBlock, RowBlockBuilder
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -164,7 +164,7 @@ class Converter:
         # the process path, procs, members, out_bytes
         self.stats: dict = {}
         self.num_rows = 0
-        self._stage_lock = threading.Lock()
+        self._stage_lock = mutex()
 
     def init(self, kwargs: KWArgs) -> KWArgs:
         self.param, remain = ConverterParam.init_allow_unknown(kwargs)
@@ -196,9 +196,13 @@ class Converter:
     def resolve_procs(self) -> int:
         """Worker processes for the rec convert: explicit wins; auto (0)
         starts min(cores, 8) on a host with >= 4 cores. part_size
-        splitting and the libsvm output stay on one process."""
+        splitting and the libsvm output stay on one process, and so does
+        a ``memory://`` output: that filesystem lives in one process's
+        memory, and the members a worker wrote there would die with it
+        (the JAX package loses them; ROADMAP.md, Queue 3)."""
         p = self.param
-        if p.part_size > 0 or p.data_out_format != "rec":
+        if (p.part_size > 0 or p.data_out_format != "rec"
+                or p.data_out.startswith("memory://")):
             return 1
         if p.convert_procs > 0:
             return p.convert_procs
@@ -320,7 +324,7 @@ class Converter:
         limit = p.part_size * (1 << 20) if split else None
         nrows = ipart = nblk = 0
         written = [0]      # bytes in the current part, as writes land
-        written_lock = threading.Lock()
+        written_lock = mutex()
         out_dir = self._open_rec_part(ipart, split)
 
         def write_member(path: str, blk: RowBlock) -> None:

@@ -34,18 +34,19 @@ Nothing here imports torch: worker processes run this module alone.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from ..utils.locktrace import mutex
+
 
 class ShapeSchedule:
     def __init__(self) -> None:
         self._caps: dict = {}
-        self._lock = threading.Lock()
+        self._lock = mutex()
 
     def cap(self, key: str, n: int, minimum: int = 8,
             exact: bool = False) -> int:

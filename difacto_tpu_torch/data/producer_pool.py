@@ -50,6 +50,8 @@ import time
 from typing import Callable, Iterator, Optional
 
 from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
+from ..utils import faultinject
+from ..utils.locktrace import mutex
 
 _END = object()
 # ring leases a consumer may hold at once: the learner keeps two steps in
@@ -83,7 +85,7 @@ class OrderedProducerPool:
         self._fail_counts = [0] * n_parts
         self._enqueued = [0] * n_parts  # items already delivered per part
         self._gen = [0] * n_parts       # per-part attempt generation
-        self._locks = [threading.Lock() for _ in range(n_parts)]
+        self._locks = [mutex() for _ in range(n_parts)]
         self._threads = [
             threading.Thread(target=self._work, args=(w,), daemon=True)
             for w in range(self.n_workers)
@@ -135,6 +137,10 @@ class OrderedProducerPool:
                 my_gen = self._gen[part]
                 start = self._enqueued[part]
             try:
+                # fault point: an injected ``err`` takes the path a real
+                # parse or read failure takes (re-queue the part, escalate
+                # after max_retries)
+                faultinject.act_default(faultinject.fire("producer.part"))
                 it = itertools.islice(self.make_iter(part), start, None)
                 abandoned = False
                 for item in it:
@@ -244,6 +250,10 @@ def _pp_worker_main(worker_id: int, make_iter_bytes: bytes, ring_desc,
                 return
             _, part, gen, start = cmd
             try:
+                # fault point (armed through the DIFACTO_FAULTS the
+                # worker inherits): an ``err`` reports the part failed,
+                # and the consumer re-queues or escalates it
+                faultinject.act_default(faultinject.fire("producer.part"))
                 # multi-part-per-slot coalescing: items far smaller than
                 # a slot share one (header count > 1), so small batches
                 # pay one lease + one consumer wakeup per GROUP and

@@ -15,17 +15,19 @@ Layout (all little-endian)::
     [..]  u32 crc32 per section (n_sections x 4, the data checksums)
     [..]  sections, each aligned to PAGE (4096)
 
-A reader ``mmap``s the file and wraps each section with
-``np.frombuffer``: no copy until the bytes are consumed, and the mapping
-lives as long as an array that views it. Whatever is staged to the
-device or put in a ring slot is copied out by the packer first.
+A reader ``mmap``s a local file (a remote URI is read whole, once) and
+wraps each section with ``np.frombuffer``: no copy until the bytes are
+consumed, and the mapping lives as long as an array that views it.
+Whatever is staged to the device or put in a ring slot is copied out by
+the packer first.
 
 Integrity: the header CRC covers the section table and every section
 carries its own CRC32. ``read_rec2`` validates the structure and the
 section CRCs on every open, raising a typed
 :class:`RecCorrupt` on truncation, bit flips or a bad magic — never a
-crash or a silent short read. Writes go through tmp + atomic rename, so
-a torn write is never seen at the final name.
+crash or a silent short read. Writes go through tmp + atomic rename (a
+remote member: an upload to ``<uri>.tmp``, then a move), so a torn
+write is never seen at the final name.
 
 Every read traverses the ``rec.read`` fault-injection point
 (utils/faultinject.py): ``err`` raises (a failed disk read),
@@ -34,6 +36,7 @@ Every read traverses the ``rec.read`` fault-injection point
 
 from __future__ import annotations
 
+import io
 import mmap
 import os
 import struct
@@ -86,10 +89,8 @@ def write_rec2(uri: str, arrays: Dict[str, np.ndarray]) -> None:
     table = b"".join(_SECT.pack(*e) for e in entries) \
         + b"".join(struct.pack("<I", c) for c in crcs)
     head = _HEAD.pack(MAGIC, VERSION, len(names), zlib.crc32(table), 0)
-    path = stream._local(uri)
-    stream._ensure_parent(path)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+
+    def emit(f) -> None:
         f.write(head)
         f.write(table)
         pos = len(head) + len(table)
@@ -97,6 +98,21 @@ def write_rec2(uri: str, arrays: Dict[str, np.ndarray]) -> None:
             f.write(b"\0" * (o - pos))
             f.write(a.data)
             pos = o + a.nbytes
+
+    if stream.is_remote(uri):
+        # one upload of the whole member to <uri>.tmp, then a move
+        buf = io.BytesIO()
+        emit(buf)
+        tmp = uri + ".tmp"
+        with stream.open_stream(tmp, "wb") as f:
+            f.write(buf.getvalue())
+        stream.move_remote(tmp, uri)
+        return
+    path = stream._local(uri)
+    stream._ensure_parent(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        emit(f)
     os.replace(tmp, path)
 
 
@@ -109,17 +125,22 @@ def read_rec2(uri: str) -> Dict[str, np.ndarray]:
     read-only mapping, after the structure and every section's CRC
     check out."""
     kind = faultinject.fire("rec.read")
-    try:
-        with open(stream._local(uri), "rb") as f:
-            try:
-                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-            except ValueError as e:  # zero-length file
-                raise _corrupt(uri, f"unmappable ({e})") from e
-    except OSError as e:
-        if isinstance(e, FileNotFoundError):
-            raise
-        raise _corrupt(uri, f"unreadable ({e})") from e
-    buf = memoryview(mm)
+    if stream.is_remote(uri):
+        # a remote member is read whole, once; the arrays view the bytes
+        with stream.open_stream(uri, "rb") as f:
+            buf = memoryview(f.read())
+    else:
+        try:
+            with open(stream._local(uri), "rb") as f:
+                try:
+                    mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                except ValueError as e:  # zero-length file
+                    raise _corrupt(uri, f"unmappable ({e})") from e
+        except OSError as e:
+            if isinstance(e, FileNotFoundError):
+                raise
+            raise _corrupt(uri, f"unreadable ({e})") from e
+        buf = memoryview(mm)
     if kind == "truncate":
         buf = buf[:max(len(buf) // 2, 1)]
     elif kind is not None:

@@ -49,12 +49,13 @@ import itertools
 import os
 import pickle
 import struct
-import threading
 from dataclasses import fields, is_dataclass
 from multiprocessing import shared_memory
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
+
+from ..utils.locktrace import mutex
 
 # meta_len, part, seq, gen, item count, producer span id, payload_bytes
 _HEADER = struct.Struct("<IIIIIIQ")
@@ -161,7 +162,7 @@ class SlotLease:
         self.slot = slot
         self._refs = 1
         self._released = False
-        self._mu = threading.Lock()
+        self._mu = mutex()
 
     def split(self, k: int):
         """k per-item child handles sharing this slot (k >= 1). The
@@ -226,7 +227,7 @@ class ShmRing:
             name=self.name, create=True, size=n_slots * slot_bytes)
         self._owner = True
         self._unlinked = False
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self.free_qs = [ctx.Queue() for _ in range(self.n_queues)]
         for s in range(n_slots):
             self.free_qs[s // self._per_q].put(s)
@@ -250,7 +251,7 @@ class ShmRing:
         ring._shm = shared_memory.SharedMemory(name=name)
         ring._owner = False
         ring._unlinked = False
-        ring._mu = threading.Lock()
+        ring._mu = mutex()
         # workers lease through the queue handed to them at spawn, not
         # through the ring object (mp queues are not picklable by value)
         ring.free_qs = []

@@ -37,6 +37,7 @@ from ..obs import counter, gauge
 from ..utils import faultinject
 from ..utils import manifest as mft
 from . import wal as _wal
+from ..utils.locktrace import condition
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -177,7 +178,7 @@ class Replicator:
                      else int(k))
         self.rank = rank
         self.root = root or "."
-        self._cv = threading.Condition()
+        self._cv = condition()
         self._queue: List[Tuple[List[str], int, Optional[int]]] = []
         self._inflight_epochs: Set[int] = set()
         self._closed = False

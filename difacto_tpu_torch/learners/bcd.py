@@ -357,7 +357,8 @@ class BCDLearner(Learner):
                         learner=np.array("bcd"),
                         manifest={"learner": "bcd",
                                   "rows": int(len(self.feaids)),
-                                  "generation": mft.next_generation(p)})
+                                  "generation": mft.next_generation(p)},
+                        fault_point="ckpt.write")
 
     def load(self, path: str) -> None:
         """Take the saved w of the features both hold; then rebuild every

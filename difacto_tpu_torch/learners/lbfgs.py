@@ -482,7 +482,8 @@ class LBFGSLearner(Learner):
                         V_dim=np.array(self.k), learner=np.array("lbfgs"),
                         manifest={"learner": "lbfgs",
                                   "rows": int(len(self.feaids)),
-                                  "generation": mft.next_generation(p)})
+                                  "generation": mft.next_generation(p)},
+                        fault_point="ckpt.write")
 
     def load(self, path: str) -> None:
         """Replace the model with a checkpoint's layout and weights."""

@@ -92,7 +92,7 @@ from ..obs import REGISTRY, MetricsFlusher, Registry, trace
 from ..ops.batch import (bucket, panel_chunk_tokens_flat, unpack_batch,
                          unpack_panel, unpack_panel_raw)
 from ..ops.fused import dedup_tokens
-from ..step import make_step_fns
+from ..step import fire_step_fault, make_step_fns
 from ..store.local import SlotStore
 from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
 from ..updaters.sgd_updater import SGDUpdaterParam, gather_bytes
@@ -372,10 +372,11 @@ class SGDLearner(Learner):
             "seconds spent per streamed-pipeline stage, summed over "
             "threads")
         self._stage_c = {k: stage_c.labels(stage=k) for k in _STAGES}
-        self._route_h = self.obs.histogram(
-            "tier_route_seconds",
-            "host time of one batch's cold-tier routing (promotes and "
-            "demotes included)")
+        # host time of the cold tier's routing (promotes and demotes
+        # included), summed over the batches routed: not a metric of the
+        # registry, whose names are the JAX package's
+        self.tier_routes = 0
+        self.tier_route_s = 0.0
         self._step_h = self.obs.histogram(
             "train_step_seconds",
             "host-side dispatch+wait time of one fused device step")
@@ -994,15 +995,16 @@ class SGDLearner(Learner):
         The cold tier's one routing point: the host payload's logical
         slots become device rows here (capacity/tier.route_payload,
         promoting and demoting on this thread, timed into
-        ``tier_route_seconds``) before the copy. With the WAL on, the
-        batch's slot section is kept on the host (``host_slots``) for the
-        touched-row window."""
+        ``tier_route_s``/``tier_routes``) before the copy. With the WAL on,
+        the batch's slot section is kept on the host (``host_slots``) for
+        the touched-row window."""
         t0 = time.perf_counter()
         dev = self.store.device
         if self.store.tier is not None:
             from ..capacity.tier import route_payload
             payload = route_payload(self.store.tier, payload)
-            self._route_h.observe(time.perf_counter() - t0)
+            self.tier_route_s += time.perf_counter() - t0
+            self.tier_routes += 1
         if self._wal is not None and payload.layout in ("panel", "coo"):
             off = payload.b_cap * payload.d2 if payload.layout == "panel" \
                 else 2 * payload.d2
@@ -1147,7 +1149,9 @@ class SGDLearner(Learner):
         program (sgd.py:651-654); a raw-token panel (device_dedup) derives
         its slot vector and inverse map on the device first, as JAX's
         ``packed_panel_train_raw`` (sgd.py:704-722). The step reads the
-        staged buffers and writes only the table."""
+        staged buffers and writes only the table. It traverses the
+        ``step.device`` fault point first (step.fire_step_fault)."""
+        fire_step_fault()
         if st.layout == "panel_raw":
             cells = st.b_cap * st.d2
             batch = unpack_panel_raw(st.i32, st.f32, st.b_cap, st.d2,

@@ -20,11 +20,11 @@ import hashlib
 import logging
 import os
 import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 from ..ops.build import BUILD_DIR
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -32,7 +32,7 @@ SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("libsvm_parser.cc", "criteo_parser.cc", "adfea_parser.cc")
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-_lock = threading.Lock()
+_lock = mutex()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
@@ -90,6 +90,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         try:
             out = library_path()
             if not out.exists():
+                # the first-use build is serialized on purpose: every
+                # caller needs its result, and g++ is bounded by the
+                # subprocess timeout=120 (processes race safely through
+                # the per-pid tmp and the atomic replace)
+                # lint: ok(lock-blocking) bounded build under the init lock
                 _build(out)
             lib = ctypes.CDLL(str(out))
         except (OSError, subprocess.SubprocessError) as e:

@@ -137,6 +137,7 @@ class MetricsFlusher:
         return self
 
     def flush(self) -> None:
+        # lint: ok(wall-clock) timestamp-of-record on each JSONL line
         line = json.dumps({"ts": time.time(),
                            "metrics": jsonable_snapshot(
                                merged_snapshot(self.registries))})

@@ -15,9 +15,8 @@ float add. ``snapshot()`` sums the cells. Snapshots are picklable dicts
 that merge exactly (counters add, histogram buckets add), which is how
 producer worker processes report into the learner's registry
 (obs/proc.py). ``DIFACTO_OBS=off`` (or 0/false) turns the default
-registry into the no-op :data:`NOOP`. The JAX package's lock tracing
-(its ``utils/locktrace``) is tooling and not ported: locks here are
-plain ``threading.Lock``.
+registry into the no-op :data:`NOOP`. Locks come from
+``utils/locktrace`` (raw unless ``DIFACTO_LOCKTRACE`` is set).
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ import os
 import threading
 from bisect import bisect_left
 from typing import Dict, Iterable, List, Optional, Tuple
+
+from ..utils.locktrace import mutex
 
 # label set -> canonical picklable key: sorted ((k, v), ...) string pairs
 LabelsKey = Tuple[Tuple[str, str], ...]
@@ -82,7 +83,7 @@ class _CounterSeries:
     def __init__(self) -> None:
         self._local = threading.local()
         self._cells: List[list] = []
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._absorbed = 0.0
 
     def inc(self, v: float = 1.0) -> None:
@@ -110,7 +111,7 @@ class _GaugeSeries:
     __slots__ = ("_mu", "_v")
 
     def __init__(self) -> None:
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._v = 0.0
 
     def set(self, v: float) -> None:
@@ -139,7 +140,7 @@ class _HistSeries:
         self.bounds = bounds
         self._local = threading.local()
         self._cells: List[list] = []
-        self._mu = threading.Lock()
+        self._mu = mutex()
         # absorbed child/merged contributions: counts + [sum]
         self._absorbed = [0] * (len(bounds) + 1) + [0.0]
 
@@ -183,7 +184,7 @@ class _Metric:
         self.name = name
         self.help = help
         self._series_kw = series_kw
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._series: Dict[LabelsKey, object] = {}
 
     def labels(self, **labels):
@@ -258,7 +259,7 @@ class Registry:
 
     def __init__(self, enabled: Optional[bool] = None) -> None:
         self.enabled = _env_enabled() if enabled is None else enabled
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._metrics: Dict[str, _Metric] = {}
         self._children: Dict[object, dict] = {}
 

@@ -30,9 +30,11 @@ import threading
 import time
 from typing import Iterator, List, Optional
 
+from ..utils.locktrace import mutex
+
 _MAX_EVENTS = 200_000
 
-_mu = threading.Lock()
+_mu = mutex()
 _events: List[dict] = []
 _dropped = 0
 _active = False
@@ -58,6 +60,7 @@ def set_trace_id(tid: int) -> None:
     """Adopt a parent process's trace id (it reaches producer workers
     through pack_stream.StreamSpec)."""
     global _trace_id
+    # lint: ok(data-race) write-once setup before producer workers span
     _trace_id = int(tid)
 
 
@@ -66,11 +69,13 @@ def start(path: Optional[str] = None,
     """Begin collecting span events; ``path`` is where :func:`save` (and
     the atexit hook) writes them."""
     global _active, _path, _trace_id
+    # lint: ok(data-race) GIL-atomic on/off flip; spans tolerate either
     _active = True
     if path:
         _path = path
     _trace_id = (trace_id_ if trace_id_ is not None
                  else _trace_id or (os.getpid() << 16)
+                 # lint: ok(wall-clock) id entropy, not a duration
                  | int(time.time()) % (1 << 16))
 
 

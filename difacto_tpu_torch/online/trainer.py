@@ -42,6 +42,7 @@ from ..config import KWArgs, parse_endpoints
 from ..obs import gauge
 from .log import read_index
 from .tail import TailReader
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -66,7 +67,7 @@ class OnlineTrainer:
         from ..learners.base import Learner
         self.learner = Learner.create("sgd", device=device)
         self.leftover = self.learner.init(list(learner_kwargs) + forced)
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._trained_through = -1
         self._generations = 0
         self._stop = threading.Event()

@@ -18,17 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict
+
+from ..utils.locktrace import mutex
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()                 # guards _locks
-_locks: Dict[str, threading.Lock] = {}
+_lock = mutex()                          # guards _locks
+_locks: Dict[str, object] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -57,8 +58,11 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if it is not on
     disk yet."""
+    lib = _libs.get(name)
+    if lib is not None:        # built and loaded: no lock on the hot path
+        return lib
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(name, mutex())
     with lock:
         if name not in _libs:
             out = library_path(name)

@@ -41,11 +41,11 @@ import logging
 import os
 import threading
 import time
-from threading import Lock as mutex
 from typing import Callable, List, Optional, Tuple
 
 from ..config import parse_endpoints
 from ..utils import faultinject
+from ..utils.locktrace import mutex
 from .fleet import drain_endpoint, fresh_health, notify_backends
 
 log = logging.getLogger("difacto_tpu_torch")

@@ -27,7 +27,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..data.rowblock import RowBlock
-from ..utils import faultinject
+from ..utils import faultinject, shared
+from ..utils.locktrace import mutex
 from ..utils.reporter import Reporter
 
 log = logging.getLogger("difacto_tpu_torch")
@@ -36,13 +37,18 @@ log = logging.getLogger("difacto_tpu_torch")
 class ServeStats:
     """Serving counters + latency, backed by a per-server obs registry."""
 
+    # RACETRACE opt-in (utils/shared.py): the fields guarded by _mu,
+    # traced when DIFACTO_RACETRACE=1
+    _lat = shared.attr()
+    _last_report = shared.attr()
+
     def __init__(self, reporter: Optional[Reporter] = None,
                  report_every_s: float = 30.0, window: int = 8192,
                  registry=None):
         from ..obs import Registry
         self.obs = registry if registry is not None \
             else Registry(enabled=True)
-        self._mu = threading.Lock()     # latency window + report throttle
+        self._mu = mutex()     # latency window + report throttle
         self._lat = collections.deque(maxlen=window)  # seconds
         self._t0 = time.monotonic()
         self._last_report = self._t0
@@ -154,6 +160,11 @@ class MicroBatcher:
     (server.swap_executor) retargets the NEXT flush, and the batch in
     flight finishes on the function it started with."""
 
+    # RACETRACE opt-in (utils/shared.py): `_rows_queued`/`_busy` are
+    # guarded by _mu; the stop flag is a threading.Event
+    _rows_queued = shared.attr()
+    _busy = shared.attr()
+
     def __init__(self, predict_fn: Callable[[RowBlock], np.ndarray],
                  batch_size: int = 256, max_delay_ms: float = 2.0,
                  queue_cap: int = 1024,
@@ -164,7 +175,7 @@ class MicroBatcher:
         self.queue_cap = queue_cap
         self.stats = stats if stats is not None else ServeStats()
         self._q: "queue.Queue" = queue.Queue()
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._rows_queued = 0          # guarded by _mu
         self._busy = False             # a batch is being scored; _mu
         self._stop = threading.Event()

@@ -26,7 +26,6 @@ primes the caching allocator's blocks for those shapes.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,6 +38,7 @@ from ..losses import LossSpec, create as create_loss
 from ..ops.batch import max_row_nnz, pack_batch, unpack_batch
 from ..step import make_predict_fn
 from ..store.local import SlotStore, pad_slots_oob
+from ..utils.locktrace import mutex
 
 
 def sigmoid(pred: np.ndarray) -> np.ndarray:
@@ -60,7 +60,7 @@ class PredictExecutor:
             else create_loss("fm", store.param.V_dim)
         self._step = make_predict_fn(store.fns, self.loss)
         self.shapes = ShapeSchedule()
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._buckets: dict = {}   # statics key -> dispatch count
         self._dispatches = 0
         self._warmed = 0           # buckets registered by warm_bucket()
@@ -140,6 +140,8 @@ class PredictExecutor:
                 "must go through the blue/green executor swap "
                 "(serve/reload.py, requires a server-attached reloader)")
         with self._mu:
+            # lint: ok(data-race) atomic reference swap (hot-reload commit):
+            # predict and warm_bucket read self.store once per batch
             self.store = store
             self.generation += 1
             return self.generation

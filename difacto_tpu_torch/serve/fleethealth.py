@@ -45,7 +45,12 @@ import os
 import time
 from typing import Dict, Optional, Tuple
 
-from threading import Lock as mutex
+try:
+    from ..utils.locktrace import mutex
+except ImportError:
+    # tests/fleethealth_worker.py loads this file standalone (no
+    # package) to drive two-process concurrent writers
+    from threading import Lock as mutex
 
 try:
     import fcntl
@@ -87,9 +92,10 @@ class FleetHealth:
     def _append(self, op: str, host: str, port: int) -> None:
         # wall clock by design: marks are compared across PROCESSES and
         # hosts through a shared file; monotonic clocks do not compare
-        rec = json.dumps({"ts": round(time.time(), 3), "op": op,
-                          "ep": _key(host, port), "pid": os.getpid()},
-                         separators=(",", ":")) + "\n"
+        rec = json.dumps(
+            {"ts": round(time.time(), 3),  # lint: ok(wall-clock)
+             "op": op, "ep": _key(host, port), "pid": os.getpid()},
+            separators=(",", ":")) + "\n"
         # open-then-lock can race a peer's compaction: if the path was
         # os.replace()d while we waited on the OLD inode's lock, our
         # append would land on the orphan and vanish — so after locking,
@@ -143,7 +149,7 @@ class FleetHealth:
         lock. Only currently-down marks survive; clears and expired downs
         are the compactible majority."""
         downs = self._fold(self._read_lines())
-        now = time.time()  # cross-process file ts
+        now = time.time()  # lint: ok(wall-clock) cross-process file ts
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
             for ep, (op, ts) in downs.items():
@@ -198,7 +204,7 @@ class FleetHealth:
         """{'host:port': seconds_remaining} for every endpoint currently
         suppressed — a `down` mark younger than ``down_s`` with no later
         `clear`."""
-        now = time.time()  # cross-process file ts
+        now = time.time()  # lint: ok(wall-clock) cross-process file ts
         out: Dict[str, float] = {}
         for ep, (op, ts) in self._state().items():
             remaining = self.down_s - (now - ts)

@@ -38,6 +38,7 @@ import time
 from typing import Optional, Tuple
 
 from ..utils import faultinject, stream
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -81,7 +82,8 @@ class ModelReloader:
         self.bluegreen_swaps = 0
         self.last_warm_ms = 0.0              # wall cost of the last warm
         self.swap_state = "idle"             # idle | warming | swapping
-        self._reload_mu = threading.Lock()   # serialize reloads
+        self._reload_mu = mutex()            # serialize reloads
+        self._stats_mu = mutex()             # the counters and state above
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._cur = self._fingerprint()
@@ -153,22 +155,32 @@ class ModelReloader:
             fp = self._fingerprint() if path is None else None
             try:
                 blue = self.executor
+                # the load holds _reload_mu on purpose (one reload at a
+                # time); its only sleep is a ckpt.read delay_ms, the chaos
+                # stand-in for a slow read, which holds it as a real one
+                # lint: ok(lock-blocking) fault-injection delay only
                 store, meta, _ = _open_on_side_stream(
                     target, self._kwargs, blue.store.device)
                 if (store_geometry(store.param)
                         != store_geometry(blue.store.param)
                         and self._server is not None):
+                    # the warm holds _reload_mu on purpose (one reload at a
+                    # time); its one sleep is reload.warm's delay_ms chaos
+                    # kind, which stretches exactly this window
+                    # lint: ok(lock-blocking) fault-injection delay only
                     gen = self._bluegreen_swap(blue, store)
                 else:
                     gen = blue.swap_store(store)
             except Exception as e:  # boundary: keep the current model
-                self.reload_failures += 1
+                with self._stats_mu:
+                    self.reload_failures += 1
                 counter("model_reload_failures_total",
                         "failed hot-reloads (old model kept)").inc()
                 log.warning("model reload from %s failed; keeping the "
                             "current model: %s", target, e)
                 return {"ok": False, "error": str(e)}
-            self.reloads += 1
+            with self._stats_mu:
+                self.reloads += 1
             counter("model_reloads_total",
                     "successful model hot-reloads").inc()
             if fp is not None:
@@ -187,7 +199,7 @@ class ModelReloader:
         from concurrent.futures import ThreadPoolExecutor
 
         from .executor import PredictExecutor
-        self.swap_state = "warming"
+        self._set_state("warming")
         try:
             caps, keys = blue.warm_set()
             workers = max(1, min(self.warm_workers, len(keys) or 1))
@@ -212,11 +224,13 @@ class ModelReloader:
                         thread_name_prefix="bluegreen-warm") as pool:
                     for _ in pool.map(_warm_one, keys):
                         pass
-            self.last_warm_ms = (time.monotonic() - t0) * 1e3
-            self.swap_state = "swapping"
+            with self._stats_mu:
+                self.last_warm_ms = (time.monotonic() - t0) * 1e3
+                self.swap_state = "swapping"
             green.generation = blue.generation + 1
             self._server.swap_executor(green)
-            self.bluegreen_swaps += 1
+            with self._stats_mu:
+                self.bluegreen_swaps += 1
             self._server.obs.counter(
                 "serve_bluegreen_swaps_total",
                 "geometry-changing blue/green executor swaps").inc()
@@ -224,12 +238,19 @@ class ModelReloader:
                      "warm)", green.generation, len(keys))
             return green.generation
         finally:
-            self.swap_state = "idle"
+            self._set_state("idle")
 
     # ------------------------------------------------------------ stats
+    def _set_state(self, state: str) -> None:
+        with self._stats_mu:
+            self.swap_state = state
+
     def stats(self) -> dict:
-        return {"reloads": self.reloads,
-                "reload_failures": self.reload_failures,
-                "bluegreen_swaps": self.bluegreen_swaps,
-                "last_warm_ms": round(self.last_warm_ms, 3),
-                "swap_state": self.swap_state}
+        """The reload counters for ``#stats``/``#health``, under their own
+        lock: never blocked by a reload holding ``_reload_mu``."""
+        with self._stats_mu:
+            return {"reloads": self.reloads,
+                    "reload_failures": self.reload_failures,
+                    "bluegreen_swaps": self.bluegreen_swaps,
+                    "last_warm_ms": round(self.last_warm_ms, 3),
+                    "swap_state": self.swap_state}

@@ -74,11 +74,11 @@ import socket
 import threading
 import time
 import zlib
-from threading import Lock as mutex
 from typing import Dict, List, Optional, Tuple
 
 from ..config import parse_endpoints
 from ..utils import faultinject
+from ..utils.locktrace import mutex
 from .fleethealth import open_blacklist
 
 log = logging.getLogger("difacto_tpu_torch")

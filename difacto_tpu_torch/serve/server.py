@@ -60,6 +60,7 @@ from ..utils import faultinject, stream
 from ..utils.reporter import Reporter
 from .batcher import MicroBatcher, ServeStats
 from .executor import PredictExecutor, sigmoid
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -114,7 +115,7 @@ class ServeServer:
         self.host, self.port = self._sock.getsockname()[:2]
         self._stop = threading.Event()
         self._done = threading.Event()     # set once close() has finished
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._closed = False
         self._accept_thread: Optional[threading.Thread] = None
         self._conns: set = set()            # guarded by _mu
@@ -126,9 +127,11 @@ class ServeServer:
     # ---------------------------------------------------------- control
     def start(self) -> "ServeServer":
         self.batcher.start()
-        self._accept_thread = threading.Thread(
-            target=self._accept_loop, name="serve-accept", daemon=True)
-        self._accept_thread.start()
+        t = threading.Thread(target=self._accept_loop, name="serve-accept",
+                             daemon=True)
+        with self._mu:
+            self._accept_thread = t
+        t.start()
         log.info("serving on %s:%d (batch<=%d rows, delay<=%.1fms, "
                  "queue<=%d rows, %s)", self.host, self.port,
                  self.batcher.batch_size, self.batcher.max_delay_s * 1e3,
@@ -155,9 +158,10 @@ class ServeServer:
             self._closed = True
         self._stop.set()
         self._stop_listening()
-        if self._accept_thread is not None:
-            self._accept_thread.join()
-            self._accept_thread = None
+        with self._mu:
+            accept, self._accept_thread = self._accept_thread, None
+        if accept is not None:
+            accept.join()
         with self._mu:
             conns = list(self._conns)
             threads, self._conn_threads = self._conn_threads, []
@@ -182,6 +186,8 @@ class ServeServer:
         Returns the seconds it took; idempotent with close()."""
         timeout = self.drain_timeout_s if timeout_s is None else timeout_s
         t0 = time.monotonic()
+        # lint: ok(data-race) monotonic False->True flip (GIL-atomic); the
+        # per-row readers see it at the next row and answer !shed draining
         self.draining = True
         self._stop_listening()       # the accept loop exits on OSError
         deadline = t0 + timeout
@@ -213,6 +219,8 @@ class ServeServer:
         """Blue/green commit point (serve/reload.py): the batcher reads
         ``predict_fn`` afresh per flush, so the batch in flight finishes
         on blue and the next one runs on green."""
+        # lint: ok(data-race) atomic reference swap (blue/green commit):
+        # each reader takes the executor once per use
         self.executor = new
         self.batcher.predict_fn = new.predict_scores
 
@@ -237,7 +245,7 @@ class ServeServer:
             "pid": os.getpid(),
             "server_id": f"{os.getpid()}.{id(self):x}",
             "takeover": self.takeover,
-            "swap_state": (self.reloader.swap_state
+            "swap_state": (self.reloader.stats()["swap_state"]
                            if self.reloader is not None else "idle"),
         }
         if successor_file is not None:

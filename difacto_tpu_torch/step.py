@@ -69,6 +69,17 @@ def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
     return forward, train_step, eval_step
 
 
+def fire_step_fault() -> None:
+    """The ``step.device`` fault point (utils/faultinject.py), traversed
+    on the host once per dispatched step, before its kernels launch.
+    ``err`` stands for a poisoned program or a lost device surfacing at
+    dispatch: it raises the OSError-derived ``FaultInjected`` the IO
+    paths use, and every armed fire counts into
+    ``faults_fired_total{point,kind}``."""
+    from .utils import faultinject
+    faultinject.act_default(faultinject.fire("step.device"))
+
+
 def make_predict_fn(fns, loss: LossSpec):
     """(state, batch, slots) -> (pred, objv, auc), all device tensors."""
 

@@ -528,7 +528,8 @@ class SlotStore:
                "generation": mft.next_generation(path)}
         if epoch is not None:
             man["epoch"] = int(epoch)
-        stream.save_npz(path, manifest=man, **arrays)
+        stream.save_npz(path, manifest=man, fault_point="ckpt.write",
+                        **arrays)
         return n
 
     def load(self, path: str, weights_only: Optional[bool] = None,
@@ -548,8 +549,8 @@ class SlotStore:
         loaded = ("w", "cnt", "v_live", "V") + (
             () if weights_only else ("z", "sqrt_g", "Vg"))
         k = self.param.V_dim
-        with mft.open_verified(path,
-                               require_manifest=require_manifest) as z:
+        with mft.open_verified(path, require_manifest=require_manifest,
+                               fault_point="ckpt.read") as z:
             if self.hashed != ("hash_capacity" in z.files):
                 raise ValueError(
                     "checkpoint store mode mismatch: checkpoint is "

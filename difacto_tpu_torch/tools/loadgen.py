@@ -64,9 +64,9 @@ import threading
 import time
 from typing import List, Sequence, Union
 
-from threading import Lock as mutex
-
 import numpy as np
+
+from ..utils.locktrace import mutex
 
 Line = Union[str, bytes]
 

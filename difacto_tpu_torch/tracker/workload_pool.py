@@ -20,12 +20,12 @@ keeps tests deterministic; the reference used a 2 s poller thread).
 from __future__ import annotations
 
 import logging
-import threading
 import time as _time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
 from ..config import Param
+from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
 
@@ -44,7 +44,7 @@ class _Assigned(NamedTuple):
 class WorkloadPool:
     def __init__(self, param: Optional[WorkloadPoolParam] = None):
         self.param = param or WorkloadPoolParam()
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._avail: Dict[int, bool] = {}   # part -> available
         self._assigned: List[_Assigned] = []
         self._times: List[float] = []

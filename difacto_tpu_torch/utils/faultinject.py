@@ -5,6 +5,16 @@ and kinds).
     DIFACTO_FAULTS="point:kind@prob[:after_n][,point:kind@prob...]"
 
 - ``point`` — a dotted site name. The port wires these:
+  ``ckpt.write`` / ``ckpt.read`` (the ``fault_point=`` of
+  utils/stream.py ``save_npz``/``load_npz`` at every checkpoint save and
+  load: the store, BCD and L-BFGS — ``truncate`` lands half the bytes
+  under the final name with no manifest, ``kill`` does that and then
+  SIGKILLs, ``err`` on a read is the typed OSError a failing disk
+  raises); ``producer.part`` (each part attempt of a producer thread or
+  worker process, data/producer_pool.py — ``err`` re-queues the part,
+  escalating to the consumer after ``max_retries``); ``step.device``
+  (the host side of each dispatched step, step.py fire_step_fault —
+  ``err`` stands for a lost device surfacing at dispatch);
   ``rec.read`` (every rec2 data-cache member open, data/rec2.py — ``err``
   is a failed disk read, ``truncate`` reads a half-length view which the
   per-section CRCs must reject as a typed ``RecCorrupt``, never a crash
@@ -51,8 +61,8 @@ and kinds).
   The tier's
   points pass a returned kind to :func:`act_default` (``kill`` dies,
   ``truncate``/``close`` refuse the move), where the JAX package drops
-  it. The JAX package's other points are listed in ROADMAP.md (Queue 1,
-  fault injection).
+  it. The JAX package's other two points, ``push.stale`` and
+  ``dcn.collective``, belong to sharding (ROADMAP.md, Queue 1).
 - ``kind`` — what happens when the fault fires:
     - ``err``      raise :class:`FaultInjected` (an OSError, so IO call
                    sites treat it exactly like a real IO failure);
@@ -79,9 +89,10 @@ from __future__ import annotations
 import os
 import random
 import signal
-import threading
 import time
 from typing import Dict, List, Optional
+
+from .locktrace import mutex
 
 KINDS = ("err", "truncate", "close", "delay_ms", "kill")
 
@@ -104,7 +115,7 @@ class _Fault:
 
 
 _armed: Dict[str, List[_Fault]] = {}
-_mu = threading.Lock()
+_mu = mutex()
 _rng = random.Random()
 
 
@@ -150,6 +161,8 @@ def configure(spec: Optional[str] = None, seed: int = 0xD1FAC70) -> None:
     if spec is None:
         spec = os.environ.get("DIFACTO_FAULTS", "")
     _rng.seed(seed)
+    # lint: ok(data-race) armed at process/test setup before traffic;
+    # steady-state readers take the unarmed fast path
     _armed = parse(spec)
 
 

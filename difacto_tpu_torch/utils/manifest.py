@@ -121,7 +121,8 @@ class VerifiedNpz:
     :class:`CheckpointCorrupt` before the caller commits any state. A
     clean ``with`` exit runs ``finish()``."""
 
-    def __init__(self, uri: str, require_manifest: bool = False):
+    def __init__(self, uri: str, require_manifest: bool = False,
+                 fault_point: str = ""):
         if not stream.isfile(uri):
             raise FileNotFoundError(uri)
         self.uri = uri
@@ -131,11 +132,14 @@ class VerifiedNpz:
                 uri, "manifest missing — incomplete (torn) checkpoint, "
                      "or a file not written by a difacto save")
         try:
-            self._npz = stream.load_npz(uri)
+            self._npz = stream.load_npz(uri, fault_point=fault_point)
             self._names = set(self._npz.files)
         except FileNotFoundError:
             raise
         except (zipfile.BadZipFile, ValueError, OSError, EOFError) as e:
+            from . import faultinject
+            if isinstance(e, faultinject.FaultInjected):
+                raise  # an injected read failure keeps its type
             raise CheckpointCorrupt(uri, f"unreadable npz: {e}") from e
         self._checked: set = set()
         self._finished = False
@@ -192,8 +196,10 @@ class VerifiedNpz:
             self.close()
 
 
-def open_verified(uri: str, require_manifest: bool = False) -> VerifiedNpz:
-    return VerifiedNpz(uri, require_manifest=require_manifest)
+def open_verified(uri: str, require_manifest: bool = False,
+                  fault_point: str = "") -> VerifiedNpz:
+    return VerifiedNpz(uri, require_manifest=require_manifest,
+                       fault_point=fault_point)
 
 
 # ------------------------------------------------------- generations

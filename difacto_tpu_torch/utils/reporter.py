@@ -10,20 +10,22 @@ every 50 pushes, include/difacto/store.h:118-123).
 
 from __future__ import annotations
 
-import threading
 from typing import Any, Callable, Optional
+
+from .locktrace import mutex
 
 
 class Reporter:
     def __init__(self, every: int = 1):
         self._monitor: Optional[Callable[[int, Any], None]] = None
-        self._mu = threading.Lock()
+        self._mu = mutex()
         self._count = 0
         self._every = max(every, 1)
 
     def set_monitor(self, fn: Callable[[int, Any], None]) -> None:
         """fn(node_id, payload)."""
-        self._monitor = fn
+        with self._mu:
+            self._monitor = fn
 
     def report(self, payload: Any, node_id: int = 0) -> int:
         """Deliver payload to the monitor (throttled); returns a sequence
@@ -31,6 +33,7 @@ class Reporter:
         with self._mu:
             self._count += 1
             seq = self._count
-        if self._monitor is not None and seq % self._every == 0:
-            self._monitor(node_id, payload)
+            monitor = self._monitor
+        if monitor is not None and seq % self._every == 0:
+            monitor(node_id, payload)
         return seq
