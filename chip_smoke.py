@@ -6,7 +6,8 @@
 Drives the port's serving and training paths (and the batch learners,
 phase 14, the capacity tier and the durable training state, phase 15,
 the serve lifecycle and the online loop, phase 16, the serving fleet,
-phase 17, and the fault points and tracers, phase 18) at the full width
+phase 17, the fault points and tracers, phase 18, and the examples'
+(dp, fs) mesh, phase 19) at the full width
 of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
@@ -72,7 +73,8 @@ their plain PyTorch versions. Phases:
    may be given more than once, each tree named by its directory;
 9. ``task=train`` at the JAX package's defaults on the dictionary store
    at the full width of examples/criteo_dict.conf (no ``hash_capacity``,
-   ``device_cache_mb`` 2048, ``shuffle`` 10, mesh keys ignored): 150,000
+   ``device_cache_mb`` 2048, ``shuffle`` 10, flat: ``mesh_dp=1
+   mesh_fs=1``, as every phase but 19 runs the confs): 150,000
    train and 10,000 validation rows, 3 epochs. The table grows from
    16,384 rows at least 4 times while the cache stages, and the staged
    slot pads are rewritten before epoch 1 replays; the objective per row
@@ -258,6 +260,32 @@ their plain PyTorch versions. Phases:
     from a ``memory://`` rec2 cache into a ``memory://`` model, and pred
     from it: tables and predictions equal the local runs' byte for byte
     (without fsspec one line says it was not run).
+19. the examples' single-process (dp, fs) mesh on the card, run right
+    after phase 8 under ``DIFACTO_TORCH_VIRTUAL_DEVICES=8`` (eight logical
+    devices on the one card, set for these runs only): (a)
+    examples/criteo_hashed.conf as written (``mesh_dp=2 mesh_fs=4``) on
+    phase 7's rows, 2 epochs at the default ``device_cache_mb``: the
+    objective per row falls and each epoch's is within 1e-5 relative of
+    phase 7's flat run; the launches equal the non-empty shard runs the
+    routing asked for (printed beside phase 7's); a repeat run leaves the
+    table bit for bit; a replayed step's wall, busy time, idle share and
+    device events beside phase 8's flat step. (b) ``mesh_dp=1
+    mesh_fs=4`` and ``mesh_force=1`` at 1 x 1 leave phase 7's table bit
+    for bit. (c) (a)'s model, saved per key range (``_fs-<i>-of-4``
+    members and the stub), scored by ``task=pred`` at ``serve_mesh_fs``
+    4 and 1 and under the conf's mesh keys: three byte-identical files
+    within 1e-4 of a float64 FM; ``task=serve`` at ``serve_mesh_fs=4``
+    answers a window equal to that pred column. (d)
+    examples/criteo_dict.conf on its 2 x 4 mesh on the same rows: the
+    dictionary grows (each capacity a multiple of 4), a repeat run is
+    bit-identical (table and keys), and with ``device_cache_mb=0`` on
+    both each epoch is within 1e-5 of its flat run. (e) BCD
+    (examples/bcd.conf) at ``mesh_dp=4`` at the reference's optimum,
+    L-BFGS at ``mesh_fs=4`` (linear and FM with V) at the goldens, each
+    beside its flat run. (f) ``capacity_scaling_report`` at fs 1, 2 and
+    4 at the conf's geometry (the fs=4 leg is its 4,194,304-row table at
+    V_dim 16, batches of 1,000 rows of 39 features, 50 timed steps). (g) each shard's gather and push device time at (a)'s staged slot
+    vectors, beside the flat kernel's on the same vectors.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -266,8 +294,9 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
-paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r) and 18 (a) and
-(b), each counted from 0 just before its own run), then, as the last line,
+paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r), 18 (a) and
+(b) and 19 (a), (c) and (d), each counted from 0 just before its own
+run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -574,7 +603,8 @@ def phase_pred(work: str, kwargs: list, uparam, arrays: dict, text: bytes):
     return store, lines, launches, windows
 
 
-def phase_serve(store, lines, text: bytes, batch: int) -> int:
+def phase_serve(store, lines, text: bytes, batch: int,
+                label: str = "phase 4") -> int:
     import torch
     from difacto_tpu_torch.ops import fused
     from difacto_tpu_torch.serve import ServeServer
@@ -613,7 +643,7 @@ def phase_serve(store, lines, text: bytes, batch: int) -> int:
         f"micro-batch(es), p50 {stats.get('p50_ms')} ms, p99 "
         f"{stats.get('p99_ms')} ms, {launches} gather launches, "
         f"#health {health['status']}")
-    log("phase 4 ok: task=serve answers equal the pred column")
+    log(f"{label} ok: task=serve answers equal the pred column")
     return launches
 
 
@@ -1079,7 +1109,6 @@ def phase_train(work: str, conf: list, uparam) -> dict:
                              "table than the kernels")
     log("  run 3 (gather/scatter swapped for their plain versions): final "
         "table bit-identical to run 1")
-    del first
     torch.cuda.empty_cache()
 
     # the saved model through phase 3's pred path vs a float64 FM
@@ -1101,8 +1130,10 @@ def phase_train(work: str, conf: list, uparam) -> dict:
         f"validation rows within {p_err:.3g} of the float64 FM")
     log("phase 7 ok: task=train at full width, the replay cache at its "
         "default, deterministic, kernels = plain versions")
+    # run 1's table and objectives stay for phase 19's mesh runs
     return {"launches": launches, "learner": ln, "data_in": data_in,
-            "walls": walls}
+            "data_val": data_val, "val_text": val_text, "walls": walls,
+            "loss": loss, "bits": first}
 
 
 def phase_measure_train(ln, data_in: str, parent_fns: dict) -> dict:
@@ -1328,7 +1359,9 @@ def phase_train_dict(work: str) -> dict:
     from difacto_tpu_torch.__main__ import run_pred
     from difacto_tpu_torch.config import parse_config_file
     from difacto_tpu_torch.learners.sgd import SGDLearnerParam
-    conf = parse_config_file(DICT_CONF)
+    # the flat table phase 9 always measured; phase 19 runs the mesh
+    conf = parse_config_file(DICT_CONF) + [("mesh_dp", "1"),
+                                           ("mesh_fs", "1")]
     n_train = N_DICT_TRAIN
     t0 = time.monotonic()
     data_in = os.path.join(work, "dict_train.txt")
@@ -1348,7 +1381,8 @@ def phase_train_dict(work: str) -> dict:
     log(f"config {DICT_CONF}: V_dim {dict(rest)['V_dim']}, no "
         f"hash_capacity (the dictionary store from {start} rows), "
         f"batch_size {lp.batch_size}, device_cache_mb {lp.device_cache_mb}, "
-        f"shuffle {lp.shuffle}, mesh keys ignored; {n_train} train + "
+        f"shuffle {lp.shuffle}, flat (mesh_dp=1 mesh_fs=1; phase 19 runs "
+        f"the conf's mesh); {n_train} train + "
         f"{N_VAL} validation rows written in {time.monotonic() - t0:.1f} s: "
         f"{nb} train batches per epoch, {val_b} validation block(s)")
 
@@ -1461,6 +1495,7 @@ def phase_layout_cross(work: str) -> dict:
     with open(data_in, "wb") as f:
         f.write(synthetic_criteo(4000, SEED + 6))
     kwargs = parse_config_file(DICT_CONF) + [
+        ("mesh_dp", "1"), ("mesh_fs", "1"),
         ("data_in", data_in), ("max_num_epochs", "2"),
         ("pad_v_rows_max_mb", "1"), ("init_capacity", "1024")]
     _reset_counts()
@@ -4623,6 +4658,453 @@ def phase_remote(work: str, conf: list, data_in: str, data_val: str
             "pred_rows": got["text remote"][1].count(b"\n")}
 
 
+# ---------------------------------------------------------- phase 19
+VIRTUAL_DEVICES = 8         # logical devices phase 19's runs see
+
+
+class _virtual_devices:
+    """``DIFACTO_TORCH_VIRTUAL_DEVICES`` set for phase 19's runs only (the
+    port's counterpart of XLA's host device count: eight logical devices
+    on the one card, so the examples' 2 x 4 mesh runs there)."""
+
+    def __init__(self, n: int = VIRTUAL_DEVICES):
+        self.n = n
+
+    def __enter__(self):
+        from difacto_tpu_torch.utils.platform import VIRTUAL_DEVICES_ENV
+        self.key = VIRTUAL_DEVICES_ENV
+        self.old = os.environ.get(self.key)
+        os.environ[self.key] = str(self.n)
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.key, None)
+        else:
+            os.environ[self.key] = self.old
+
+
+def _routed_runs():
+    """Tally, per kernel counter, the launches the shard routing asks for
+    (one per non-empty shard run of every routed gather and push); returns
+    (tally, restore)."""
+    from difacto_tpu_torch.parallel import sharded
+    tally = dict.fromkeys(COUNTERS, 0)
+    saved = (sharded.sharded_gather, sharded.sharded_push,
+             sharded.sharded_scatter)
+
+    def wrap(fn, key):
+        def run(shards, ss, *a, **k):
+            tally[key] += sum(1 for _ in sharded._runs(ss))
+            return fn(shards, ss, *a, **k)
+        return run
+
+    sharded.sharded_gather = wrap(saved[0], "gather_rows_cuda")
+    sharded.sharded_push = wrap(saved[1], "fm_update_rows_cuda")
+    sharded.sharded_scatter = wrap(saved[2], "scatter_rows_cuda")
+
+    def restore():
+        (sharded.sharded_gather, sharded.sharded_push,
+         sharded.sharded_scatter) = saved
+    return tally, restore
+
+
+def _bits_same(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _rel_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _mesh_runs(kw: list, what: str, model: str = "") -> dict:
+    """One mesh training run, its launches checked against the routed
+    shard runs: {learner, loss per row per epoch, walls, launches}."""
+    _reset_counts()
+    tally, restore = _routed_runs()
+    t0 = time.monotonic()
+    try:
+        extra = [("has_aux", "1"), ("model_out", model)] if model else []
+        ln, progress, walls, _ = _train(kw + extra)
+    finally:
+        restore()
+    wall = time.monotonic() - t0
+    launches = _counts()
+    if launches != tally:
+        raise AssertionError(f"{what}: launches {launches}, the shard runs "
+                             f"routed {tally}")
+    if not all(launches.values()):
+        raise AssertionError(f"{what}: a kernel never launched: {launches}")
+    loss = [t.loss / t.nrows for t, _ in progress]
+    return {"ln": ln, "loss": loss, "walls": walls, "launches": launches,
+            "wall": wall}
+
+
+def _shard_times(ln, staged, table_flat) -> dict:
+    """Phase 19 (g): each shard's gather and push device time at the main
+    path's own slot vectors (the mesh run's staged batches), beside the
+    flat kernel's on the same vectors and the whole routed pull/push."""
+    import torch
+    from difacto_tpu_torch.learners.sgd import K_TRAINING  # noqa: F401
+    from difacto_tpu_torch.losses import FMParams
+    from difacto_tpu_torch.ops import fused
+    from difacto_tpu_torch.ops.batch import unpack_panel
+    from difacto_tpu_torch.parallel import sharded, state_sharding
+    from difacto_tpu_torch.updaters.sgd_updater import (epilogue_spec,
+                                                        row_epilogue)
+    store, loss = ln.store, ln.loss
+    C = store.state.capacity
+    table = store.state.VVg
+    shards = state_sharding(store.mesh)(table)
+    epi = epilogue_spec(store.param, C)
+    plain = functools.partial(row_epilogue, store.param, C)
+    items = []
+    for st in staged:
+        batch, slots, _ = unpack_panel(st.i32, st.f32, st.b_cap, st.d2,
+                                       st.u_cap, binary=st.binary)
+        ci, cl, cv = st.chunks
+        batch = batch._replace(chunk_idx=ci, chunk_lane=cl, chunk_vals=cv)
+        ss = sharded.ShardedSlots(slots, st.route[1], st.route[0])
+        rows = store.fns.pull_rows(store.state, ss)
+        w, V, vm = store.fns.rows_to_params(store.state, rows)
+        pred, xv = loss.predict_xv(FMParams(w=w, V=V, v_mask=vm), batch)
+        gw, gV = loss.calc_grad(FMParams(w=w, V=V, v_mask=vm), batch,
+                                pred, xv)
+        items.append((ss, rows, gw.contiguous(), gV.contiguous(), vm))
+    sync()
+    out = {"gather_flat": device_ms(
+        fused.gather_rows_cuda, [(table_flat, ss.slots)
+                                 for ss, *_ in items]),
+        "gather_routed": device_ms(
+            lambda ss: sharded.sharded_gather(shards, ss),
+            [(ss,) for ss, *_ in items]),
+        "push_flat": device_ms(
+            fused.fm_update_rows_cuda,
+            [(table_flat, ss.slots, r, gw, gV, vm, epi)
+             for ss, r, gw, gV, vm in items]),
+        "push_routed": device_ms(
+            lambda ss, r, gw, gV, vm: sharded.sharded_push(
+                shards, ss, r, gw, gV, vm, epi, plain), items),
+        "gather_shard": [], "push_shard": [], "lanes": []}
+    for f in range(store.fs_count):
+        g_args, p_args, lanes = [], [], []
+        for ss, r, gw, gV, vm in items:
+            a, b = ss.offsets[f], ss.offsets[f + 1]
+            if b == a:
+                continue
+            view = shards[f]
+            g_args.append((view, ss.local[a:b]))
+            p_args.append((view, ss.local[a:b], r[a:b], gw[a:b], gV[a:b],
+                           vm[a:b], epi))
+            lanes.append(b - a)
+        out["gather_shard"].append(device_ms(fused.gather_rows_cuda, g_args))
+        out["push_shard"].append(device_ms(fused.fm_update_rows_cuda,
+                                           p_args))
+        out["lanes"].append(float(np.mean(lanes)))
+    u = items[0][0].slots.shape[0]
+    log(f"  (g) device time at the mesh run's own slot vectors ({len(items)}"
+        f" staged batches, u_cap {u}; shard lanes on average "
+        f"{[round(x) for x in out['lanes']]}, the pad tail in shard 3's):")
+    log("      gather per shard " + ", ".join(
+        f"{t * 1e3:.2f}" for t in out["gather_shard"])
+        + f" us; routed pull {out['gather_routed'] * 1e3:.2f} us; the flat "
+        f"kernel on the same vector {out['gather_flat'] * 1e3:.2f} us")
+    log("      push per shard " + ", ".join(
+        f"{t * 1e3:.2f}" for t in out["push_shard"])
+        + f" us; routed push {out['push_routed'] * 1e3:.2f} us; the flat "
+        f"kernel on the same vector {out['push_flat'] * 1e3:.2f} us")
+    del items
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
+               smi: str) -> dict:
+    """Phase 19: the examples' (dp, fs) mesh on the card, under
+    ``DIFACTO_TORCH_VIRTUAL_DEVICES=8``. (a) examples/criteo_hashed.conf
+    as written (2 x 4) on phase 7's rows; (b) 1 x 4 and ``mesh_force`` at
+    1 x 1 against phase 7's table; (c) the sharded model scored by
+    task=pred and task=serve; (d) examples/criteo_dict.conf on its mesh;
+    (e) BCD at ``mesh_dp=4`` and L-BFGS at ``mesh_fs=4``; (f) the capacity
+    scaling report; (g) the shard launches' device times."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.config import parse_config_file
+    from difacto_tpu_torch.learners.sgd import K_TRAINING
+    from difacto_tpu_torch.ops import fused
+    from difacto_tpu_torch.parallel.capacity import capacity_scaling_report
+    from difacto_tpu_torch.serve import open_serving_store
+    from difacto_tpu_torch.store.convert import (fs_shard_path,
+                                                 read_sharded_columns)
+    from difacto_tpu_torch.store.local import SlotStore
+    t19 = time.monotonic()
+    data_in, data_val = tr["data_in"], tr["data_val"]
+    base = [("data_in", data_in), ("data_val", data_val),
+            ("max_num_epochs", "2"), ("stop_rel_objv", "0"),
+            ("stop_val_auc", "-2")]
+    kw = mesh_conf + base
+    C, k = uparam.hash_capacity, uparam.V_dim
+    out = {"launches": dict.fromkeys(COUNTERS, 0)}
+
+    def add(launches):
+        for c in COUNTERS:
+            out["launches"][c] += launches[c]
+
+    with _virtual_devices():
+        # (a) the conf as written
+        model = os.path.join(work, "mesh_model")
+        a = _mesh_runs(kw, "(a)", model)
+        ln = a["ln"]
+        if ln.mesh.shape != {"dp": 2, "fs": 4} or ln.store.fs_count != 4:
+            raise AssertionError(f"(a) ran on {ln.mesh}, not the conf's 2 x 4")
+        add(a["launches"])
+        loss = a["loss"]
+        err = _rel_err(loss, tr["loss"])
+        if not (len(loss) == 2 and loss[1] < loss[0] and err <= 1e-5):
+            raise AssertionError(f"(a) loss/row {loss}, phase 7's flat "
+                                 f"{tr['loss']} (relative {err})")
+        info = ln.device_cache_info()
+        if not all(c["complete"] for c in info.values()):
+            raise AssertionError(f"(a) the replay cache: {info}")
+        log(f"  (a) {CONF} as written, mesh {ln.mesh}: loss/row "
+            f"{loss[0]:.8f} -> {loss[1]:.8f}, within {err:.3g} relative of "
+            f"phase 7's flat run; {a['wall']:.1f} s; launches "
+            f"{a['launches']} = the non-empty shard runs routed (phase 7's "
+            f"flat run: {tr['launches']}); epoch walls "
+            f"{_epoch_walls(a['walls'])}")
+        staged = [st for items in ln._caches[K_TRAINING].entries.values()
+                  for st in items if st.chunks is not None
+                  and st.nrows == ln.param.batch_size][:5]
+        if len(staged) < 5:
+            raise AssertionError("(a) the replay cache holds fewer than 5 "
+                                 "full chunked panels")
+
+        def replayed(st):
+            pending = []
+            ln._dispatch_staged(K_TRAINING, st, False, pending)
+            return pending[-1][1]
+
+        first = ln.store.state.VVg.clone()
+        step = profile_steps(replayed, staged, "(a) mesh 2 x 4 replayed")
+        flat = m["steps"]["replayed"]
+        log(f"  (a) the mesh's replayed step beside phase 8's flat one: wall "
+            f"{step['wall_ms']:.3f} vs {flat['wall_ms']:.3f} ms, busy "
+            f"{step['busy_ms']:.3f} vs {flat['busy_ms']:.3f} ms, idle "
+            f"{1 - step['busy_ms'] / step['wall_ms']:.1%} vs "
+            f"{1 - flat['busy_ms'] / flat['wall_ms']:.1%}, device events "
+            f"{step['kernels']:.0f} vs {flat['kernels']:.0f}")
+        out["step"] = step
+        # (g) on the same staged batches (the pushes write the table)
+        out["shards"] = _shard_times(ln, staged, tr["bits"].clone())
+        del ln, a, staged
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = _mesh_runs(kw, "(a) repeat")
+        if not _bits_same(again["ln"].store.state.VVg, first):
+            raise AssertionError("(a) a repeat run left another table")
+        log("  (a) repeat run: the table bit for bit")
+        del again, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the degenerate meshes leave phase 7's table bit for bit
+        for name, over in (("mesh_dp=1 mesh_fs=4",
+                            [("mesh_dp", "1"), ("mesh_fs", "4")]),
+                           ("mesh_force=1 at 1 x 1",
+                            [("mesh_dp", "1"), ("mesh_fs", "1"),
+                             ("mesh_force", "1")])):
+            b = _mesh_runs(kw + over, f"(b) {name}")
+            if not _bits_same(b["ln"].store.state.VVg, tr["bits"]):
+                raise AssertionError(f"(b) {name}: not phase 7's table")
+            log(f"  (b) {name}: phase 7's table bit for bit, launches "
+                f"{b['launches']}")
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (c) the sharded model, scored
+        mfile = model + "_part-0"
+        for i in range(4):
+            if not os.path.exists(fs_shard_path(mfile, i, 4)):
+                raise AssertionError(f"(c) missing member {i} of 4")
+        flat_conf = mesh_conf + [("mesh_dp", "1"), ("mesh_fs", "1")]
+        preds, t_pred = {}, {}
+        for name, extra in (("serve_mesh_fs=4", [("serve_mesh_fs", "4")]),
+                            ("serve_mesh_fs=1", [("serve_mesh_fs", "1")]),
+                            ("mesh_dp=2 mesh_fs=4", [])):
+            conf_p = (flat_conf if extra else mesh_conf) + extra
+            p_out = os.path.join(work, "mesh_pred_" + name.split()[0])
+            fused.gather_rows_cuda.launches = 0
+            t0 = time.monotonic()
+            run_pred(conf_p + [("model_in", model), ("data_in", data_val),
+                               ("pred_out", p_out)], device=DEV)
+            sync()
+            t_pred[name] = (time.monotonic() - t0,
+                            fused.gather_rows_cuda.launches)
+            out["launches"]["gather_rows_cuda"] += \
+                fused.gather_rows_cuda.launches
+            with open(p_out + "_part-0", "rb") as f:
+                preds[name] = f.read()
+        if len(set(preds.values())) != 1:
+            raise AssertionError("(c) the pred files differ across "
+                                 f"{list(preds)}")
+        lines = preds["serve_mesh_fs=4"].splitlines()
+        arrays = read_sharded_columns(mfile, 4, C, k, ("w", "V", "v_live"),
+                                      True)
+        ref = reference_margins(tr["val_text"], arrays, C)
+        probs = np.array([float(x.split(b"\t")[1]) for x in lines])
+        p_err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-ref))).max())
+        if len(probs) != N_VAL or not p_err <= 1e-4:
+            raise AssertionError(f"(c) pred vs float64 FM: {len(probs)} "
+                                 f"rows, prob err {p_err}")
+        log(f"  (c) members _fs-0..3-of-4 and the stub; task=pred "
+            + "; ".join(f"{n}: {s:.2f} s, {g} gather launches"
+                        for n, (s, g) in t_pred.items())
+            + f"; the three files byte-identical, within {p_err:.3g} of "
+            "the float64 FM")
+        store, _, _ = open_serving_store(model, [("serve_mesh_fs", "4")],
+                                         device=DEV)
+        if store.fs_count != 4:
+            raise AssertionError(f"(c) serving store fs={store.fs_count}")
+        batch = int(dict(mesh_conf)["batch_size"])
+        out["launches"]["gather_rows_cuda"] += phase_serve(
+            store, lines, tr["val_text"], batch, label="  (c) serve_mesh_fs=4")
+        del store, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) examples/criteo_dict.conf on its mesh, cut in rows only
+        dconf = parse_config_file(DICT_CONF)
+        dkw = dconf + base
+        grown = []
+        real_grow = SlotStore.grow_to
+
+        def grow_to(self, capacity):
+            if capacity > self.state.capacity:
+                grown.append(capacity)
+            return real_grow(self, capacity)
+
+        SlotStore.grow_to = grow_to
+        try:
+            d1 = _mesh_runs(dkw, "(d) as written")
+            d2 = _mesh_runs(dkw, "(d) repeat")
+        finally:
+            SlotStore.grow_to = real_grow
+        add(d1["launches"])
+        dl = d1["ln"]
+        if dl.mesh.shape != {"dp": 2, "fs": 4} or dl.store.hashed:
+            raise AssertionError(f"(d) ran on {dl.mesh}")
+        if not grown or any(c % 4 for c in grown):
+            raise AssertionError(f"(d) growths {grown}")
+        if not (_bits_same(dl.store.state.VVg, d2["ln"].store.state.VVg)
+                and np.array_equal(dl.store._keys, d2["ln"].store._keys)):
+            raise AssertionError("(d) a repeat run left another table")
+        d_info = dl.device_cache_info()
+        log(f"  (d) {DICT_CONF} as written, mesh {dl.mesh}: the dictionary "
+            f"grew {grown[:len(grown) // 2]} (each a multiple of 4), "
+            f"{dl.store.num_features} keys; loss/row "
+            f"{[round(x, 8) for x in d1['loss']]}; a repeat run bit for bit "
+            f"(table and keys); launches {d1['launches']}; cache {d_info}; "
+            f"{d1['wall']:.1f} s")
+        del d1, d2, dl
+        gc.collect()
+        torch.cuda.empty_cache()
+        off = [("device_cache_mb", "0")]
+        dm = _mesh_runs(dkw + off, "(d) cache off")
+        df = _train(dkw + off + [("mesh_dp", "1"), ("mesh_fs", "1")])
+        f_loss = [t.loss / t.nrows for t, _ in df[1]]
+        d_err = _rel_err(dm["loss"], f_loss)
+        if not d_err <= 1e-5:
+            raise AssertionError(f"(d) mesh loss/row {dm['loss']} vs flat "
+                                 f"{f_loss}")
+        log(f"  (d) device_cache_mb=0 on both (the mesh dictionary stages "
+            f"in its second pass, the flat one replays its first, so only "
+            f"streamed epochs see the same batches): each epoch within "
+            f"{d_err:.3g} relative of the flat run")
+        del dm, df
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the batch learners on their meshes, rcv1
+        rcv1 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "rcv1_100.libsvm")
+        bcd = [("data_in", rcv1)] + [
+            (k_, v) for k_, v in parse_config_file(os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "examples",
+                "bcd.conf")) if k_ not in ("data_in", "learner")]
+        bl, bp, _, _ = _batch_run("bcd", bcd + [("mesh_dp", "4")])
+        _, bf, _, _ = _batch_run("bcd", bcd)
+        b_objv, b_nnz = bp[-1].objv, int(bp[-1].nnz_w)
+        b_err = _rel_err([p.objv for p in bp], [p.objv for p in bf])
+        if bl.mesh.shape != {"dp": 4, "fs": 1} or b_nnz != BCD_OPTIMUM[1] \
+                or abs(b_objv - BCD_OPTIMUM[0]) / b_objv >= 1e-3 \
+                or not b_err <= 1e-5:
+            raise AssertionError(f"(e) BCD mesh_dp=4: objv {b_objv}, nnz "
+                                 f"{b_nnz}, vs flat {b_err}")
+        lb = [("data_in", rcv1), ("m", "5"), ("V_dim", "0"), ("l2", "0"),
+              ("init_alpha", "1"), ("tail_feature_filter", "0"),
+              ("max_num_epochs", str(len(OBJV_BASIC)))]
+        ll, lp_, _, _ = _batch_run("lbfgs", lb + [("mesh_fs", "4")])
+        _, lf, _, _ = _batch_run("lbfgs", lb)
+        l_err = float(np.abs(np.array([p.objv for p in lp_])
+                             - OBJV_BASIC).max())
+        lv = [("data_in", rcv1), ("m", "5"), ("V_dim", "5"), ("l2", "0.1"),
+              ("V_l2", "0.01"), ("V_threshold", "0"), ("rho", "0.5"),
+              ("init_alpha", "1"), ("tail_feature_filter", "0"),
+              ("max_num_epochs", str(len(OBJV_WITHV)))]
+        _, vp, _, _ = _batch_run("lbfgs", lv + [("mesh_fs", "4")],
+                                 init=_det_init)
+        _, vf, _, _ = _batch_run("lbfgs", lv, init=_det_init)
+        v_err = float(np.abs(np.array([p.objv for p in vp])
+                             - OBJV_WITHV).max())
+        lf_err = float(np.abs(np.array([p.objv for p in lp_])
+                              - [p.objv for p in lf]).max())
+        vf_err = float(np.abs(np.array([p.objv for p in vp])
+                              - [p.objv for p in vf]).max())
+        if ll.mesh.shape != {"dp": 1, "fs": 4} or not l_err < 1e-5 \
+                or not v_err < 2e-4 or not lf_err < 1e-5 \
+                or not vf_err < 2e-4:
+            raise AssertionError(f"(e) L-BFGS mesh_fs=4: golden {l_err} / "
+                                 f"{v_err}, vs flat {lf_err} / {vf_err}")
+        log(f"  (e) BCD mesh_dp=4 (examples/bcd.conf): objv {b_objv:.6f}, "
+            f"nnz {b_nnz}, each epoch within {b_err:.3g} relative of the "
+            f"flat run; L-BFGS mesh_fs=4: linear within {l_err:.3g} of the "
+            f"golden ({lf_err:.3g} of flat), FM with V within {v_err:.3g} "
+            f"({vf_err:.3g} of flat)")
+
+        # (f) capacity scaling over fs 1, 2, 4 at the conf's geometry: the
+        # fs=4 leg is the conf's own table (hash_capacity rows at its
+        # V_dim), each step a batch_size batch of 39-feature Criteo rows
+        rep = capacity_scaling_report(
+            fs_values=[1, 2, 4], base_capacity=C // 4, V_dim=k,
+            batch=int(dict(mesh_conf)["batch_size"]), nnz_per_row=39,
+            steps=50, device=DEV)
+        if rep["legs"][-1]["hash_capacity"] != C:
+            raise AssertionError(f"(f) the fs=4 leg is not the conf's "
+                                 f"table: {rep['legs'][-1]}")
+        log(f"  (f) capacity_scaling_report ({smi}; V_dim {k}, "
+            f"{rep['config']['batch']} x {rep['config']['nnz_per_row']} "
+            f"nonzeros, {rep['config']['steps']} timed steps; every shard "
+            "on the one card): " + "; ".join(
+            f"fs {x['fs']}: {x['hash_capacity']} rows, "
+            f"{x['table_bytes_per_shard']} B/shard, "
+            f"{x['table_bytes_per_device']} B on the card, "
+            f"{x['examples_per_sec']:.0f} ex/s, {x['step_ms']} ms/step"
+            for x in rep["legs"])
+            + f"; capacity x{rep['capacity_scaling']}, throughput retained "
+            f"{rep['throughput_retention']}")
+        out["capacity"] = rep
+    dt = time.monotonic() - t19
+    log(f"phase 19 ok in {dt:.1f} s: the examples' 2 x 4 mesh on the card "
+        "(DIFACTO_TORCH_VIRTUAL_DEVICES=8), every shard through the CUDA "
+        "kernels")
+    out["seconds"] = dt
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -4653,15 +5135,20 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         smi, parent_fns = phase_card(args.parent, work)
-        conf = parse_config_file(CONF)
+        mesh_conf = parse_config_file(CONF)
         if DEV == "cpu":        # a rehearsal's table: the CPU holds less
-            conf.append(("hash_capacity", "8192"))
+            mesh_conf.append(("hash_capacity", "8192"))
+        # the flat table every phase but 19 has always measured; phase 19
+        # runs the conf as written, on its 2 x 4 mesh
+        conf = mesh_conf + [("mesh_dp", "1"), ("mesh_fs", "1")]
         uparam, rest = SGDUpdaterParam.init_allow_unknown(conf)
         C, k = uparam.hash_capacity, uparam.V_dim
         batch = int(dict(rest)["batch_size"])
         log(f"config {CONF}: V_dim {k}, hash_capacity {C}, batch_size "
-            f"{batch}, data_format {dict(rest)['data_format']} (mesh keys "
-            "ignored: one card)")
+            f"{batch}, data_format {dict(rest)['data_format']}; flat "
+            "(mesh_dp=1 mesh_fs=1) but in phase 19, which runs the conf's "
+            f"mesh_dp={dict(mesh_conf)['mesh_dp']} "
+            f"mesh_fs={dict(mesh_conf)['mesh_fs']}")
         gather_err = phase_kernel_vs_plain(C)
         t0 = time.monotonic()
         arrays = synthetic_model(C, k, SEED)
@@ -4679,6 +5166,10 @@ def main(argv=None) -> int:
         tr = phase_train(work, conf, uparam)
         m = phase_measure_train(tr["learner"], tr["data_in"], parent_fns)
         del tr["learner"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t19 = phase_mesh(work, mesh_conf, uparam, tr, m, smi)
+        del tr["bits"]
         gc.collect()
         torch.cuda.empty_cache()
         td = phase_train_dict(work)
@@ -4715,12 +5206,12 @@ def main(argv=None) -> int:
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
         # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15,
-        # 16 (p) and (q), 17 (r) and 18 (a) and (b), each read just after
-        # its own run
+        # 16 (p) and (q), 17 (r), 18 (a) and (b) and 19 (a), (c) and (d),
+        # each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
               + tp["launches"][c] + to["launches"][c] + tf["launches"][c]
-              + t18["launches"][c] for c in COUNTERS}
+              + t18["launches"][c] + t19["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

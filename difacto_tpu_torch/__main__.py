@@ -15,8 +15,12 @@
   ℓ1 block coordinate descent) or ``lbfgs`` (learners/lbfgs.py,
   vector-free L-BFGS, linear or FM), the batch learners saving
   ``<model_out>.npz``. ``examples/local.conf``, ``examples/fm.conf``,
-  ``examples/bcd.conf``, ``examples/lbfgs.conf`` and the Criteo configs
-  run as they are (mesh keys are ignored: one card).
+  ``examples/bcd.conf`` and ``examples/lbfgs.conf`` run as they are. The
+  Criteo configs set a ``mesh_dp = 2``, ``mesh_fs = 4`` mesh
+  (parallel/mesh.py): on one card they need
+  ``DIFACTO_TORCH_VIRTUAL_DEVICES=8`` (eight logical devices on it), or
+  ``mesh_dp=1 mesh_fs=1`` to train flat; without either they raise "need
+  8 devices, have 1", as the JAX package does on too few devices.
 
 - ``task=dump`` — a saved model as readable TSV (``name_dump``; the
   reference's src/reader/dump.h, the JAX package's bytes).
@@ -71,6 +75,18 @@ def _pred_routing_error(learner: str, kwargs: KWArgs) -> ValueError:
         f"implemented by learner={learner!r}{produced}. Batch-score sgd "
         f"models with learner=sgd, or use task=serve for online scoring "
         f"(docs/serving.md)")
+
+
+@dataclass
+class PredMeshParam(Param):
+    """The training mesh keys as task=pred reads them: under
+    ``mesh_dp * mesh_fs > 1`` or ``mesh_force`` the JAX learner scores on
+    its mesh (its epoch path); the port opens the serving store on that
+    mesh and scores through the same executor, one gather launch per
+    shard run, so the scores equal the flat ones byte for byte."""
+    mesh_dp: int = 1
+    mesh_fs: int = 1
+    mesh_force: bool = False
 
 
 @dataclass
@@ -161,11 +177,16 @@ def run_pred(kwargs: KWArgs, device="cuda", store=None) -> KWArgs:
     from .serve.model import open_serving_store
 
     p, remain = PredParam.init_allow_unknown(kwargs)
+    mp, remain = PredMeshParam.init_allow_unknown(remain)
     if store is None:
         if not p.model_in:
             raise ValueError("prediction needs model_in")
+        mesh = None
+        if mp.mesh_dp * mp.mesh_fs > 1 or mp.mesh_force:
+            from .parallel import make_mesh
+            mesh = make_mesh(dp=mp.mesh_dp, fs=mp.mesh_fs, device=device)
         store, _, remain = open_serving_store(p.model_in, remain,
-                                              device=device)
+                                              device=device, mesh=mesh)
     ex = PredictExecutor(store, loss=create_loss(p.loss, store.param.V_dim))
     writer = PredWriter(f"{p.pred_out}_part-0", p.pred_prob) \
         if p.pred_out else None

@@ -28,9 +28,13 @@ X·Δw.
   on the host from one copy of all tiles' predictions.
 
 Every device sum has a fixed order (logit_delta.py), so two runs on the
-card give the same bits. One card: ``mesh_dp`` is logged as ignored, and
-the multi-host branches of the JAX learner are not ported (ROADMAP.md,
-Queue 1: sharding).
+card give the same bits. ``mesh_dp > 1`` shards the rows of every tile
+over a ``(dp, 1)`` mesh (parallel/mesh.py), as the JAX learner's
+shard_map does: a (tile, block) slice is cut into dp row shards, each
+shard's (g, h) partial is computed on its own and the partials are
+summed in dp order; the prediction update takes the whole slice (each
+row's sum is its own, so its bits are the shards'). The multi-host
+branches (the DCN allreduce) are ROADMAP.md item 11b.
 """
 
 from __future__ import annotations
@@ -169,10 +173,19 @@ class BCDLearner(Learner):
         if self.uparam.V_dim != 0:
             raise ValueError("bcd supports V_dim=0 only (linear model), like "
                              "the reference (bcd_updater.h InitWeights)")
-        if self.param.mesh_dp > 1:
-            log.info("mesh_dp=%d ignored: the port trains on one card",
-                     self.param.mesh_dp)
         self.dev = resolve_device(self.device)
+        self.mesh = None
+        if self.param.mesh_dp > 1:
+            from ..parallel import make_mesh
+            from ..parallel.mesh import process_count
+            if process_count() > 1:
+                raise ValueError(
+                    "bcd multi-host runs shard rows across hosts; in-host "
+                    "row sharding (mesh_dp > 1) is single-host only — set "
+                    "mesh_dp=1 under launch.py")
+            self.mesh = make_mesh(dp=self.param.mesh_dp, fs=1,
+                                  device=self.device)
+            self.dev = self.mesh.home
         return remain
 
     # ----------------------------------------------------------- data prep
@@ -218,10 +231,13 @@ class BCDLearner(Learner):
         self.w = np.zeros(nf, dtype=np.float32)
         self.delta = np.ones(nf, dtype=np.float32)  # bcd::Delta init 1.0
 
-        # row tiles: labels/mask/pred on the device, the COO on the host
+        # row tiles: labels/mask/pred on the device, the COO on the host;
+        # under a mesh the row caps divide by dp
+        from ..ops.batch import mesh_dim_min
+        dim_min = 8 if self.mesh is None else mesh_dim_min(p.mesh_dp)
         self.tiles = []
         for t, (cblk, _, is_train) in enumerate(tb.tiles):
-            b_cap = bucket(cblk.size)
+            b_cap = bucket(cblk.size, dim_min)
             rowf = np.zeros((3, b_cap), dtype=np.float32)
             rowf[0, :cblk.size] = cblk.label
             rowf[1, :cblk.size] = 1.0
@@ -236,25 +252,66 @@ class BCDLearner(Learner):
                                      max_items=p.tile_cache_items,
                                      max_bytes=p.tile_cache_mb << 20)
 
-    def _build_slice(self, t: int, f: int) -> Optional[BlockSlice]:
+    def _build_slice(self, t: int, f: int):
         """Tile t's entries in block f as a device COO (block-local
         columns), padded to ``bucket(nnz)`` with (0, 0, 0.0); None when
-        the tile has none."""
+        the tile has none. Under a mesh, ``(slice, shards)``: the same
+        slice and its dp row shards, each with shard-local rows, padded to
+        the bucket of the largest and placed on its block's device (the
+        JAX learner's per-dp COO)."""
         tile = self.tiles[t]
         b_lo, b_hi = self.blocks[f]
         m = (tile["col_global"] >= b_lo) & (tile["col_global"] < b_hi)
         nnz = int(m.sum())
         if nnz == 0:
             return None
-        cap = bucket(nnz)
+        rows_g = tile["rows"][m]
+        cols_g = tile["col_global"][m] - b_lo
+        vals_g = tile["vals"][m]
+        full = self._coo(rows_g, cols_g, vals_g, bucket(nnz), self.dev)
+        if self.mesh is None:
+            return full
+        dp = self.mesh.dp
+        shard = tile["b_cap"] // dp
+        part = rows_g // shard
+        cap = bucket(max(int(np.bincount(part, minlength=dp).max()), 1))
+        shards = tuple(
+            self._coo(rows_g[part == d] - d * shard, cols_g[part == d],
+                      vals_g[part == d], cap, self.dev)
+            for d in range(dp))
+        return full, shards
+
+    @staticmethod
+    def _coo(rows, cols, vals, cap: int, dev) -> BlockSlice:
+        n = len(rows)
         idx = np.zeros((2, cap), dtype=np.int32)
-        idx[0, :nnz] = tile["rows"][m]
-        idx[1, :nnz] = tile["col_global"][m] - b_lo
-        vals = np.zeros(cap, dtype=np.float32)
-        vals[:nnz] = tile["vals"][m]
-        idx = torch.from_numpy(idx).to(self.dev)
+        idx[0, :n] = rows
+        idx[1, :n] = cols
+        v = np.zeros(cap, dtype=np.float32)
+        v[:n] = vals
+        idx = torch.from_numpy(idx).to(dev)
         return BlockSlice(rows=idx[0], cols=idx[1],
-                          vals=torch.from_numpy(vals).to(self.dev))
+                          vals=torch.from_numpy(v).to(dev))
+
+    def _slice_grad(self, tile: dict, s, nf_cap: int) -> torch.Tensor:
+        """(g, h) of one (tile, block) slice: the whole slice, or under a
+        mesh each dp row shard's partial on its device, summed in dp
+        order."""
+        if self.mesh is None:
+            return delta_grad(tile["pred"], tile["labels"], tile["mask"], s,
+                              nf_cap)
+        shards = s[1]
+        m = tile["b_cap"] // len(shards)
+        gh = None
+        for d, part in enumerate(shards):
+            dev = part.rows.device
+            lo, hi = d * m, (d + 1) * m
+            g = delta_grad(tile["pred"][lo:hi].to(dev),
+                           tile["labels"][lo:hi].to(dev),
+                           tile["mask"][lo:hi].to(dev), part,
+                           nf_cap).to(self.dev)
+            gh = g if gh is None else gh + g
+        return gh
 
     # ----------------------------------------------------------- epoch
     def _iterate_block(self, f: int) -> None:
@@ -270,8 +327,7 @@ class BCDLearner(Learner):
                 continue
             s = self._tile_cache.fetch(t, f)
             if s is not None:
-                gh = gh + delta_grad(tile["pred"], tile["labels"],
-                                     tile["mask"], s, nf_cap)
+                gh = gh + self._slice_grad(tile, s, nf_cap)
         # (g, h) leave the device in one copy
         gh = gh.cpu().numpy()
         g_np = gh[:nf_blk, 0].astype(np.float64)
@@ -294,7 +350,8 @@ class BCDLearner(Learner):
         for t, tile in enumerate(self.tiles):  # train AND val (UpdtPred)
             s = self._tile_cache.fetch(t, f)
             if s is not None:
-                tile["pred"] = delta_pred_update(tile["pred"], s, d_dev)
+                full = s if self.mesh is None else s[0]
+                tile["pred"] = delta_pred_update(tile["pred"], full, d_dev)
 
     def _progress(self) -> BCDProgress:
         preds = torch.cat([t["pred"][:t["size"]]

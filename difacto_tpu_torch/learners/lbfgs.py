@@ -37,8 +37,16 @@ So a tile's result does not depend on any write order.
 
 The scheduler (RunScheduler, lbfgs_learner.cc:14-108) is the JAX
 package's step for step, with its stop criteria and the epoch-0 alpha
-heuristic ntrain/nnz. One card: ``mesh_fs`` is logged as ignored, and
-the multi-host branches are not ported (ROADMAP.md, Queue 1: sharding).
+heuristic ntrain/nnz.
+
+``mesh_fs > 1`` shards the flat vector over a ``(1, fs)`` mesh
+(parallel/mesh.py), as the JAX learner does: ``N_pad`` divides by fs
+(``mesh_dim_min``), the vector's fs contiguous ranges are its shards,
+and every reduction over it (the Gram matrix, the dots of the line
+search, the regularizer) is a per-shard partial on the shard's device,
+summed in fs order; elementwise updates and the tiles' gathers see the
+same values either way. The multi-host branches (the gradient
+allreduce, ``global_kv_union``) are ROADMAP.md item 11b.
 """
 
 from __future__ import annotations
@@ -147,11 +155,45 @@ class LBFGSLearner(Learner):
         if self.param.loss == "logit":
             self.uparam = dataclasses.replace(self.uparam, V_dim=0)
         self.k = self.uparam.V_dim
-        if self.param.mesh_fs > 1:
-            log.info("mesh_fs=%d ignored: the port trains on one card",
-                     self.param.mesh_fs)
         self.dev = resolve_device(self.device)
+        self.mesh = None
+        if self.param.mesh_fs > 1:
+            from ..parallel import make_mesh
+            from ..parallel.mesh import process_count
+            if process_count() > 1:
+                raise ValueError(
+                    "lbfgs multi-host runs shard DATA across hosts; in-host "
+                    "vector sharding (mesh_fs > 1) is single-host only — "
+                    "set mesh_fs=1 under launch.py")
+            self.mesh = make_mesh(dp=1, fs=self.param.mesh_fs,
+                                  device=self.device)
+            self.dev = self.mesh.home
         return remain
+
+    # ------------------------------------------------- the sharded vector
+    def _shards(self, x: torch.Tensor) -> list:
+        """The flat vector's fs key-range shards (views)."""
+        fs = self.mesh.fs
+        n = x.shape[-1] // fs
+        return [x[..., f * n:(f + 1) * n] for f in range(fs)]
+
+    def _vsum(self, parts) -> torch.Tensor:
+        """Per-shard partials summed in fs order."""
+        out = None
+        for q in parts:
+            out = q if out is None else out + q
+        return out
+
+    def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return torch.dot(a, b)
+        return self._vsum(torch.dot(x, y) for x, y in
+                          zip(self._shards(a), self._shards(b)))
+
+    def _gram(self, basis: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return basis @ basis.T
+        return self._vsum(x @ x.T for x in self._shards(basis))
 
     def _put_vec(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.dev)
@@ -234,8 +276,10 @@ class LBFGSLearner(Learner):
         np.cumsum(self.lens, out=self.offsets[1:])
         self.N = int(self.offsets[-1])
         # trailing trash/pad region; the last V_dim+1 slots are reserved so
-        # the trash V rows stay in bounds
-        self.N_pad = bucket(self.N + self.k + 1)
+        # the trash V rows stay in bounds; under a mesh N_pad divides by fs
+        from ..ops.batch import mesh_dim_min
+        dim_min = 8 if self.mesh is None else mesh_dim_min(self.mesh.fs)
+        self.N_pad = bucket(self.N + self.k + 1, dim_min)
         self.trash_w = self.N_pad - 1
         self.trash_v = self.N_pad - 1 - self.k
         c = np.zeros(self.N_pad, dtype=np.float32)
@@ -336,7 +380,10 @@ class LBFGSLearner(Learner):
         return torch.where(self._real, grad, torch.zeros_like(grad))
 
     def _reg_objv(self, weights) -> torch.Tensor:
-        return 0.5 * torch.sum(self.reg_c * weights * weights)
+        r = self.reg_c * weights * weights
+        if self.mesh is None:
+            return 0.5 * torch.sum(r)
+        return 0.5 * self._vsum(torch.sum(x) for x in self._shards(r))
 
     def _calc_grad(self, weights):
         """f(w), train AUC x n and the loss gradient: one pass over the
@@ -394,7 +441,7 @@ class LBFGSLearner(Learner):
             # kCalcDirection (lbfgs_updater.h:105-121): two-loop or -g
             if y_hist:
                 basis = torch.stack([*s_hist, *y_hist, grads])
-                B = (basis @ basis.T).cpu().numpy().astype(np.float64)
+                B = self._gram(basis).cpu().numpy().astype(np.float64)
                 delta = torch.from_numpy(calc_delta(B).astype(np.float32))
                 direction = delta.to(self.dev) @ basis
             else:
@@ -403,7 +450,7 @@ class LBFGSLearner(Learner):
             if len(s_hist) == up.m:
                 s_hist.pop(0)
             s_hist.append(direction)
-            p_gf = float(torch.dot(grads, direction))
+            p_gf = float(self._dot(grads, direction))
 
             # line search (lbfgs_learner.cc:46-71)
             log.info(" - start linesearch with objv = %g, <p,g> = %g",
@@ -420,8 +467,8 @@ class LBFGSLearner(Learner):
                 # the Wolfe test's three scalars in one host copy
                 ls = torch.stack([
                     self._reg_objv(self.weights),
-                    torch.dot(g_loss, direction),
-                    torch.dot(self.reg_c * self.weights, direction),
+                    self._dot(g_loss, direction),
+                    self._dot(self.reg_c * self.weights, direction),
                 ]).cpu().numpy()
                 new_objv = f_new + float(ls[0])
                 pg_new = float(ls[1]) + float(ls[2])

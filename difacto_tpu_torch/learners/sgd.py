@@ -56,8 +56,21 @@ each training batch touched from the host payload and seals every
 ``wal_flush_batches`` steps (and each epoch's end) as one segment of the
 rows' current values; each interval checkpoint roots a new chain and is
 pushed to the ``replica_peers``; ``auto_resume`` then climbs the recovery
-ladder (durability/recover.py). ``mesh_force`` and ``bounded_delay > 0``
-(sharding) raise when set.
+ladder (durability/recover.py).
+
+The single-process mesh (``mesh_dp * mesh_fs > 1`` or ``mesh_force``,
+parallel/mesh.py): the store cuts the table into ``mesh_fs`` key-range
+shards and each staged payload carries its slot vector's shard routing
+(the offsets and local slots, made on the host from the payload's slot
+section when it is staged, ``_stage_payload``), so every pull and push
+launches the kernels once per non-empty shard run; under ``mesh_dp > 1``
+the backward sums its per-slot partials over dp blocks of each batch
+(losses/fm.dp_reduce) and the caps are sized by ``mesh_dim_min``. As in
+the JAX learner, the producers' fast paths (``device_dedup``,
+``stream_chunks``) stay off under a mesh, the dictionary store stages
+its replay cache in its second pass and does not repad it, and the
+write-ahead log refuses a mesh. ``bounded_delay > 0`` (multi-host, item
+11b) raises.
 """
 
 from __future__ import annotations
@@ -92,6 +105,7 @@ from ..obs import REGISTRY, MetricsFlusher, Registry, trace
 from ..ops.batch import (bucket, panel_chunk_tokens_flat, unpack_batch,
                          unpack_panel, unpack_panel_raw)
 from ..ops.fused import dedup_tokens
+from ..parallel.sharded import ShardedSlots
 from ..step import fire_step_fault, make_step_fns
 from ..store.local import SlotStore
 from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
@@ -158,11 +172,6 @@ class SGDLearnerParam(Param):
     replica_k: int = 1
 
 
-# knobs that change what is computed, with the ROADMAP.md item that ports
-# them; a non-default value raises
-_NOT_PORTED = {
-    "mesh_force": "Queue 1: sharding",
-}
 # the streamed pipeline's stages (stage_seconds_total{stage}):
 #   parse     read + parse, on the producers
 #   pack      hash / compact, dedup and pack, on the producers
@@ -171,6 +180,24 @@ _NOT_PORTED = {
 #   step      step dispatch, and the metric fetches where device time
 #             surfaces
 _STAGES = ("parse", "pack", "ring_wait", "transfer", "step")
+
+
+class _DevPayload(NamedTuple):
+    """A payload whose buffers are on the device (data/pack_stream.Payload's
+    fields, in order) and, under a mesh, ``route``: its slot vector's
+    shard routing, the fs + 1 host offsets and the device's local slots
+    (parallel/sharded.py), made on the host when the payload is staged."""
+    layout: str
+    i32: torch.Tensor
+    f32: torch.Tensor
+    binary: bool
+    b_cap: int
+    d2: int
+    u_cap: int
+    row_cap: int = 0
+    chunks: Optional[tuple] = None
+    host_slots: Optional[np.ndarray] = None
+    route: Optional[tuple] = None
 
 
 class _Staged(NamedTuple):
@@ -187,6 +214,7 @@ class _Staged(NamedTuple):
     binary: bool
     nrows: int
     chunks: Optional[tuple] = None
+    route: Optional[tuple] = None   # (offsets, local slots) under a mesh
 
     @property
     def slots_offset(self) -> int:
@@ -213,7 +241,7 @@ class _DeviceBatchCache:
     store that cannot repad invalidates the cache back to streaming."""
 
     def __init__(self, budget_mb: int, shared: Optional[dict] = None,
-                 repadable: bool = False) -> None:
+                 repadable: bool = False, stage_after_pass: int = 0) -> None:
         self.budget = budget_mb << 20
         self.shared = shared if shared is not None else {"used": 0}
         self.used = 0
@@ -223,14 +251,18 @@ class _DeviceBatchCache:
         self.alive = True
         self.frozen = False       # the budget filled mid-pass
         self.repadable = repadable
+        # the pass that stages: 0, or 1 for the mesh dictionary store,
+        # whose table still grows in its first pass
+        self.stage_after_pass = stage_after_pass
         self.stale_pads = False   # some batches padded at an older capacity
         self.passes = 0
         self.capacity: Optional[int] = None  # store capacity at staging
 
     @property
     def staging(self) -> bool:
-        """True while the current pass stages batches (the first one)."""
-        return self.alive and not self.frozen and self.passes == 0
+        """True while the current pass stages batches."""
+        return (self.alive and not self.frozen
+                and self.passes == self.stage_after_pass)
 
     @property
     def partial(self) -> bool:
@@ -285,7 +317,7 @@ class _DeviceBatchCache:
         self.part_bytes[part] = self.part_bytes.get(part, 0) + nbytes
 
     def finish_pass(self) -> None:
-        if self.alive and self.passes == 0:
+        if self.alive and self.passes == self.stage_after_pass:
             self.ready = bool(self.entries)
             if self.frozen and not self.entries:
                 # nothing fit: stream for good
@@ -329,16 +361,10 @@ class SGDLearner(Learner):
         self.param, remain = SGDLearnerParam.init_allow_unknown(kwargs)
         uparam, remain = SGDUpdaterParam.init_allow_unknown(remain)
         p = self.param
-        defaults = SGDLearnerParam()
-        for knob, item in _NOT_PORTED.items():
-            if getattr(p, knob) != getattr(defaults, knob):
-                raise NotImplementedError(
-                    f"{knob}={getattr(p, knob)!r} is not ported yet "
-                    f"(ROADMAP.md, {item})")
         if p.bounded_delay > 0:
             raise NotImplementedError(
-                "bounded_delay > 0 is not ported yet (ROADMAP.md, Queue 1: "
-                "sharding)")
+                "bounded_delay > 0 is not ported yet (ROADMAP.md, item 11b: "
+                "multi-host under torch.distributed)")
         if p.task != 0:
             raise NotImplementedError(
                 "the learner's prediction job is task=pred on the CLI "
@@ -348,12 +374,25 @@ class SGDLearner(Learner):
         self.loss = create_loss(p.loss, uparam.V_dim)
         if uparam.V_dim != self.loss.V_dim:
             uparam = dataclasses.replace(uparam, V_dim=self.loss.V_dim)
-        if p.mesh_fs * p.mesh_dp > 1:
-            log.info("mesh_dp=%d mesh_fs=%d ignored: the port trains on one "
-                     "card", p.mesh_dp, p.mesh_fs)
+        self.mesh = None
+        self._dim_min = 8
+        if p.mesh_fs * p.mesh_dp > 1 or p.mesh_force:
+            from ..ops.batch import mesh_dim_min
+            from ..parallel import make_mesh
+            self.mesh = make_mesh(dp=p.mesh_dp, fs=p.mesh_fs,
+                                  device=self.device)
+            self._dim_min = mesh_dim_min(p.mesh_dp)
+            if p.mesh_dp > 1:
+                # the backward's per-slot partials sum over dp blocks; a
+                # dp-cut chunk layout is not declared ascending, as in the
+                # JAX learner (losses/__init__.py chunks_sorted)
+                self.loss = dataclasses.replace(
+                    self.loss, chunks_sorted=False, dp=p.mesh_dp)
+            log.info("mesh: dp=%d fs=%d over %s", p.mesh_dp, p.mesh_fs,
+                     self.mesh)
         self.store = SlotStore(uparam, device=self.device,
                                init=self._table_init,
-                               virgin_V=self._tier_virgin_V)
+                               virgin_V=self._tier_virgin_V, mesh=self.mesh)
         if self.store.tier is not None and (
                 p.device_dedup or p.stream_chunks or p.device_cache_mb):
             log.info("cold_tier_rows: device_dedup, stream_chunks and the "
@@ -418,6 +457,12 @@ class SGDLearner(Learner):
                     "(hash_capacity > 0): dictionary slots are assigned "
                     "at consume time, so a replayed delta has no stable "
                     "row space to land in")
+            if self.mesh is not None:
+                raise ValueError(
+                    "wal_flush_batches is single-host/flat-device only: "
+                    "mesh and multi-host runs mutate rows through the "
+                    "SPMD exchange, outside the dispatch path the WAL "
+                    "observes")
             if self.store.tier is not None:
                 raise ValueError(
                     "wal_flush_batches is incompatible with "
@@ -535,8 +580,8 @@ class SGDLearner(Learner):
             self.store.save(final, p.has_aux)
             if self._replica is not None:
                 self._replica.push(sorted(stream.glob(final + "*")))
-        if self.store.hashed:
-            # the occupancy gauges, read once at the run's end
+        if self.store.fs_count > 1 or self.store.hashed:
+            # the per-shard occupancy gauges, read once at the run's end
             self.store.publish_shard_stats()
         self.stop()
 
@@ -716,9 +761,15 @@ class SGDLearner(Learner):
                 job_type == K_TRAINING and p.neg_sampling != 1.0):
             return None
         if job_type not in self._caches:
+            # the dictionary store repads its staged pads after a growth;
+            # under a mesh the staged routes would go stale with the shard
+            # bounds, so it stages in its second pass and never repads
+            dict_single = not self.store.hashed and self.mesh is None
             self._caches[job_type] = _DeviceBatchCache(
                 p.device_cache_mb, shared=self._cache_pool,
-                repadable=not self.store.hashed)
+                repadable=dict_single,
+                stage_after_pass=0 if (self.store.hashed or dict_single)
+                else 1)
         return self._caches[job_type]
 
     def device_cache_info(self) -> dict:
@@ -800,7 +851,8 @@ class SGDLearner(Learner):
         # the flat table has none (the JAX learner's do_embedding)
         push_cnt = is_train and epoch == 0 and self.loss.V_dim > 0
         job = "train" if is_train else "eval"
-        b_cap = bucket(p.batch_size, 8) if is_train else None
+        dim_min = self._dim_min
+        b_cap = bucket(p.batch_size, dim_min) if is_train else None
         hashed = self.store.hashed
         n_workers = p.num_producers or max(1, min(4, os.cpu_count() or 1))
         # the producers' fast paths, engaged as in the JAX learner:
@@ -810,14 +862,17 @@ class SGDLearner(Learner):
         # chunked layout needs the host inverse)
         # neither engages under the cold tier, which rewrites each
         # payload's host slot section (capacity/tier.route_payload)
+        # nor under a mesh, whose batches carry host-made shard routes
+        # and a dp-divisible chunk count (the JAX learner's hashed_fast)
         cache_may_stage = (cache is not None and cache.alive
                            and not cache.frozen)
         tier_on = self.store.tier is not None
+        flat = self.mesh is None
         stream_chunk = (is_train and hashed and p.stream_chunks
-                        and not cache_may_stage and not tier_on)
+                        and not cache_may_stage and not tier_on and flat)
         device_dedup = (is_train and hashed and p.device_dedup
                         and not stream_chunk and not cache_may_stage
-                        and not push_cnt and not tier_on)
+                        and not push_cnt and not tier_on and flat)
         hash_capacity = self.store.param.hash_capacity
         admit_min_count = self.store.param.admit_min_count
         parse_c, pack_c = self._stage_c["parse"], self._stage_c["pack"]
@@ -848,7 +903,7 @@ class SGDLearner(Learner):
                         yield ("ready", sub, packed(
                             part, prepare_from_uniq, self._shapes,
                             hash_capacity, sub, uniq, cnts, push_cnt,
-                            push_cnt, 8, job, b_cap,
+                            push_cnt, dim_min, job, b_cap,
                             stream_chunk=stream_chunk))
                     else:
                         yield ("compact", sub, (sub, uniq, cnts))
@@ -863,7 +918,7 @@ class SGDLearner(Learner):
                 if hashed:
                     yield ("ready", blk, packed(
                         part, prepare_hashed, self._shapes, hash_capacity,
-                        blk, push_cnt, push_cnt, 8, job, b_cap,
+                        blk, push_cnt, push_cnt, dim_min, job, b_cap,
                         stream_chunk=stream_chunk,
                         device_dedup=device_dedup, admit=admit))
                 else:
@@ -887,7 +942,7 @@ class SGDLearner(Learner):
                 data_format=p.data_format, batch_size=p.batch_size,
                 shuffle=p.shuffle, neg_sampling=p.neg_sampling,
                 epoch=epoch, hash_capacity=hash_capacity,
-                want_counts=push_cnt, fill_counts=push_cnt, dim_min=8,
+                want_counts=push_cnt, fill_counts=push_cnt, dim_min=dim_min,
                 job=job, b_cap=b_cap, stream_chunk=stream_chunk,
                 device_dedup=device_dedup, caps=self._shapes.snapshot(),
                 trace_id=trace.trace_id(), cached_uri=cached_uri,
@@ -987,7 +1042,7 @@ class SGDLearner(Learner):
         if cache is not None:
             cache.finish_pass()
 
-    def _stage_payload(self, payload: Payload) -> Payload:
+    def _stage_payload(self, payload: Payload) -> _DevPayload:
         """Copy a packed payload's buffers to the device (the transfer
         stage); the returned payload holds device tensors. On the CPU they
         alias the host arrays.
@@ -1005,19 +1060,28 @@ class SGDLearner(Learner):
             payload = route_payload(self.store.tier, payload)
             self.tier_route_s += time.perf_counter() - t0
             self.tier_routes += 1
+        off = payload.b_cap * payload.d2 if payload.layout == "panel" \
+            else 2 * payload.d2
         if self._wal is not None and payload.layout in ("panel", "coo"):
-            off = payload.b_cap * payload.d2 if payload.layout == "panel" \
-                else 2 * payload.d2
             payload = payload._replace(
                 host_slots=payload.i32[off:off + payload.u_cap].copy())
 
         def to_dev(a):
             return None if a is None else torch.from_numpy(a).to(dev)
 
-        out = payload._replace(
+        route = None
+        if self.mesh is not None and payload.layout in ("panel", "coo"):
+            # the slot vector's shard runs, from its host copy: the fs + 1
+            # offsets stay on the host, the local slots ride to the card
+            from ..parallel.sharded import plan_slots
+            offsets, local = plan_slots(
+                payload.i32[off:off + payload.u_cap],
+                self.store.state.capacity, self.store.fs_count)
+            route = (offsets, to_dev(local))
+        out = _DevPayload(*payload._replace(
             i32=to_dev(payload.i32), f32=to_dev(payload.f32),
             chunks=None if payload.chunks is None
-            else tuple(to_dev(a) for a in payload.chunks))
+            else tuple(to_dev(a) for a in payload.chunks)), route=route)
         self._stage_c["transfer"].inc(time.perf_counter() - t0)
         return out
 
@@ -1038,7 +1102,7 @@ class SGDLearner(Learner):
             job = "train" if job_type == K_TRAINING else "eval"
             payload = self._stage_payload(pack_mapped(
                 self._shapes, blk, cblk, slots, cnts,
-                self.store.state.capacity, 8, job))
+                self.store.state.capacity, self._dim_min, job))
         self._dispatch_prepared(job_type, blk, payload, push_cnt, pending,
                                 cache, part)
 
@@ -1067,18 +1131,24 @@ class SGDLearner(Learner):
             cells = payload.b_cap * payload.d2
             chunks = panel_chunk_tokens_flat(
                 i32[:cells], None if payload.binary else f32[:cells],
-                payload.u_cap, payload.b_cap, payload.d2)
+                payload.u_cap, payload.b_cap, payload.d2,
+                dp_div=self.param.mesh_dp if self.mesh is not None else 1)
         staged = _Staged(payload.layout, i32, f32, payload.b_cap,
                          payload.d2, payload.u_cap, payload.row_cap,
-                         payload.binary, blk.size, chunks)
+                         payload.binary, blk.size, chunks, payload.route)
         self._dispatch_staged(job_type, staged, push_cnt, pending)
         if is_train and self._wal is not None:
             self._wal_touch(payload)
         if staging:
             if push_cnt:
                 f32[f32.shape[0] - payload.u_cap:] = 0.0
+            # what the card really holds for the batch: its buffers, its
+            # chunk layout and, under a mesh, its local slots (one copy:
+            # a batch is not replicated across the mesh's devices)
             nbytes = i32.nbytes + f32.nbytes + sum(
                 t.nbytes for t in chunks or () if t is not None)
+            if payload.route is not None:
+                nbytes += payload.route[1].nbytes
             cache.add(part, staged, nbytes,
                       capacity=self.store.state.capacity)
 
@@ -1173,6 +1243,8 @@ class SGDLearner(Learner):
             batch, slots, counts = unpack_batch(
                 st.i32, st.f32, st.b_cap, st.d2, st.u_cap, st.row_cap,
                 binary=st.binary, has_counts=push_cnt)
+        if st.route is not None:
+            slots = ShardedSlots(slots, st.route[1], st.route[0])
         if job_type == K_TRAINING:
             if counts is not None:
                 self.store.state = self.store.fns.apply_count(

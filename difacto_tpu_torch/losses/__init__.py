@@ -19,10 +19,13 @@ class LossSpec:
     forward/backward, DeviceBatch the COO ones. ``chunks_sorted`` says
     that a chunked panel's ``chunk_lane`` ascends (true of every layout
     on one card; a data-parallel batch concatenated from per-rank blocks
-    would not be)."""
+    would not be). ``dp`` > 1 (a mesh's data-parallel degree) sums the
+    backward's per-slot partials over dp blocks of the batch's leading
+    axes (losses/fm.dp_reduce)."""
     name: str
     V_dim: int
     chunks_sorted: bool = True
+    dp: int = 1
 
     def predict(self, params: FMParams, batch):
         if isinstance(batch, PanelBatch):
@@ -39,8 +42,8 @@ class LossSpec:
     def calc_grad(self, params: FMParams, batch, pred, xv=None):
         if isinstance(batch, PanelBatch):
             return fm_grad_panel(params, batch, pred, xv,
-                                 self.chunks_sorted)
-        return fm_grad(params, batch, pred, xv)
+                                 self.chunks_sorted, self.dp)
+        return fm_grad(params, batch, pred, xv, self.dp)
 
     def evaluate(self, pred, batch):
         return logit_objv(pred, batch)

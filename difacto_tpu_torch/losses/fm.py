@@ -30,6 +30,15 @@ fixed order, so a step gives the same bits on every run (no atomics):
 The row reductions over the k embedding columns take their own order, and
 ``exp`` is torch's, so the port agrees with the JAX package within a
 float32 tolerance. Logistic loss is the V_dim=0 case (V=None).
+
+Under a mesh's ``dp`` axis (``dp > 1``) the backward's per-slot sums are
+the data-parallel part: the per-entry (COO), per-cell (panel) or
+per-chunk (chunked panel) contributions are computed as on one device,
+cut into ``dp`` equal blocks along that leading axis (the JAX package's
+``batch_sharding``, ``P('dp')``), each block reduced to per-lane partials
+and the partials summed in dp order (:func:`dp_reduce`: a fixed order, no
+atomics, so a run repeats bit for bit). The forward is
+per row, so it runs once over the batch: its bits are each block's.
 """
 
 from __future__ import annotations
@@ -43,6 +52,25 @@ from ..ops.segment import (chunk_sum, lane_sum, row_sum, segment_sum, spmv,
                            spmv_t)
 
 PRED_CLAMP = 20.0
+
+
+def dp_reduce(reduce, data: torch.Tensor, lanes: torch.Tensor, U: int,
+              dp: int = 1) -> torch.Tensor:
+    """``reduce(data, lanes, U)`` (ops/segment.lane_sum or chunk_sum) over
+    ``dp`` equal leading-axis blocks, the per-lane partials summed in dp
+    order. ``dp == 1`` is the plain reduction."""
+    if dp == 1:
+        return reduce(data, lanes, U)
+    n = data.shape[0]
+    if n % dp:
+        raise ValueError(f"leading axis {n} does not split over dp={dp} "
+                         "(size the caps with ops.batch.mesh_dim_min)")
+    m = n // dp
+    red = None
+    for b in range(dp):
+        part = reduce(data[b * m:(b + 1) * m], lanes[b * m:(b + 1) * m], U)
+        red = part if red is None else red + part
+    return red
 
 
 class FMParams(NamedTuple):
@@ -95,25 +123,30 @@ def _p_vector(pred: torch.Tensor, batch) -> torch.Tensor:
 
 
 def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
-            xv: Optional[torch.Tensor] = None
+            xv: Optional[torch.Tensor] = None, dp: int = 1
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """COO backward -> (gw[U], gV[U, k] or None). The three transposed
     products share one lane sum over [x p XV | x p | x^2 p]; ``xv`` is the
-    forward's X·V (None recomputes it)."""
+    forward's X·V (None recomputes it). ``dp`` > 1 sums the entries' lane
+    sums over dp blocks of the nonzeros (:func:`dp_reduce`)."""
     U = params.w.shape[0]
     vals, rows, cols = batch.vals, batch.rows, batch.cols
     p = _p_vector(pred, batch)
     if params.V is None or params.V.shape[1] == 0:
-        return spmv_t(vals, rows, cols, p, U), None
+        if dp == 1:
+            return spmv_t(vals, rows, cols, p, U), None
+        return dp_reduce(lane_sum, (vals * p[rows])[:, None], cols, U,
+                         dp)[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm[:, None]
     XV = xv if xv is not None else segment_sum(
         vals[:, None] * Vm[cols], rows, batch.batch_cap, batch.row_cap)
     pr = p[rows]
-    red = lane_sum(torch.cat([vals[:, None] * (p[:, None] * XV)[rows],
-                              (vals * pr)[:, None],
-                              (vals ** 2 * pr)[:, None]], dim=1), cols, U)
+    contrib = torch.cat([vals[:, None] * (p[:, None] * XV)[rows],
+                         (vals * pr)[:, None], (vals ** 2 * pr)[:, None]],
+                        dim=1)
+    red = dp_reduce(lane_sum, contrib, cols, U, dp)
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -170,7 +203,7 @@ def _chunk_tokens(rowq: torch.Tensor, chunk_idx: torch.Tensor
 
 def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
                            p: torch.Tensor, xv: Optional[torch.Tensor],
-                           sorted_chunks: bool = True
+                           sorted_chunks: bool = True, dp: int = 1
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Chunked-run backward (``pb.chunk_*`` set): each chunk's L token
     rows of the row quantities (p XV | p) are gathered and summed to one
@@ -182,12 +215,16 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
     float32 tolerance."""
     U = params.w.shape[0]
     cv = pb.chunk_vals
+
+    def csum(partial, lanes, n):
+        return chunk_sum(partial, lanes, n, sorted_chunks)
+
     if params.V is None or params.V.shape[1] == 0:
         toks = _chunk_tokens(p[:, None], pb.chunk_idx)[:, :, 0]  # [C, L]
         if cv is not None:
             toks = toks * cv
-        gw = chunk_sum(torch.sum(toks, dim=1)[:, None], pb.chunk_lane, U,
-                       sorted_chunks)[:, 0]
+        gw = dp_reduce(csum, torch.sum(toks, dim=1)[:, None],
+                       pb.chunk_lane, U, dp)[:, 0]
         return gw, None
     k = params.V.shape[1]
     vm = _vmask(params)
@@ -195,8 +232,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
     rowq = torch.cat([p[:, None] * xv, p[:, None]], dim=1)     # [B, k+1]
     toks = _chunk_tokens(rowq, pb.chunk_idx)                   # [C, L, k+1]
     if cv is None:
-        red = chunk_sum(torch.sum(toks, dim=1), pb.chunk_lane, U,
-                        sorted_chunks)
+        red = dp_reduce(csum, torch.sum(toks, dim=1), pb.chunk_lane, U, dp)
         t1, gw = red[:, :k], red[:, k]
         xxp = gw
     else:
@@ -204,7 +240,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
         partial = torch.cat([torch.sum(toks * v, dim=1),
                              torch.sum(toks[:, :, k:] * (v * v), dim=1)],
                             dim=1)                             # [C, k+2]
-        red = chunk_sum(partial, pb.chunk_lane, U, sorted_chunks)
+        red = dp_reduce(csum, partial, pb.chunk_lane, U, dp)
         t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -212,7 +248,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
 
 def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
                   xv: Optional[torch.Tensor] = None,
-                  sorted_chunks: bool = True
+                  sorted_chunks: bool = True, dp: int = 1
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Panel backward: each cell contributes broadcasts of its row's
     (p XV | p | p) times (x | x | x^2), rounded to V's container dtype as
@@ -225,13 +261,14 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
     if pb.chunk_lane is not None:
         if params.V is not None and params.V.shape[1] > 0 and xv is None:
             _, xv = fm_predict_panel_xv(params, pb)
-        return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks)
+        return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks, dp)
     flat_idx = pb.idx.reshape(B * F)
     if params.V is None or params.V.shape[1] == 0:
         cell = p[:, None].expand(B, F)
         if pb.vals is not None:
             cell = cell * pb.vals
-        return lane_sum(cell.reshape(B * F, 1), flat_idx, U)[:, 0], None
+        return dp_reduce(lane_sum, cell.reshape(B * F, 1), flat_idx, U,
+                         dp)[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm.to(params.V.dtype)[:, None]
@@ -248,7 +285,8 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
         contrib = contrib * torch.cat([v3.expand(B, F, k + 1), v3 * v3],
                                       dim=2)
     contrib = contrib.to(params.V.dtype).to(torch.float32)
-    red = lane_sum(contrib.reshape(B * F, k + 2), flat_idx, U)
+    red = dp_reduce(lane_sum, contrib.reshape(B * F, k + 2), flat_idx, U,
+                    dp)
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV

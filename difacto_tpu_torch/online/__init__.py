@@ -28,8 +28,9 @@ log = logging.getLogger("difacto_tpu_torch")
 @dataclass
 class OnlineParam(Param):
     """task=online knobs, under the JAX CLI's names. Learner knobs (lr,
-    model_out, auto_resume, ckpt_keep, ...) pass through to the SGD
-    learner unchanged."""
+    model_out, auto_resume, ckpt_keep, mesh_dp, mesh_fs, ...) pass
+    through to the SGD learner unchanged, so the online trainer shards
+    its table as the offline one does."""
     # the training log directory the serving replicas append to
     online_log_dir: str = ""
     # wall-clock seconds between committed generations (verified

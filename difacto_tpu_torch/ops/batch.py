@@ -92,6 +92,15 @@ def bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
+def mesh_dim_min(dp: int, floor: int = 8) -> int:
+    """Bucket minimum that keeps every rung divisible by ``dp`` (the JAX
+    package's ``mesh_dim_min``): the smallest multiple of 2*dp that is
+    >= floor, since :func:`bucket`'s 1.5x rungs divide by dp only when
+    the minimum carries a factor of 2*dp."""
+    base = 2 * dp
+    return base * ((max(floor, base) + base - 1) // base)
+
+
 def max_row_nnz(blk: RowBlock) -> int:
     return int(np.diff(blk.offset).max()) if blk.size else 0
 
@@ -254,15 +263,20 @@ def unpack_panel_raw(i32, f32, batch_cap: int, width: int,
 CHUNK_L = 16
 
 
-def chunk_cap(u_cap: int, cells: int, L: int = CHUNK_L) -> int:
+def chunk_cap(u_cap: int, cells: int, L: int = CHUNK_L,
+              dp_div: int = 1) -> int:
     """Static chunk-count bound: each of the <= u_cap lane runs wastes
-    less than one chunk, plus cells/L full chunks."""
-    return u_cap + cells // L + 2
+    less than one chunk, plus cells/L full chunks; rounded up to a
+    multiple of ``dp_div`` so the [C, L] arrays split evenly over the
+    mesh's dp blocks (the JAX learner's ``dp_div``)."""
+    C = u_cap + cells // L + 2
+    return -(-C // dp_div) * dp_div
 
 
 def panel_chunk_tokens_flat(flat_idx: torch.Tensor,
                             flat_vals: Optional[torch.Tensor], u_cap: int,
-                            b_cap: int, width: int, L: int = CHUNK_L):
+                            b_cap: int, width: int, L: int = CHUNK_L,
+                            dp_div: int = 1):
     """Chunked-run backward layout from the flat panel lanes, on the
     tensors' device (built once per batch when the replay cache stages
     it). Tokens are sorted by lane with a stable sort, so within a lane
@@ -275,13 +289,14 @@ def panel_chunk_tokens_flat(flat_idx: torch.Tensor,
                             dropped by the reduction),
       chunk_vals f32[C, L]  token values (None when ``flat_vals`` is),
 
-    with C = chunk_cap(u_cap, cells, L); equal to the JAX package's
-    ``panel_chunk_tokens_flat`` bit for bit. Chunk numbers are counted
-    from the tokens that open a chunk (position in run % L == 0), which
-    gives the same numbering as the per-run bases of the JAX version."""
+    with C = chunk_cap(u_cap, cells, L, dp_div); equal to the JAX
+    package's ``panel_chunk_tokens_flat`` bit for bit (at ``dp_div`` 1).
+    Chunk numbers are counted from the tokens that open a chunk
+    (position in run % L == 0), which gives the same numbering as the
+    per-run bases of the JAX version."""
     import torch
     cells = flat_idx.shape[0]
-    C = chunk_cap(u_cap, cells, L)
+    C = chunk_cap(u_cap, cells, L, dp_div)
     dev = flat_idx.device
     lane, order = torch.sort(flat_idx.to(torch.int32), stable=True)
     rows = torch.div(order, width, rounding_mode="floor").to(torch.int32)

@@ -36,7 +36,7 @@ configs load, and selects nothing here: the device of the table decides.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -137,26 +137,33 @@ def dequant_half(codes: torch.Tensor, scale: torch.Tensor, kind: str
 
 
 # ----------------------------------------------------------------- gather
-def gather_rows_ref(table: torch.Tensor, slots: torch.Tensor
-                    ) -> torch.Tensor:
+def gather_rows_ref(table: torch.Tensor, slots: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the gather: ``index_select`` on clamped slots, then
     the out-of-bounds lanes zeroed (``out[j] = table[slots[j]]`` for
     ``0 <= slots[j] < C``, else 0). Copies move bits, never values, so the
-    f32 scalar bits riding bf16/int8 lanes survive exactly."""
+    f32 scalar bits riding bf16/int8 lanes survive exactly. ``out`` (a
+    [u, W] tensor, e.g. a slice of a larger output) receives the rows."""
     C = table.shape[0]
     s = slots.to(torch.int64)
     ok = (s >= 0) & (s < C)
-    out = table.index_select(0, torch.where(ok, s, torch.zeros_like(s)))
-    return out.masked_fill_(~ok.view(-1, *([1] * (out.dim() - 1))), 0)
+    rows = table.index_select(0, torch.where(ok, s, torch.zeros_like(s)))
+    rows = rows.masked_fill_(~ok.view(-1, *([1] * (rows.dim() - 1))), 0)
+    if out is None:
+        return rows
+    return out.copy_(rows)
 
 
-def gather_rows(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, slots: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused-row gather: the CUDA kernel for a table on the card, the
-    plain version for a table on the CPU."""
+    plain version for a table on the CPU. ``out`` is written in place
+    when given (the sharded pull writes each shard's lanes into its
+    slice of one output, parallel/sharded.py)."""
     if table.device.type == "cuda":
-        return gather_rows_cuda(table, slots)
+        return gather_rows_cuda(table, slots, out)
     if table.device.type == "cpu":
-        return gather_rows_ref(table, slots)
+        return gather_rows_ref(table, slots, out)
     raise ValueError(f"gather_rows: unsupported device {table.device}")
 
 
@@ -171,11 +178,13 @@ def _gather_fn():
     return fn
 
 
-def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor
-                     ) -> torch.Tensor:
+def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/gather_rows.cu`` on the current stream. Checks what
-    the kernel assumes and raises on anything else; allocates the output,
-    never synchronises. ``gather_rows_cuda.launches`` counts launches."""
+    the kernel assumes and raises on anything else; allocates the output
+    unless ``out`` (a contiguous [u, W] tensor of the table's dtype on its
+    device, 16-byte aligned) is given, never synchronises.
+    ``gather_rows_cuda.launches`` counts launches."""
     if table.device.type != "cuda" or slots.device != table.device:
         raise ValueError(f"gather_rows_cuda: table on {table.device} and "
                          f"slots on {slots.device}; both must be on one "
@@ -197,8 +206,15 @@ def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor
                          "16-byte vectors (row bytes and base address must "
                          "be multiples of 16)")
     u = slots.shape[0]
-    out = torch.empty((u, table.shape[1]), dtype=table.dtype,
-                      device=table.device)
+    if out is None:
+        out = torch.empty((u, table.shape[1]), dtype=table.dtype,
+                          device=table.device)
+    elif (out.shape != (u, table.shape[1]) or out.dtype != table.dtype
+          or out.device != table.device or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"gather_rows_cuda: out must be a contiguous, "
+                         f"16-byte aligned [{u}, {table.shape[1]}] "
+                         f"{table.dtype} tensor on {table.device}")
     if u == 0:
         return out
     rc = _gather_fn()(table.data_ptr(), slots.data_ptr(), out.data_ptr(),

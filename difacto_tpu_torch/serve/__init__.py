@@ -89,8 +89,8 @@ def run_serve(kwargs: KWArgs, device="cuda") -> KWArgs:
     param, remain = ServeParam.init_allow_unknown(kwargs)
     if not param.model_in:
         raise ValueError("please set model_in")
-    # the store kwargs also go to the reloader: a reload rebuilds the
-    # same store
+    # the store kwargs (updater overrides and serve_mesh_fs) also go to
+    # the reloader: a reload rebuilds the same store on the same mesh
     store_kwargs = list(remain)
     store, _, remain = open_serving_store(param.model_in, remain,
                                           device=device)

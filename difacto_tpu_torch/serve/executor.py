@@ -70,13 +70,19 @@ class PredictExecutor:
         """{'buckets_compiled', 'bucket_hits', 'dispatches',
         'model_generation'} under the JAX executor's names and arithmetic:
         a bucket counts at its first occurrence; a warmed bucket was
-        registered without a dispatch, so it does not deflate the hits."""
+        registered without a dispatch, so it does not deflate the hits.
+        A sharded store adds ``fs``, its key-range shard count (the JAX
+        executor has no such key, so an unsharded one keeps JAX's set)."""
         with self._mu:
-            return {"buckets_compiled": len(self._buckets),
-                    "bucket_hits": self._dispatches
-                    - (len(self._buckets) - self._warmed),
-                    "dispatches": self._dispatches,
-                    "model_generation": self.generation}
+            out = {"buckets_compiled": len(self._buckets),
+                   "bucket_hits": self._dispatches
+                   - (len(self._buckets) - self._warmed),
+                   "dispatches": self._dispatches,
+                   "model_generation": self.generation}
+            fs = self.store.fs_count
+        if fs > 1:
+            out["fs"] = fs
+        return out
 
     # ------------------------------------------------------- warm replay
     def warm_set(self) -> Tuple[dict, list]:
@@ -112,7 +118,8 @@ class PredictExecutor:
         batch, slots_t, _ = unpack_batch(
             torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
             b_cap, nnz_cap, u_cap, row_cap, binary=binary)
-        pred, _, _ = self._step(store.state, batch, slots_t)
+        pred, _, _ = self._step(store.state, batch, store.shard_slots(
+            slots_t, padded, store.state.capacity))
         pred.cpu()                 # the warm ends when its launch does
         with self._mu:
             if key not in self._buckets:
@@ -129,6 +136,12 @@ class PredictExecutor:
         blue/green executor swap instead."""
         from .model import store_geometry
         old = self.store
+        if store.fs_count != old.fs_count:
+            raise ValueError(
+                f"hot-reload mesh mismatch: serving an "
+                f"fs={old.fs_count}-sharded table, new store is "
+                f"fs={store.fs_count}; pass the same serve_mesh_fs on "
+                "reload (run_serve threads it through the reloader)")
         if store_geometry(store.param) != store_geometry(old.param):
             raise ValueError(
                 f"hot-reload geometry mismatch: serving "
@@ -181,7 +194,8 @@ class PredictExecutor:
         batch, slots_t, _ = unpack_batch(
             torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
             b_cap, nnz_cap, u_cap, row_cap, binary=binary)
-        pred, objv, auc = self._step(store.state, batch, slots_t)
+        pred, objv, auc = self._step(store.state, batch, store.shard_slots(
+            slots_t, padded, store.state.capacity))
         return pred[:blk.size].cpu().numpy(), objv, auc
 
     def predict_scores(self, blk: RowBlock) -> np.ndarray:

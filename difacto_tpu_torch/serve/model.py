@@ -6,7 +6,10 @@ difacto_tpu/serve/model.py).
 a weights-only, manifest-verified load. The geometry (V_dim,
 hash_capacity, slot_dtype) comes from the checkpoint itself; a corrupt
 newest file walks back to the newest generation that verifies, unless the caller (a hot reload) asks
-for no walk-back.
+for no walk-back. ``serve_mesh_fs > 1`` (:class:`ServingShardParam`)
+opens the read-only table fs-sharded over a ``(1, serve_mesh_fs)`` mesh
+(parallel/mesh.py): each key range a shard, every pull one gather launch
+per shard run. Any checkpoint layout loads into any ``serve_mesh_fs``.
 """
 
 from __future__ import annotations
@@ -15,10 +18,20 @@ import dataclasses
 import logging
 from typing import Optional, Tuple
 
-from ..config import KWArgs
+from ..config import KWArgs, Param
 from ..utils import stream
 
 log = logging.getLogger("difacto_tpu_torch")
+
+
+@dataclasses.dataclass
+class ServingShardParam(Param):
+    """The mesh knob of the serving-store open path (the JAX package's):
+    ``serve_mesh_fs > 1`` shards the read-only table into that many
+    contiguous key ranges (a power of two dividing ``hash_capacity``).
+    run_serve hands the same kwargs to the reloader, so a reload rebuilds
+    the same mesh."""
+    serve_mesh_fs: int = dataclasses.field(default=1, metadata=dict(lo=1))
 
 
 def store_geometry(param) -> Tuple[int, int, str]:
@@ -71,7 +84,7 @@ def model_meta(uri: str) -> dict:
 
 
 def open_serving_store(model_in: str, kwargs: KWArgs = (),
-                       fallback: bool = True, device="cuda"
+                       fallback: bool = True, device="cuda", mesh=None
                        ) -> Tuple["SlotStore", dict, KWArgs]:
     """Read-only SlotStore on ``device`` loaded weights-only from
     ``model_in``; updater keys in ``kwargs`` (l1_shrk, V_dtype, ...) are
@@ -79,7 +92,10 @@ def open_serving_store(model_in: str, kwargs: KWArgs = (),
     leftover kwargs). With ``fallback`` (serve startup) a corrupt file
     walks back to the newest generation of its family that verifies;
     ``fallback=False`` (a hot reload) raises instead, so a failed reload
-    keeps the model in memory and never regresses to an older file."""
+    keeps the model in memory and never regresses to an older file.
+    ``mesh`` (a parallel.mesh.Mesh) overrides ``serve_mesh_fs``:
+    task=pred under the training mesh keys opens the store on that
+    mesh."""
     from ..utils import manifest as mft
     from ..utils.manifest import CheckpointCorrupt
 
@@ -90,7 +106,7 @@ def open_serving_store(model_in: str, kwargs: KWArgs = (),
     last_err: Optional[CheckpointCorrupt] = None
     for cand in candidates:
         try:
-            out = _open_verified(cand, kwargs, device)
+            out = _open_verified(cand, kwargs, device, mesh)
         except FileNotFoundError:
             continue
         except CheckpointCorrupt as e:
@@ -106,7 +122,7 @@ def open_serving_store(model_in: str, kwargs: KWArgs = (),
     raise last_err
 
 
-def _open_verified(path: str, kwargs: KWArgs, device
+def _open_verified(path: str, kwargs: KWArgs, device, mesh=None
                    ) -> Tuple["SlotStore", dict, KWArgs]:
     from ..store.local import SlotStore
     from ..updaters.sgd_updater import SGDUpdaterParam
@@ -118,17 +134,21 @@ def _open_verified(path: str, kwargs: KWArgs, device
             f"learner={meta['learner']!r}; the serving executor loads sgd "
             "SlotStore checkpoints only — re-train with learner=sgd to "
             "serve this data")
-    uparam, remain = SGDUpdaterParam.init_allow_unknown(list(kwargs))
+    sparam, kwargs = ServingShardParam.init_allow_unknown(list(kwargs))
+    uparam, remain = SGDUpdaterParam.init_allow_unknown(kwargs)
     # geometry from the checkpoint; the cold tier is a training-side
     # residency choice, a serving replica holds the whole table
     uparam = dataclasses.replace(uparam, V_dim=meta["V_dim"],
                                  hash_capacity=meta["hash_capacity"],
                                  slot_dtype=meta["slot_dtype"],
                                  cold_tier_rows=0)
-    store = SlotStore(uparam, device=device, read_only=True)
+    if mesh is None and sparam.serve_mesh_fs > 1:
+        from ..parallel import make_mesh
+        mesh = make_mesh(dp=1, fs=sparam.serve_mesh_fs, device=device)
+    store = SlotStore(uparam, device=device, read_only=True, mesh=mesh)
     n = store.load(meta["path"])
-    log.info("serving store: %s (%s, V_dim=%d, %s, %d non-empty "
+    log.info("serving store: %s (%s, V_dim=%d, %s, fs=%d, %d non-empty "
              "entries, weights-only)", meta["path"],
              "hashed" if meta["hashed"] else "dictionary", meta["V_dim"],
-             store.device, n)
+             store.device, store.fs_count, n)
     return store, meta, remain

@@ -14,6 +14,16 @@ JAX package's "off" backend does for it.
 ``task=pred`` and ``task=serve`` run :func:`make_predict_fn` through
 serve/executor.py, which is what makes their scores bit-identical for the
 same rows.
+
+Under a ``(dp, fs)`` mesh (parallel/mesh.py) the same functions run: a
+``slots`` argument that is a parallel.sharded.ShardedSlots makes the pull
+and the push one kernel launch per non-empty key-range shard run
+(updaters/sgd_updater.make_fns), and a loss with ``dp > 1`` sums the
+backward's per-slot partials over dp blocks of the batch in dp order
+(losses/fm.dp_reduce) before the one push per shard. The JAX step's
+``state_constrainer`` (pinning the returned state to its fs layout
+inside the jitted program) has no counterpart beyond that placement: the
+push writes each shard in place, so the table never leaves its layout.
 """
 
 from __future__ import annotations

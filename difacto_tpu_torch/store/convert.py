@@ -12,6 +12,11 @@
 - :func:`state_from_jax_table` adopts the JAX fused ``VVg`` table
   (``np.asarray(state.VVg)``) bit for bit; a bfloat16 table arrives as
   ml_dtypes' numpy bfloat16 and is moved through its 16-bit patterns.
+- :func:`read_sharded_columns` assembles the logical columns of a
+  per-key-range checkpoint (the JAX package's ``_save_sharded`` layout:
+  ``<path>_fs-<i>-of-<n>`` members, each verified, and the array-free
+  stub at ``<path>``), so a JAX fs-sharded checkpoint loads into a port
+  store of any ``fs`` and the port's sharded saves load into JAX.
 """
 
 from __future__ import annotations
@@ -118,3 +123,68 @@ def state_from_jax_table(param: SGDUpdaterParam, vvg_np: np.ndarray,
         raise ValueError(f"JAX table shape {a.shape} != [C, {Wx}] for this "
                          "layout")
     return SGDState(VVg=t.to(dev), **_empty_cols(dev))
+
+
+def fs_shard_path(path: str, shard: int, count: int) -> str:
+    """Per-shard checkpoint member name ``<path>_fs-<i>-of-<n>`` (the JAX
+    package's); utils/manifest.family_prefix strips the decoration, so
+    shard members prune and walk back with their family."""
+    return f"{path}_fs-{shard}-of-{count}"
+
+
+def read_sharded_columns(path: str, fs_count: int, capacity: int,
+                         V_dim: int, loaded, weights_only: bool,
+                         verify: bool = True) -> dict:
+    """Logical columns ``[capacity]`` of a per-key-range checkpoint whose
+    stub at ``path`` declared ``fs_count`` shards (the JAX store's
+    ``_load_sharded``). Every member is digest-verified (its manifest is
+    required: the stub declared it) before the caller commits anything;
+    a missing member, a geometry that disagrees with the stub or an array
+    of the wrong row count raises ``CheckpointCorrupt``, so loaders walk
+    back a generation. ``weights_only`` leaves the optimizer columns out
+    (state_from_numpy makes absent columns zero)."""
+    from ..parallel.mesh import fs_shard_bounds
+    from ..utils import manifest as mft
+    from ..utils import stream
+    try:
+        bounds = fs_shard_bounds(capacity, fs_count)
+    except ValueError as e:
+        raise mft.CheckpointCorrupt(path, str(e)) from e
+
+    arr = {"w": np.zeros(capacity, np.float32),
+           "cnt": np.zeros(capacity, np.float32),
+           "v_live": np.zeros(capacity, bool),
+           "V": np.zeros((capacity, V_dim), np.float32)}
+    if not weights_only:
+        arr.update(z=np.zeros(capacity, np.float32),
+                   sqrt_g=np.zeros(capacity, np.float32),
+                   Vg=np.zeros((capacity, V_dim), np.float32))
+    for i, (lo, hi) in enumerate(bounds):
+        sp = fs_shard_path(path, i, fs_count)
+        try:
+            sctx = (mft.open_verified(sp, require_manifest=True,
+                                      fault_point="ckpt.read") if verify
+                    else stream.load_npz(sp, fault_point="ckpt.read"))
+        except FileNotFoundError as e:
+            raise mft.CheckpointCorrupt(
+                path, f"shard member {sp!r} is missing (torn or "
+                      f"partially pruned {fs_count}-shard save)") from e
+        with sctx as sz:
+            if (int(sz["hash_capacity"]) != capacity
+                    or int(sz["fs_count"]) != fs_count
+                    or int(sz["row_lo"]) != lo
+                    or int(sz["row_hi"]) != hi):
+                raise mft.CheckpointCorrupt(
+                    sp, f"shard geometry disagrees with its stub "
+                        f"(expected rows [{lo}, {hi}) of {capacity} over "
+                        f"{fs_count} shards)")
+            for k in loaded:
+                if k in sz.files:
+                    a = sz[k]
+                    if np.asarray(a).shape[0] != hi - lo:
+                        raise mft.CheckpointCorrupt(
+                            sp, f"array {k!r} has {np.asarray(a).shape[0]} "
+                                f"rows, shard owns {hi - lo}")
+                    arr[k][lo:hi] = a
+            getattr(sz, "finish", lambda: None)()
+    return arr

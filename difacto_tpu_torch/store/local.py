@@ -42,8 +42,17 @@ into the hot prefix and the host tail. ``evict_occupancy`` demotes (under
 a tier) or resets the lowest-count rows at epoch ends
 (:meth:`maybe_evict`). The write-ahead log's row surgery
 (:meth:`wal_touched_rows`, :meth:`apply_wal_rows`) moves rows through the
-same gather and scatter kernels. Per-key-range sharded checkpoints are
-not ported (ROADMAP.md, Queue 1: sharding) and raise.
+same gather and scatter kernels.
+
+Under a ``(dp, fs)`` mesh (parallel/mesh.py, ``mesh=``) the table is cut
+into ``fs`` contiguous key-range shards: the fused table stays one tensor
+on the mesh's one device and each shard is a view of its rows; the
+batch's pulls and pushes run one kernel launch per
+shard run (parallel/sharded.py) on the slots :meth:`shard_slots` routes.
+``save`` then writes per-key-range members ``<path>_fs-<i>-of-<n>`` and
+the array-free stub last, and a load takes any layout into any ``fs``,
+as the JAX store does. The cold tier and the write-ahead log refuse a
+mesh with the JAX package's errors.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ from ..updaters.sgd_updater import (TRASH_SLOT, SGDState, SGDUpdaterParam,
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
-from .convert import state_from_numpy, state_to_numpy
+from .convert import (fs_shard_path, read_sharded_columns,
+                      state_from_numpy, state_to_numpy)
 from .slots import hash_slots, pad_slots_oob  # noqa: F401
 
 # the KV API's value-type channels (include/difacto/store.h:33-35)
@@ -76,16 +86,20 @@ class SlotStore:
     optimizer state. ``init`` overrides the init provider (see the module
     docstring), ``virgin_V`` the cold tier's virgin V [cold_tier_rows,
     V_dim] (capacity/tier.virgin_V). A read-only store ignores
-    ``cold_tier_rows``: serving holds the whole table."""
+    ``cold_tier_rows``: serving holds the whole table. ``mesh`` (a
+    parallel.mesh.Mesh) shards the table over its ``fs`` axis; the store
+    then lives on the mesh's home device."""
 
     def __init__(self, param: SGDUpdaterParam, device="cuda",
                  read_only: bool = False,
                  init: Optional[Callable[[int], SGDState]] = None,
-                 virgin_V: Optional[np.ndarray] = None):
+                 virgin_V: Optional[np.ndarray] = None, mesh=None):
         self.param = param
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.home if mesh is not None \
+            else resolve_device(device)
         self.read_only = read_only
-        self.fns = make_fns(param)
+        self.fns = make_fns(param, mesh)
         self.hashed = param.hash_capacity > 0
         self._init = init if init is not None else (
             lambda capacity: init_state(param, capacity, self.device))
@@ -104,17 +118,47 @@ class SlotStore:
                 raise ValueError("cold_tier_rows requires V_dim > 0: the "
                                  "tier moves fused rows, the flat layout "
                                  "has none")
+            if mesh is not None:
+                raise ValueError("cold_tier_rows is single-device only: "
+                                 "tier routing runs on the dispatch "
+                                 "thread against an unsharded table (use "
+                                 "mesh_fs for sharded capacity, or "
+                                 "combine fs with slot_dtype)")
             if param.cold_tier_rows >= cap - 1:
                 raise ValueError(
                     f"cold_tier_rows={param.cold_tier_rows} must leave at "
                     f"least 2 hot rows of hash_capacity={cap} (trash row "
                     "+ one working row)")
             cap -= param.cold_tier_rows
+        if self.fs_count > 1:
+            # fail at construction with the knob to fix; doubling growth
+            # keeps the capacity divisible (grow_to checks again)
+            from ..parallel import validate_fs_capacity
+            validate_fs_capacity(cap, self.fs_count)
         self.state: SGDState = self._init(cap)
         self.tier = None
         if tiered:
             from ..capacity.tier import ColdTier
             self.tier = ColdTier(self, virgin_V)
+
+    # ------------------------------------------------------------ shards
+    @property
+    def fs_count(self) -> int:
+        """Feature-shard degree: the contiguous key-range shards the
+        table's capacity axis splits into (1 without a mesh)."""
+        from ..parallel import fs_size
+        return fs_size(self.mesh)
+
+    def shard_slots(self, slots: torch.Tensor, host_slots: np.ndarray,
+                    capacity: int):
+        """The slot argument of ``self.fns`` for a batch: ``slots`` itself
+        without a mesh; under one, a parallel.sharded.ShardedSlots routed
+        on the host copy ``host_slots`` over a ``capacity``-row table (the
+        one the batch was padded for)."""
+        if self.mesh is None:
+            return slots
+        from ..parallel import sharded
+        return sharded.route(slots, host_slots, capacity, self.fs_count)
 
     # ------------------------------------------------------------- keys
     @property
@@ -191,6 +235,9 @@ class SlotStore:
         """Grow the table to ``capacity`` rows (updaters/sgd_updater
         ``grow_state``); no-op when it is already that large."""
         if capacity > self.state.capacity:
+            if self.fs_count > 1:
+                from ..parallel import validate_fs_capacity
+                validate_fs_capacity(capacity, self.fs_count)
             self.state = grow_state(self.param, self.state, capacity,
                                     self._init)
 
@@ -213,9 +260,10 @@ class SlotStore:
         perm = None
         if self.tier is not None:
             slots_np, _, perm = self.tier.route(slots_np)
-        w, V, vmask = self.fns.get_rows(
-            self.state, torch.from_numpy(np.ascontiguousarray(
-                slots_np, dtype=np.int32)).to(self.device))
+        slots_np = np.ascontiguousarray(slots_np, dtype=np.int32)
+        w, V, vmask = self.fns.get_rows(self.state, self.shard_slots(
+            torch.from_numpy(slots_np).to(self.device), slots_np,
+            self.state.capacity))
         # a bf16 table's V leaves as f32: numpy has no bfloat16
         out = [None if a is None else a.cpu().to(
             torch.float32 if a.dtype == torch.bfloat16 else a.dtype).numpy()
@@ -261,7 +309,9 @@ class SlotStore:
             return None if a is None else torch.from_numpy(
                 np.ascontiguousarray(a)).to(self.device, dtype)
 
-        slots = dev(slots_np, torch.int32)
+        slots_np = np.ascontiguousarray(slots_np, dtype=np.int32)
+        slots = self.shard_slots(dev(slots_np, torch.int32), slots_np,
+                                 self.state.capacity)
         if val_type == K_FEACOUNT:
             self.state = self.fns.apply_count(self.state, slots, dev(gw))
         elif val_type == K_GRADIENT:
@@ -377,6 +427,9 @@ class SlotStore:
                                    V_dtype="float32", cold_tier_rows=0)
         base_bpr = state_bytes(base, dev_rows) / max(dev_rows, 1)
         baseline_rows = bytes_total / max(base_bpr, 1e-9)
+        # a mesh lies on one device (parallel/mesh.make_mesh), which holds
+        # every shard: the per-device figures are the whole table's, not
+        # the JAX store's total / fs
         out = {
             "slot_dtype": self.param.slot_dtype,
             "logical_rows": logical,
@@ -391,17 +444,24 @@ class SlotStore:
         return out
 
     def shard_stats(self) -> list:
-        """Occupancy of the table, as the JAX store's one-shard list:
-        [{shard, row_lo, row_hi, rows, occupancy, table_bytes}] with
-        ``rows`` the non-zero w. Reads the w column to the host: cold
-        paths only."""
+        """Per-key-range shard occupancy: [{shard, row_lo, row_hi, rows,
+        occupancy, table_bytes}] with ``rows`` the non-zero w of the
+        shard's range and ``table_bytes`` the bytes of the shard's rows
+        (state_bytes / fs; every shard is on the mesh's one device). Reads
+        the w column to the host: cold paths only."""
+        from ..parallel import fs_shard_bounds
         from ..updaters.sgd_updater import state_bytes
         w = self._state_np(("w",))["w"]
-        cap = self.state.capacity
-        rows = int((w != 0).sum())
-        return [{"shard": 0, "row_lo": 0, "row_hi": cap, "rows": rows,
-                 "occupancy": round(rows / max(cap, 1), 6),
-                 "table_bytes": state_bytes(self.param, cap)}]
+        cap, fs = self.state.capacity, self.fs_count
+        per_shard = state_bytes(self.param, cap) // fs
+        out = []
+        for i, (lo, hi) in enumerate(fs_shard_bounds(cap, fs)):
+            rows = int((w[lo:hi] != 0).sum())
+            out.append({"shard": i, "row_lo": lo, "row_hi": hi,
+                        "rows": rows,
+                        "occupancy": round(rows / max(hi - lo, 1), 6),
+                        "table_bytes": per_shard})
+        return out
 
     def publish_shard_stats(self) -> list:
         """:meth:`shard_stats` into the global registry
@@ -489,14 +549,24 @@ class SlotStore:
         return n
 
     def save(self, path: str, save_aux: bool = False,
-             epoch: Optional[int] = None) -> int:
+             epoch: Optional[int] = None,
+             shards: Optional[int] = None) -> int:
         """Checkpoint as one uncompressed npz plus its manifest sidecar
         (monotonic generation, written after the npz; ``epoch`` stamps an
         interval checkpoint): the dense hashed table, or the dictionary's
         sorted keys with their non-empty rows. Returns the count of
-        non-zero w (hashed) or of saved keys."""
+        non-zero w (hashed) or of saved keys.
+
+        ``shards`` (default: the mesh's fs degree) splits a HASHED table
+        into per-key-range members ``<path>_fs-<i>-of-<n>``, each with its
+        own manifest, and an array-free stub at ``<path>`` written LAST as
+        the generation's commit marker (:meth:`_save_sharded`)."""
         saved = ("w", "cnt", "v_live", "V") + (
             ("z", "sqrt_g", "Vg") if save_aux else ())
+        if shards is None:
+            shards = self.fs_count if self.hashed else 1
+        if self.hashed and shards > 1:
+            return self._save_sharded(path, saved, save_aux, epoch, shards)
         st = self._logical_np(saved) if self.hashed \
             else self._state_np(saved)
         if self.hashed:
@@ -532,6 +602,45 @@ class SlotStore:
                         **arrays)
         return n
 
+    def _save_sharded(self, path: str, saved, save_aux: bool,
+                      epoch: Optional[int], shards: int) -> int:
+        """The JAX store's ``_save_sharded``: every member carries rows
+        [lo, hi) of each column plus the geometry stamp (``fs_count``,
+        ``row_lo``, ``row_hi``); the stub, written last, closes the
+        generation, so a save torn between members leaves no stub
+        manifest and reads as incomplete, never as half a table."""
+        from ..parallel import fs_shard_bounds
+        cap = self.param.hash_capacity
+        bounds = fs_shard_bounds(cap, shards)
+        st = self._logical_np(saved)
+        gen = mft.next_generation(path)
+        n = int((st["w"] != 0).sum())
+        geom = dict(hash_capacity=np.array(cap),
+                    V_dim=np.array(self.param.V_dim),
+                    save_aux=np.array(save_aux),
+                    learner=np.array("sgd"),
+                    slot_dtype=np.array(self.param.slot_dtype),
+                    cold_tier_rows=np.array(self.param.cold_tier_rows),
+                    fs_count=np.array(shards))
+        for i, (lo, hi) in enumerate(bounds):
+            man = {"learner": "sgd",
+                   "rows": int((st["w"][lo:hi] != 0).sum()),
+                   "save_aux": bool(save_aux), "generation": gen,
+                   "fs_shard": i, "fs_count": shards}
+            if epoch is not None:
+                man["epoch"] = int(epoch)
+            stream.save_npz(fs_shard_path(path, i, shards), manifest=man,
+                            fault_point="ckpt.write", row_lo=np.array(lo),
+                            row_hi=np.array(hi), **geom,
+                            **{k: st[k][lo:hi] for k in saved})
+        man = {"learner": "sgd", "rows": n, "save_aux": bool(save_aux),
+               "generation": gen, "fs_count": shards}
+        if epoch is not None:
+            man["epoch"] = int(epoch)
+        stream.save_npz(path, manifest=man, fault_point="ckpt.write",
+                        **geom)
+        return n
+
     def load(self, path: str, weights_only: Optional[bool] = None,
              require_manifest: bool = False) -> int:
         """Restore a checkpoint (the counterpart of the JAX store's
@@ -564,14 +673,22 @@ class SlotStore:
             if ck_vdim != k:
                 raise ValueError(f"checkpoint V_dim={ck_vdim} != configured "
                                  f"V_dim={k} ({path})")
-            if "fs_count" in z.files and "w" not in z.files:
-                raise NotImplementedError(
-                    f"{path} is a per-key-range sharded checkpoint stub; "
-                    "sharded loads are not ported yet (ROADMAP.md, "
-                    "Queue 1: sharding)")
-            arr = {key: z[key] for key in loaded + ("keys",)
-                   if key in z.files}
+            sharded = "fs_count" in z.files and "w" not in z.files
+            if sharded:
+                fs_count = int(z["fs_count"])
+                arr = {}
+            else:
+                arr = {key: z[key] for key in loaded + ("keys",)
+                       if key in z.files}
             z.finish()  # digest sweep BEFORE the state commits
+        if sharded:
+            # per-key-range stub: the table lives in its members, each
+            # verified before anything commits (store/convert.py)
+            arr = read_sharded_columns(path, fs_count,
+                                       self.param.hash_capacity, k, loaded,
+                                       weights_only)
+            self._commit_hashed(arr)
+            return int((arr["w"] != 0).sum())
         if self.hashed:
             cap = self.param.hash_capacity
             for key, a in arr.items():

@@ -442,21 +442,48 @@ def grow_state(param: SGDUpdaterParam, state: SGDState, new_capacity: int,
     return SGDState(*(torch.cat([a, b[old:]]) for a, b in zip(state, ext)))
 
 
-def make_fns(param: SGDUpdaterParam):
+def make_fns(param: SGDUpdaterParam, mesh=None):
     """The updater functions with the params baked in: a namespace of
     ``pull_rows``, ``rows_to_params``, ``get_rows`` (the pull),
     ``apply_count``, ``apply_grad_rows``, ``apply_grad`` (the push, in
     place on the state's table) and ``evaluate``. The train step always
     threads its one gather from the pull to the push (the JAX package's
-    ``fns.fused`` path), so no flag selects it."""
+    ``fns.fused`` path), so no flag selects it.
+
+    ``slots`` is a device slot vector, or under an fs-sharded mesh a
+    :class:`~difacto_tpu_torch.parallel.sharded.ShardedSlots`: then the
+    fused gathers and scatters run once per non-empty key-range shard of
+    ``mesh`` (parallel/sharded.py) over the shards of the table they are
+    handed. The flat ``V_dim=0`` columns take plain gathers and scatters
+    of the global slots either way."""
+    from ..parallel import sharded
+    from ..parallel.mesh import state_sharding
+    shards = None if mesh is None else state_sharding(mesh)
+
     has_V = param.V_dim > 0
     thr = param.V_threshold
+
+    def _flat(slots):
+        return slots.slots if isinstance(slots, sharded.ShardedSlots) \
+            else slots
+
+    def _gather(VVg: torch.Tensor, slots) -> torch.Tensor:
+        if isinstance(slots, sharded.ShardedSlots):
+            return sharded.sharded_gather(shards(VVg), slots)
+        return fused.gather_rows(VVg, slots)
+
+    def _scatter(VVg: torch.Tensor, slots, rows) -> torch.Tensor:
+        if isinstance(slots, sharded.ShardedSlots):
+            sharded.sharded_scatter(shards(VVg), slots, rows)
+            return VVg
+        return fused.scatter_rows(VVg, slots, rows)
 
     def pull_rows(state: SGDState, slots: torch.Tensor) -> torch.Tensor:
         """ONE full fused-row gather of the batch's sorted-unique
         OOB-padded slots (ops/fused.gather_rows: the CUDA kernel on the
-        card). V keeps its container dtype."""
-        return fused.gather_rows(state.VVg, slots)
+        card; one launch per shard run under a mesh). V keeps its
+        container dtype."""
+        return _gather(state.VVg, slots)
 
     def rows_to_params(state: SGDState, rows: torch.Tensor):
         """(w, V, v_mask) views of gathered fused rows; 8-bit rows
@@ -477,7 +504,7 @@ def make_fns(param: SGDUpdaterParam):
                             Optional[torch.Tensor]]:
         """Pull [w, V, v_mask] rows for the batch's slots (Get)."""
         if not has_V:
-            return _gather_flat(state.w, slots), None, None
+            return _gather_flat(state.w, _flat(slots)), None, None
         return rows_to_params(state, pull_rows(state, slots))
 
     def apply_count(state: SGDState, slots: torch.Tensor,
@@ -487,11 +514,12 @@ def make_fns(param: SGDUpdaterParam):
         one scatter with the kernel's epilogue off. The flat table adds
         the counts to its cnt column."""
         if not has_V:
+            slots = _flat(slots)
             _scatter_flat(state.cnt, slots,
                           _gather_flat(state.cnt, slots) + counts)
             return state
         _, _, _, off = row_layout(param, state.capacity)
-        rows = fused.gather_rows(state.VVg, slots)
+        rows = _gather(state.VVg, slots)
         f = scal_f32(rows[:, off:])
         w, z, sg, cnt, live = f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4] > 0
         cnt_new = cnt + counts
@@ -500,7 +528,7 @@ def make_fns(param: SGDUpdaterParam):
         scal = pack_scal(w, z, sg, cnt_new, live_new, state.VVg.dtype,
                          scale_V=f[:, 5], scale_Vg=f[:, 6])
         out = torch.cat([rows[:, :off], scal], dim=1)
-        return state._replace(VVg=fused.scatter_rows(state.VVg, slots, out))
+        return state._replace(VVg=_scatter(state.VVg, slots, out))
 
     def apply_grad_rows(state: SGDState, slots: torch.Tensor,
                         rows: torch.Tensor, gw: torch.Tensor,
@@ -513,10 +541,14 @@ def make_fns(param: SGDUpdaterParam):
             raise ValueError("apply_grad_rows: the flat V_dim=0 table has "
                              "no fused rows; its push is apply_grad")
         cap = state.capacity
+        epi = epilogue_spec(param, cap)
+        epilogue = functools.partial(row_epilogue, param, cap)
+        if isinstance(slots, sharded.ShardedSlots):
+            sharded.sharded_push(shards(state.VVg), slots, rows, gw, gV,
+                                 pull_vmask, epi, epilogue)
+            return state
         return state._replace(VVg=fused.fm_update_rows(
-            state.VVg, slots, rows, gw, gV, pull_vmask,
-            epilogue_spec(param, cap), functools.partial(row_epilogue,
-                                                          param, cap)))
+            state.VVg, slots, rows, gw, gV, pull_vmask, epi, epilogue))
 
     def apply_grad(state: SGDState, slots: torch.Tensor, gw: torch.Tensor,
                    gV: Optional[torch.Tensor],
@@ -525,6 +557,7 @@ def make_fns(param: SGDUpdaterParam):
         table: FTRL on the gathered w/z/sqrt_g and three plain scatters,
         in place."""
         if not has_V:
+            slots = _flat(slots)
             w_new, z_new, sg_new = ftrl_w(
                 _gather_flat(state.w, slots), _gather_flat(state.z, slots),
                 _gather_flat(state.sqrt_g, slots), gw, param.l1, param.l2,

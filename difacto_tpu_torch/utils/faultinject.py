@@ -62,7 +62,8 @@ and kinds).
   points pass a returned kind to :func:`act_default` (``kill`` dies,
   ``truncate``/``close`` refuse the move), where the JAX package drops
   it. The JAX package's other two points, ``push.stale`` and
-  ``dcn.collective``, belong to sharding (ROADMAP.md, Queue 1).
+  ``dcn.collective``, belong to multi-host training (ROADMAP.md, item
+  11b).
 - ``kind`` — what happens when the fault fires:
     - ``err``      raise :class:`FaultInjected` (an OSError, so IO call
                    sites treat it exactly like a real IO failure);

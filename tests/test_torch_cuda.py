@@ -821,3 +821,70 @@ def test_rolling_restart_on_the_card_returns_memory(cuda, tmp_path):
         (peak, fleet, table, load_peak)
     assert abs(held - fleet) <= (64 << 20), (held, fleet)
     assert after <= (64 << 20), after
+
+
+# ------------------------------------------------- the mesh (PR slice 12)
+@pytest.mark.parametrize("real", [[3, 15, 16, 17, 40, 63], [33, 34, 40], [],
+                                  [16], [1, 2, 50]])
+def test_sharded_kernels_equal_the_flat_kernels(cuda, real):
+    """The routed pull and push over four key-range shards of a table on
+    the card launch the kernels once per non-empty shard run and leave
+    the flat kernels' bytes: the gathered rows and the pushed table."""
+    import functools
+    from difacto_tpu_torch.parallel import sharded
+    from difacto_tpu_torch.store.slots import pad_slots_oob
+    C, fs, u = 64, 4, 8
+    param = T.SGDUpdaterParam(V_dim=4, hash_capacity=C, l1=0.01,
+                              V_threshold=0)
+    base = T.init_state(param, C, cuda).VVg
+    host = pad_slots_oob(np.array(real, np.int32), u, C)
+    ss = sharded.route(torch.from_numpy(host).to(cuda), host, C, fs)
+    n = C // fs
+    runs = sum(1 for _ in sharded._runs(ss))
+
+    def shards(t):
+        return [t[f * n:(f + 1) * n] for f in range(fs)]
+
+    before = fused.gather_rows_cuda.launches
+    got = sharded.sharded_gather(shards(base), ss)
+    assert fused.gather_rows_cuda.launches - before == runs
+    want = fused.gather_rows_cuda(base, ss.slots)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gw = torch.randn(u, generator=g, device=cuda)
+    gV = torch.randn(u, 4, generator=g, device=cuda)
+    vm = (torch.rand(u, generator=g, device=cuda) > 0.3).float()
+    epi = T.epilogue_spec(param, C)
+    plain = functools.partial(T.row_epilogue, param, C)
+    flat = base.clone()
+    fused.fm_update_rows_cuda(flat, ss.slots, want, gw, gV, vm, epi)
+    routed = base.clone()
+    before = fused.fm_update_rows_cuda.launches
+    sharded.sharded_push(shards(routed), ss, want, gw, gV, vm, epi, plain)
+    assert fused.fm_update_rows_cuda.launches - before == runs
+    assert torch.equal(routed.view(torch.int32), flat.view(torch.int32))
+
+
+def test_mesh_learner_on_the_card_leaves_the_flat_table(cuda, monkeypatch):
+    """rcv1 at ``mesh_fs=4`` on the card (eight logical devices) leaves
+    the flat run's table bit for bit; the 2 x 4 mesh repeats bit for
+    bit."""
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    monkeypatch.setenv("DIFACTO_TORCH_VIRTUAL_DEVICES", "8")
+    kw = [("data_in", _RCV1), ("V_dim", "2"), ("V_threshold", "2"),
+          ("lr", "0.1"), ("l1", "0.1"), ("l2", "0"),
+          ("num_jobs_per_epoch", "1"), ("batch_size", "30"),
+          ("max_num_epochs", "3"), ("shuffle", "0"),
+          ("report_interval", "0"), ("stop_rel_objv", "0"),
+          ("hash_capacity", "4096")]
+
+    def run(extra):
+        ln = SGDLearner(device="cuda")
+        assert ln.init(kw + extra) == []
+        ln.run()
+        return ln.store.state.VVg.view(torch.int32)
+
+    flat = run([])
+    assert torch.equal(run([("mesh_fs", "4")]), flat)
+    a = run([("mesh_dp", "2"), ("mesh_fs", "4")])
+    assert torch.equal(run([("mesh_dp", "2"), ("mesh_fs", "4")]), a)

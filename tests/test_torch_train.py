@@ -434,16 +434,26 @@ def test_cli_train_saves_a_model_jax_pred_scores(tmp_path):
     "cold_tier_rows=64"])
 def test_knobs_that_change_the_result_raise_when_not_ported(knob,
                                                             tmp_path):
-    """Sharding's knobs (``mesh_force``, ``bounded_delay > 0``) raise,
-    naming their ROADMAP.md item; the capacity and durability knobs are
-    ported and no longer raise (with a ``model_out`` for the WAL)."""
+    """Only multi-host's knob (``bounded_delay > 0``) still raises, naming
+    its ROADMAP.md item 11b; ``mesh_force`` now builds the 1 x 1 mesh and
+    trains (its table equals the flat run's, tests/test_torch_fs_sharding.py),
+    and the capacity and durability knobs are ported (with a
+    ``model_out`` for the WAL)."""
     k, v = knob.split("=")
     kwargs = dict([("data_in", RCV1), ("V_dim", "2"),
                    ("hash_capacity", "4096")])
     kwargs[k] = v
-    if k in ("mesh_force", "bounded_delay"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if k == "bounded_delay":
+        with pytest.raises(NotImplementedError, match="item 11b"):
             SGDLearner(device="cpu").init(list(kwargs.items()))
+        return
+    if k == "mesh_force":
+        kwargs["max_num_epochs"] = "1"
+        ln = SGDLearner(device="cpu")
+        assert ln.init(list(kwargs.items())) == []
+        assert ln.mesh is not None and ln.mesh.shape == {"dp": 1, "fs": 1}
+        ln.run()
+        assert ln.store.state.VVg.abs().sum() > 0
         return
     kwargs["model_out"] = str(tmp_path / "m")
     ln = SGDLearner(device="cpu")
@@ -451,12 +461,13 @@ def test_knobs_that_change_the_result_raise_when_not_ported(knob,
     ln.stop()
 
 
-def test_speed_knobs_are_accepted_and_logged(caplog):
+def test_speed_knobs_are_accepted_and_logged(caplog, monkeypatch):
     """The producer knobs take effect: a run with two producer threads
     reads its parts through the pool (its parse and pack stages count
-    seconds) and reports the thread transport; the mesh knobs are
-    logged as ignored."""
+    seconds) and reports the thread transport; ``mesh_dp=2`` builds a
+    (2, 1) mesh over two virtual CPU devices, and says so."""
     import logging
+    monkeypatch.setenv("DIFACTO_TORCH_VIRTUAL_DEVICES", "2")
     ln = SGDLearner(device="cpu")
     with caplog.at_level(logging.INFO, logger="difacto_tpu_torch"):
         ln.init([
@@ -465,7 +476,8 @@ def test_speed_knobs_are_accepted_and_logged(caplog):
             ("producer_depth", "2"), ("straggler_timeout", "30"),
             ("max_num_epochs", "1"), ("report_interval", "0"),
             ("mesh_dp", "2")])
-    assert "mesh_dp=2" in caplog.text and "ignored" in caplog.text
+    assert ln.mesh is not None and ln.mesh.shape == {"dp": 2, "fs": 1}
+    assert "mesh: dp=2 fs=1" in caplog.text and "ignored" not in caplog.text
     ln.run()
     stats = ln.stage_stats()
     assert stats["producer_mode"] == "thread"
