@@ -286,6 +286,31 @@ their plain PyTorch versions. Phases:
     4 at the conf's geometry (the fs=4 leg is its 4,194,304-row table at
     V_dim 16, batches of 1,000 rows of 39 features, 50 timed steps). (g) each shard's gather and push device time at (a)'s staged slot
     vectors, beside the flat kernel's on the same vectors.
+20. multi-host training, run right after phase 19: ``launch.py -n 2``
+    (unedited) starts two ranks of the port's CLI entry point on the one
+    card, ``DIFACTO_TORCH_VIRTUAL_DEVICES=4`` each, so the conf's 2 x 4
+    mesh has dp across the ranks and fs = 4 inside each; both planes run
+    over gloo (ranks that share a card cannot use NCCL). (a') the conf
+    unshuffled in one part, rank 0 on 25,000 of phase 7's rows and rank 1
+    on the same rows permuted: each epoch's loss per row within 2e-4
+    relative of one process over the same global batches (interleaved at
+    twice the batch size). (a) examples/criteo_hashed.conf as written on
+    phase 7's rows, 2 epochs, a checkpoint each epoch: the ranks' losses,
+    tables and final and ``_iter-k`` parts equal bit for bit; the loss
+    falls (beside phase 19's, whose steps hold half the rows); each rank's
+    launches equal its routed shard runs; the control and data planes'
+    bytes per step; a replayed step profiled on both ranks (wall, busy,
+    idle, the data-plane gathers' share) beside phase 19's; each rank's
+    routed gather and push against their plain versions at its own staged
+    slot vectors; the card's memory.used with both replicas alive; a
+    repeat run leaves (a)'s table. (b) ``--bounded-delay 1`` and ``4``:
+    (a)'s table bit for bit and a non-zero ``push_delay_batches``. (c)
+    ``--max-restarts 1`` with heartbeats: rank 1 SIGKILLed mid-epoch 1,
+    launch.py relaunches one rank (``mesh_dp`` follows the rank count),
+    which resumes from ``_iter-0`` and finishes; the seconds to recover.
+    (d) BCD and L-BFGS on two ranks on rcv1 at the goldens. (e)
+    ``bounded_delay_report`` at the conf's geometry (fs 4, 1,048,576 rows
+    a shard, V_dim 16, 1,000 rows of 39 nonzeros a step).
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -295,8 +320,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
 paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r), 18 (a) and
-(b) and 19 (a), (c) and (d), each counted from 0 just before its own
-run), then, as the last line,
+(b), 19 (a), (c) and (d) and 20 (a) on both ranks, each counted from 0
+just before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -4897,6 +4922,7 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
             f"{1 - flat['busy_ms'] / flat['wall_ms']:.1%}, device events "
             f"{step['kernels']:.0f} vs {flat['kernels']:.0f}")
         out["step"] = step
+        out["loss"] = loss
         # (g) on the same staged batches (the pushes write the table)
         out["shards"] = _shard_times(ln, staged, tr["bits"].clone())
         del ln, a, staged
@@ -5105,6 +5131,525 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
     return out
 
 
+
+# ------------------------------------------------------------- phase 20
+MH_DEVICES = 4              # logical devices per rank: 2 ranks x 4 = 2 x 4
+
+
+def _plain_counting() -> None:
+    """A rehearsal off the card: the three ``fused`` dispatchers take
+    their plain versions and bump the kernels' launch counters."""
+    from difacto_tpu_torch.ops import fused
+
+    def counting(ref, counter):
+        def run(*a, **k):
+            counter.launches += 1
+            return ref(*a, **k)
+        return run
+
+    fused.gather_rows = counting(fused.gather_rows_ref,
+                                 fused.gather_rows_cuda)
+    fused.scatter_rows = counting(fused.scatter_rows_ref,
+                                  fused.scatter_rows_cuda)
+
+    def fm_update(table, slots, rows, gw, gV, vmask, epi, epilogue=None):
+        fused.fm_update_rows_cuda.launches += 1
+        return fused.fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
+                                        epilogue)
+
+    fused.fm_update_rows = fm_update
+
+
+def _rank_checks(ln, staged) -> dict:
+    """Phase 20: this rank's kernels against their plain versions at its
+    own staged slot vectors and its own table (no collective: the
+    gradient is this rank's blocks' alone): the routed gather bit for bit,
+    and the routed push on one copy of the table beside the plain push on
+    another."""
+    import dataclasses
+
+    import torch
+    from difacto_tpu_torch.losses import FMParams
+    from difacto_tpu_torch.ops.batch import unpack_panel
+    from difacto_tpu_torch.parallel import sharded, state_sharding
+    from difacto_tpu_torch.updaters.sgd_updater import (epilogue_spec,
+                                                        row_epilogue)
+    store = ln.store
+    loss = dataclasses.replace(ln.loss, plane=None)
+    C = store.state.capacity
+    epi = epilogue_spec(store.param, C)
+    plain = functools.partial(row_epilogue, store.param, C)
+    place = state_sharding(store.mesh)
+    g_err = p_err = 0.0
+    for st in staged:
+        batch, slots, _ = unpack_panel(st.i32, st.f32, st.b_cap, st.d2,
+                                       st.u_cap, binary=st.binary)
+        ci, cl, cv = st.chunks
+        batch = batch._replace(chunk_idx=ci, chunk_lane=cl, chunk_vals=cv)
+        ss = sharded.ShardedSlots(slots, st.route[1], st.route[0])
+        shards = place(store.state.VVg)
+        got = sharded.sharded_gather(shards, ss)
+        ref = sharded.sharded_gather_ref(shards, ss)
+        if not _bits_same(got, ref):
+            raise AssertionError("phase 20: the routed gather differs from "
+                                 "its plain version")
+        rows = store.fns.pull_rows(store.state, ss)
+        w, V, vm = store.fns.rows_to_params(store.state, rows)
+        pred, xv = loss.predict_xv(FMParams(w=w, V=V, v_mask=vm), batch)
+        gw, gV = loss.calc_grad(FMParams(w=w, V=V, v_mask=vm), batch, pred,
+                                xv)
+        a, b = store.state.VVg.clone(), store.state.VVg.clone()
+        sharded.sharded_push(place(a), ss, rows, gw.contiguous(),
+                             gV.contiguous(), vm, epi, plain)
+        sharded.sharded_push_ref(place(b), ss, rows, gw.contiguous(),
+                                 gV.contiguous(), vm, plain)
+        sync()
+        if not _bits_same(a, b):
+            p_err = max(p_err, float((a - b).abs().max()))
+            raise AssertionError(f"phase 20: the routed push differs from "
+                                 f"its plain version by {p_err}")
+        g_err = max(g_err, float((got - ref).abs().max()))
+        del a, b
+        torch.cuda.empty_cache() if DEV == "cuda" else None
+    return {"gather_err": g_err, "push_err": p_err, "batches": len(staged)}
+
+
+def _host_steps(fn, items, what: str) -> dict:
+    """profile_steps' stand-in in a rehearsal off the card: host time."""
+    for it in items:
+        fn(it)
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    wall = (time.perf_counter() - t0) * 1e3 / len(items)
+    return {"wall_ms": wall, "busy_ms": wall, "kernels": 0.0}
+
+
+def rank_cli(spec_path: str) -> int:
+    """Phase 20's rank under launch.py: the port's CLI entry point
+    (``difacto_tpu_torch.__main__.main``, what ``python -m
+    difacto_tpu_torch`` runs) with the spec's arguments, its kernel
+    launches tallied against the shard runs its routing asked for; then
+    this rank's evidence into ``<out>-<rank>.json``: per-epoch losses,
+    launches, the control and data planes' traffic, the table's digest,
+    and on request a replayed step's profile, the kernels against their
+    plain versions and the card's memory with both replicas alive."""
+    import hashlib
+
+    import torch
+    from difacto_tpu_torch import __main__ as cli
+    from difacto_tpu_torch.learners import base, sgd
+    from difacto_tpu_torch.obs import REGISTRY
+    from difacto_tpu_torch.parallel import multihost
+    with open(spec_path) as f:
+        spec = json.load(f)
+    global DEV, profile_steps
+    DEV = spec["dev"]
+    if DEV == "cpu":        # a rehearsal: plain kernels, host-timed steps
+        _plain_counting()
+        profile_steps = _host_steps
+    rank = int(os.environ["DIFACTO_RANK"])
+    nprocs = int(os.environ["DIFACTO_NPROCS"])
+    attempt = int(os.environ.get("DIFACTO_RESTART", "0"))
+    seen: dict = {"loss": []}
+    real_create = base.Learner.create
+
+    def create(name, device="cuda"):
+        ln = real_create(name, device)
+        seen["ln"] = ln
+        if isinstance(ln, sgd.SGDLearner):
+            ln.add_epoch_end_callback(lambda e, t, v: seen["loss"].append(
+                [e, t.loss / max(t.nrows, 1), v.loss / max(v.nrows, 1)]))
+        else:
+            ln.add_epoch_end_callback(
+                lambda e, p: seen["loss"].append([e, p.objv]))
+        return ln
+
+    base.Learner.create = staticmethod(create)
+    ctrl = {"calls": 0, "bytes": 0}
+    real_ctrl = sgd.control_allgather_np
+
+    def ctrl_fn(arr):
+        ctrl["calls"] += 1
+        ctrl["bytes"] += int(np.asarray(arr).nbytes)
+        return real_ctrl(arr)
+
+    sgd.control_allgather_np = ctrl_fn
+    if spec.get("kill_at") and rank == 1 and attempt == 0:
+        real_gather, n = multihost.DataPlane.gather, [0]
+
+        def dying(self, t):
+            n[0] += 1
+            if n[0] == spec["kill_at"]:
+                print(f"rank 1: SIGKILL at data-plane gather {n[0]}",
+                      flush=True)
+                with open(spec["out"] + "-killed", "w") as f:
+                    f.write(repr(time.time()))
+                os.kill(os.getpid(), signal.SIGKILL)
+            return real_gather(self, t)
+
+        multihost.DataPlane.gather = dying
+    argv = list(spec["argv"])
+    if spec.get("dp_per_rank"):
+        argv.append(f"mesh_dp={nprocs * spec['dp_per_rank']}")
+    _reset_counts()
+    tally, restore = _routed_runs()
+    t_start = time.time()
+    try:
+        rc = cli.main(argv)
+    finally:
+        restore()
+    wall = time.time() - t_start
+    launches = _counts()
+    ln = seen["ln"]
+    out = {"rank": rank, "nprocs": nprocs, "attempt": attempt, "rc": rc,
+           "wall": wall, "t_start": t_start, "loss": seen["loss"],
+           "launches": launches,
+           "tally": tally if isinstance(ln, sgd.SGDLearner) else None,
+           "ctrl": ctrl}
+    if isinstance(ln, sgd.SGDLearner):
+        plane = ln.loss.plane
+        out.update(
+            tau=ln._tau, steps=ctrl["calls"],
+            plane={"calls": plane.calls, "bytes_out": plane.bytes_out,
+                   "seconds": plane.seconds} if plane is not None else None,
+            staleness=REGISTRY.histogram("push_delay_batches").data(),
+            backend=multihost.BACKEND)
+        if spec.get("digest"):
+            out["digest"] = hashlib.sha256(
+                ln.store.state.VVg.cpu().numpy()).hexdigest()
+        if spec.get("profile"):
+            from difacto_tpu_torch.learners.sgd import K_TRAINING
+            staged = [st for items in
+                      ln._caches[K_TRAINING].entries.values()
+                      for st in items if st.chunks is not None][:5]
+
+            def replayed(st):
+                pending = []
+                ln._dispatch_staged(K_TRAINING, st, False, pending)
+                return pending[-1][1]
+
+            step = profile_steps(replayed, staged, f"  rank {rank} replayed")
+            # one more pass on the host clock, the data plane's share of it
+            sync()
+            s0, c0, g0 = plane.seconds, plane.calls, plane.collective_s
+            t1 = time.perf_counter()
+            for st in staged:
+                replayed(st)
+            sync()
+            n = len(staged)
+            step["host_ms"] = (time.perf_counter() - t1) * 1e3 / n
+            step["gather_ms"] = (plane.seconds - s0) * 1e3 / n
+            step["collective_ms"] = (plane.collective_s - g0) * 1e3 / n
+            step["gathers"] = (plane.calls - c0) / n
+            out["step"] = step
+            out["checks"] = _rank_checks(ln, staged)
+            torch.distributed.barrier()
+            if rank == 0 and DEV == "cuda":
+                out["memory_used"] = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True).stdout.strip()
+            torch.distributed.barrier()
+    with open(f"{spec['out']}-{rank}.json", "w") as f:
+        json.dump(out, f)
+    return rc
+
+
+def _launch_ranks(work: str, name: str, argv: list, launch_extra=(),
+                  timeout: float = 600.0, **spec) -> tuple:
+    """Phase 20: ``launch.py -n 2 [launch_extra] -- python -c <rank_cli>``
+    from the repo root with ``MH_DEVICES`` logical devices per rank; the
+    ranks' evidence (of the last attempt) and the launcher's stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, "mh_" + name)
+    spec.update(argv=argv, out=out, dev=DEV)
+    spec_path = out + ".spec.json"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    env["DIFACTO_TORCH_VIRTUAL_DEVICES"] = str(MH_DEVICES)
+    env["PYTHONPATH"] = root
+    cmd = [sys.executable, os.path.join(root, "launch.py"), "-n", "2",
+           "--port", str(_free_port()), *launch_extra, "--",
+           sys.executable, "-c",
+           f"import sys, chip_smoke; sys.exit(chip_smoke.rank_cli("
+           f"{spec_path!r}))"]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20 {name}: launch.py exited "
+                             f"{proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    ranks = []
+    for r in range(2):
+        path = f"{out}-{r}.json"
+        if os.path.exists(path):
+            with open(path) as f:
+                ranks.append(json.load(f))
+    return ranks, proc.stderr, wall
+
+
+def _same_parts(a: str, b: str) -> int:
+    """The arrays of two checkpoints (a stub and its ``_fs-*`` members)
+    equal, by their manifests' sha256 digests; the files compared."""
+    from difacto_tpu_torch.utils import stream
+    n = 0
+    for pa in sorted(stream.glob(a + "*.manifest.json")):
+        pb = b + pa[len(a):]
+        with open(pa) as f, open(pb) as g:
+            ma, mb = json.load(f)["arrays"], json.load(g)["arrays"]
+        if ma != mb:
+            raise AssertionError(f"phase 20: {pa} and {pb} differ")
+        n += 1
+    if n == 0:
+        raise AssertionError(f"phase 20: no checkpoint at {a}")
+    return n
+
+
+def phase_multihost(work: str, tr: dict, t19: dict, smi: str) -> dict:
+    """Phase 20: multi-host training under launch.py, two ranks on the one
+    card (gloo for both planes), each with ``MH_DEVICES`` logical devices,
+    so the conf's 2 x 4 mesh has dp across the ranks and fs = 4 inside
+    each. (a') parity: the conf unshuffled in one part, each rank 25,000
+    rows (rank 1's a permutation of rank 0's), each epoch's loss per row
+    within 2e-4 relative of one process over the same global batches. (a)
+    examples/criteo_hashed.conf as written on phase 7's rows, 2 epochs,
+    checkpoints every epoch: the ranks' losses and their final and
+    ``_iter-k`` parts equal bit for bit, the loss falls (printed beside
+    phase 19's, whose steps are half the rows), each rank's launches
+    equal to its routed shard runs; a replayed step profiled on
+    both ranks beside phase 19's; the kernels against their plain versions
+    on each rank; a repeat run gives (a)'s table bit for bit. (b)
+    ``--bounded-delay 1`` and ``4``: (a)'s table bit for bit, the window's
+    delay histogram non-zero. (c) ``--max-restarts 1`` with heartbeats:
+    rank 1 SIGKILLed mid-epoch 1; one rank relaunches, resumes from
+    ``_iter-0`` and finishes; the seconds to recover. (d) BCD and L-BFGS
+    under ``launch.py -n 2`` on rcv1 at the goldens. (e)
+    ``bounded_delay_report`` at the conf's geometry."""
+    from difacto_tpu_torch.config import parse_config_file
+    root = os.path.dirname(os.path.abspath(__file__))
+    t20 = time.monotonic()
+    out = {"launches": dict.fromkeys(COUNTERS, 0)}
+    base = [CONF, f"data_in={tr['data_in']}", f"data_val={tr['data_val']}",
+            "max_num_epochs=2", "stop_rel_objv=0", "stop_val_auc=-2",
+            f"device={DEV}"]
+    if DEV == "cpu":
+        base.append("hash_capacity=8192")
+
+    def agree(ranks, what):
+        if len(ranks) != 2 or any(r["rc"] != 0 for r in ranks):
+            raise AssertionError(f"phase 20 {what}: ranks {ranks}")
+        if ranks[0]["loss"] != ranks[1]["loss"]:
+            raise AssertionError(f"phase 20 {what}: the ranks' losses "
+                                 f"differ: {ranks}")
+        for r in ranks:
+            if r["tally"] is not None and (
+                    r["launches"] != r["tally"]
+                    or not all(r["launches"].values())):
+                raise AssertionError(
+                    f"phase 20 {what}: rank {r['rank']} launches "
+                    f"{r['launches']}, routed {r['tally']}")
+
+    # (a') parity with one process over the same global batches: under
+    # launch.py each rank reads batch_size rows of its own byte range, so
+    # a step's batch is 2 x batch_size rows from two places of the file,
+    # and phase 19's run (1,000-row steps, shuffled in 10 parts) is not
+    # the same SGD. Here rank 0's half is 25,000 of phase 7's rows and
+    # rank 1's the same rows permuted (equal bytes, so the byte split
+    # falls between them); the one process reads the two halves' batches
+    # interleaved at twice the batch size, unshuffled, in one part.
+    with open(tr["data_in"], "rb") as f:
+        rows = f.read().splitlines(keepends=True)
+    bsz = int(dict(parse_config_file(CONF))["batch_size"])
+    half = rows[:len(rows) // 2 // bsz * bsz]
+    perm = [half[i] for i in np.random.RandomState(SEED).permutation(
+        len(half))]
+    par_in = os.path.join(work, "mh_parity.txt")
+    ref_in = os.path.join(work, "mh_parity_ref.txt")
+    with open(par_in, "wb") as f:
+        f.write(b"".join(half + perm))
+    with open(ref_in, "wb") as f:
+        f.write(b"".join(b"".join(half[i:i + bsz] + perm[i:i + bsz])
+                         for i in range(0, len(half), bsz)))
+    keys = ["shuffle=0", "num_jobs_per_epoch=1", "max_num_epochs=2",
+            "stop_rel_objv=0", "stop_val_auc=-2", f"device={DEV}"]
+    if DEV == "cpu":
+        keys.append("hash_capacity=8192")
+    pa, _, pa_wall = _launch_ranks(
+        work, "parity", [CONF, f"data_in={par_in}",
+                         f"data_val={tr['data_val']}"] + keys)
+    agree(pa, "(a')")
+    with _virtual_devices():
+        ref = _mesh_runs(parse_config_file(CONF) + [
+            tuple(x.split("=", 1)) for x in keys if x != f"device={DEV}"]
+            + [("data_in", ref_in), ("data_val", tr["data_val"]),
+               ("batch_size", str(2 * bsz))], "(a') one process")
+    p_loss = [x[1] for x in pa[0]["loss"]]
+    p_err = _rel_err(p_loss, ref["loss"])
+    if not (len(p_loss) == 2 and p_err <= 2e-4):
+        raise AssertionError(f"(a') loss/row {p_loss}, one process "
+                             f"{ref['loss']} (relative {p_err})")
+    log(f"  (a') parity: 2 ranks x {len(half)} rows (rank 1's permuted), "
+        f"unshuffled, one part, against one process (2 x 4 mesh, "
+        f"DIFACTO_TORCH_VIRTUAL_DEVICES=8) over the same global batches "
+        f"interleaved at batch_size {2 * bsz}: loss/row {p_loss} vs "
+        f"{ref['loss']}, within {p_err:.3g} relative (bound 2e-4); "
+        f"{pa_wall:.1f} s of launch.py")
+    del ref
+    gc.collect()
+
+    # (a) the conf as written
+    model = os.path.join(work, "mh_model")
+    a, _, a_wall = _launch_ranks(
+        work, "a", base + [f"model_out={model}", "has_aux=1",
+                           "ckpt_interval=1"], digest=True, profile=True)
+    agree(a, "(a)")
+    for r in a:
+        for c in COUNTERS:
+            out["launches"][c] += r["launches"][c]
+    loss = [x[1] for x in a[0]["loss"]]
+    err = _rel_err(loss, t19["loss"])
+    if not (len(loss) == 2 and loss[1] < loss[0]):
+        raise AssertionError(f"(a) loss/row {loss}")
+    if a[0]["digest"] != a[1]["digest"]:
+        raise AssertionError("(a) the ranks' tables differ")
+    files = sum(_same_parts(model + suf + "_part-0", model + suf + "_part-1")
+                for suf in ("", "_iter-0", "_iter-1"))
+    plane, steps = a[0]["plane"], a[0]["steps"]
+    log(f"  (a) {CONF} as written, 2 ranks x {MH_DEVICES} logical devices "
+        f"on the one card ({smi}), data plane {a[0]['backend']}: loss/row "
+        f"{loss[0]:.8f} -> {loss[1]:.8f} on both ranks ({err:.3g} relative "
+        f"from phase 19's single-process run, whose steps are half the "
+        f"rows; (a') is the parity check); final and "
+        f"_iter-0/1 parts of both ranks equal ({files} manifests); "
+        f"launches per rank {a[0]['launches']} and {a[1]['launches']} = "
+        f"the shard runs routed; {a_wall:.1f} s of launch.py")
+    log(f"  (a) per rank: {a[0]['ctrl']['calls']} control exchanges, "
+        f"{a[0]['ctrl']['bytes'] / max(a[0]['ctrl']['calls'], 1):.0f} B "
+        f"each sent to the store; {plane['calls']} data-plane gathers, "
+        f"{plane['bytes_out'] / max(plane['calls'], 1):.0f} B each sent, "
+        f"{plane['seconds']:.2f} s in them ({smi})")
+    for r in a:
+        st = r["step"]
+        log(f"  (a) rank {r['rank']} replayed step: wall {st['wall_ms']:.3f}"
+            f" ms, busy {st['busy_ms']:.3f} ms, idle "
+            f"{1 - st['busy_ms'] / st['wall_ms']:.1%}; phase 19's "
+            f"single-process step: wall {t19['step']['wall_ms']:.3f} ms, "
+            f"busy {t19['step']['busy_ms']:.3f} ms; a pass without the "
+            f"profiler: {st['host_ms']:.3f} ms a step, its "
+            f"{st['gathers']:.0f} gathers {st['gather_ms']:.3f} ms "
+            f"({st['gather_ms'] / st['host_ms']:.1%}), "
+            f"{st['collective_ms']:.3f} ms of them inside gloo, the rest "
+            f"the copy out (waiting for the step's kernels) and back "
+            f"({smi})")
+        ck = r["checks"]
+        log(f"  (a) rank {r['rank']}: routed gather and push against their "
+            f"plain versions at {ck['batches']} staged slot vectors: max "
+            f"abs err {ck['gather_err']} / {ck['push_err']}")
+    if DEV == "cuda":
+        log(f"  (a) memory.used with both replicas alive: "
+            f"{a[0]['memory_used']} ({smi})")
+    out["a"] = {"loss": loss, "step": [r["step"] for r in a],
+                "plane": plane, "ctrl": a[0]["ctrl"], "wall": a_wall}
+    again, _, _ = _launch_ranks(work, "a2", base, digest=True)
+    agree(again, "(a) repeat")
+    if again[0]["digest"] != a[0]["digest"]:
+        raise AssertionError("(a) a repeat run left another table")
+    log("  (a) repeat run: the table bit for bit")
+
+    # (b) bounded delay
+    for tau in (1, 4):
+        b, _, b_wall = _launch_ranks(
+            work, f"b{tau}", base, ["--bounded-delay", str(tau)],
+            digest=True)
+        agree(b, f"(b) tau {tau}")
+        hist = b[0]["staleness"]
+        if b[0]["tau"] != tau or b[0]["digest"] != a[0]["digest"] \
+                or not hist.get("count") or not hist.get("sum"):
+            raise AssertionError(f"(b) tau {tau}: {b[0]}")
+        log(f"  (b) --bounded-delay {tau}: (a)'s table bit for bit; "
+            f"push_delay_batches {hist['count']} steps, mean "
+            f"{hist['sum'] / hist['count']:.2f} batches ahead; "
+            f"{b_wall:.1f} s of launch.py")
+
+    # (c) kill one host mid-epoch 1, relaunch, resume: (a)'s run made
+    # half its data-plane gathers in each epoch, so three quarters of them
+    # falls in epoch 1's training
+    kill_at = int(plane["calls"] * 0.75)
+    cmodel = os.path.join(work, "mh_kill")
+    c, err_text, c_wall = _launch_ranks(
+        work, "c", base + [f"model_out={cmodel}", "ckpt_interval=1",
+                           "auto_resume=1"],
+        ["--max-restarts", "1", "--hb-port", str(_free_port()),
+         "--hb-timeout", "2"], kill_at=kill_at, dp_per_rank=1)
+    failed = re.search(r"attempt 0 failed \(rc=(-?\d+)\)", err_text)
+    if not failed or len(c) != 1 or c[0]["attempt"] != 1 \
+            or c[0]["nprocs"] != 1 or [x[0] for x in c[0]["loss"]] != [1]:
+        raise AssertionError(f"(c) {c}\n{err_text[-3000:]}")
+    with open(os.path.join(work, "mh_c-killed")) as f:
+        t_kill = float(f.read())
+    to_start = c[0]["t_start"] - t_kill
+    to_end = to_start + c[0]["wall"]
+    log(f"  (c) --max-restarts 1: rank 1 SIGKILLed at its data-plane gather "
+        f"{kill_at} of {plane['calls']} (epoch 1); launch.py saw attempt 0 "
+        f"fail with rc={failed.group(1)} and relaunched one rank, which "
+        f"resumed from _iter-0 and finished epoch 1 (loss/row "
+        f"{c[0]['loss'][0][1]:.8f}): {to_start:.1f} s from the kill to the "
+        f"relaunched rank's entry point, {to_end:.1f} s to the end of its "
+        f"run (the resume load and epoch 1 on one rank); all of launch.py "
+        f"{c_wall:.1f} s")
+    out["c"] = {"wall": c_wall, "to_start_s": to_start, "to_end_s": to_end}
+
+    # (d) the batch learners
+    rcv1 = os.path.join(root, "tests", "data", "rcv1_100.libsvm")
+    for name, args, golden in (
+            ("bcd", ["l1=.1", "lr=.05", "block_ratio=0.001",
+                     "tail_feature_filter=0", "max_num_epochs=10"],
+             OBJV_DIAG_NEWTON),
+            ("lbfgs", ["m=5", "V_dim=0", "l2=0", "init_alpha=1",
+                       "tail_feature_filter=0", "max_num_epochs=19"],
+             OBJV_BASIC)):
+        d, _, d_wall = _launch_ranks(
+            work, "d_" + name, [f"learner={name}", f"data_in={rcv1}",
+                                f"device={DEV}"] + args)
+        agree(d, f"(d) {name}")
+        objv = [x[1] for x in d[0]["loss"]]
+        gap = float(np.max(np.abs(np.array(objv) - golden)
+                           / np.maximum(np.abs(golden), 1.0)))
+        if len(objv) != len(golden) or not gap <= 1e-4:
+            raise AssertionError(f"(d) {name}: {objv} vs {golden}")
+        log(f"  (d) {name} on 2 ranks: the golden within {gap:.3g}, both "
+            f"ranks equal; {d_wall:.1f} s")
+
+    # (e) the bounded-delay report at the conf's geometry
+    from difacto_tpu_torch.parallel.capacity import bounded_delay_report
+    conf = dict(parse_config_file(CONF))
+    C = int(conf["hash_capacity"]) if DEV == "cuda" else 8192
+    with _virtual_devices():
+        rep = bounded_delay_report(
+            fs=4, base_capacity=C // 4, V_dim=int(conf["V_dim"]),
+            batch=int(conf["batch_size"]), nnz_per_row=39, steps=40,
+            device=DEV)
+    if [x["auc_delta"] for x in rep["auc"]] != [0.0] * len(rep["auc"]):
+        raise AssertionError(f"(e) the windowed AUC moved: {rep['auc']}")
+    log(f"  (e) bounded_delay_report (fs 4, {C // 4} rows a shard, V_dim "
+        f"{conf['V_dim']}, {conf['batch_size']} x 39 nonzeros a step; "
+        f"{smi}): base step {rep['base_step_ms']} ms; " + "; ".join(
+            f"hosts {x['hosts']} tau {x['tau']}: {x['examples_per_sec']:.0f}"
+            f" ex/s" for x in rep["legs"])
+        + f"; retention by tau {rep['retention_by_tau']}; AUC "
+        f"{[x['auc'] for x in rep['auc']]} at tau "
+        f"{[x['tau'] for x in rep['auc']]}")
+    out["report"] = rep
+    dt = time.monotonic() - t20
+    log(f"phase 20 ok in {dt:.1f} s: multi-host training under launch.py, "
+        "two ranks on the one card, every step's sums gathered in order")
+    out["seconds"] = dt
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -5172,6 +5717,7 @@ def main(argv=None) -> int:
         del tr["bits"]
         gc.collect()
         torch.cuda.empty_cache()
+        t20 = phase_multihost(work, tr, t19, smi)
         td = phase_train_dict(work)
         tx = phase_layout_cross(work)
         phase_local_conf(work)
@@ -5206,12 +5752,13 @@ def main(argv=None) -> int:
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
         # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15,
-        # 16 (p) and (q), 17 (r), 18 (a) and (b) and 19 (a), (c) and (d),
-        # each read just after its own run
+        # 16 (p) and (q), 17 (r), 18 (a) and (b), 19 (a), (c) and (d) and
+        # 20 (a) (both ranks), each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
               + tp["launches"][c] + to["launches"][c] + tf["launches"][c]
-              + t18["launches"][c] + t19["launches"][c] for c in COUNTERS}
+              + t18["launches"][c] + t19["launches"][c]
+              + t20["launches"][c] for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

@@ -31,11 +31,18 @@
 
 ``device=cuda`` (the default) runs on the card and raises when there is
 none; ``device=cpu`` runs on the CPU (convert runs on the host alone).
+
+Under ``launch.py -n N -- python -m difacto_tpu_torch ...`` (the
+environment carries ``DIFACTO_NPROCS``) the process joins the cluster
+first (parallel/multihost.initialize), and a training run whose peer
+died exits with the code that names it (parallel/fault.exit_code_for),
+which the launcher's ``--max-restarts`` acts on.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from dataclasses import dataclass, field
 from typing import Optional
@@ -219,6 +226,9 @@ def main(argv: Optional[list] = None) -> int:
               "task=train|pred|serve|online|dump|convert key1=val1 ...",
               file=sys.stderr)
         return 1
+    if "DIFACTO_NPROCS" in os.environ:
+        from .parallel.multihost import initialize
+        initialize()
     param, remain = DifactoParam.init_allow_unknown(parse_cli_args(argv))
     if param.task == "pred":
         if param.learner != "sgd":
@@ -229,9 +239,18 @@ def main(argv: Optional[list] = None) -> int:
         warn_unknown(run_serve(remain, device=param.device))
     elif param.task == "train":
         from .learners.base import Learner
+        from .parallel.fault import HostFailure, exit_code_for
         learner = Learner.create(param.learner, device=param.device)
         warn_unknown(learner.init(remain))
-        learner.run()
+        try:
+            learner.run()
+        except HostFailure as e:
+            # a peer host died: the recovery code makes the launcher evict
+            # it and resume from the last checkpoint (parallel/fault.py)
+            from .parallel.multihost import abandon
+            log.error("aborting for restart: %s", e)
+            abandon()
+            return exit_code_for(e.dead)
     elif param.task == "dump":
         warn_unknown(run_dump(remain, device=param.device))
     elif param.task == "convert":

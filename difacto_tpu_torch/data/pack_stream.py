@@ -36,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Iterator, NamedTuple, Optional, Sequence
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -105,25 +105,35 @@ class Payload(NamedTuple):
 def pack_payload(shapes: ShapeSchedule, cblk, n_lanes: int,
                  padded: np.ndarray, b_cap: int, dim_min: int, job: str,
                  counts: Optional[np.ndarray] = None,
-                 stream_chunk: bool = False) -> Payload:
+                 stream_chunk: bool = False,
+                 agreed: Optional[Tuple[int, int]] = None,
+                 force_vals: bool = False) -> Payload:
     """Panel layout when rows are near-uniform, COO otherwise; caps from
     the sticky schedule keyed by ``job``. ``padded`` is the OOB-padded
     slot vector (its length is u_cap); ``cblk.index`` already addresses
     its lanes. ``stream_chunk`` attaches the chunked-run layout to a
-    panel."""
-    from ..ops.batch import max_row_nnz, pack_batch, pack_panel, panel_width
+    panel. ``agreed`` = (widest row, nonzeros): the maxima over every
+    process of a multi-host step, which the layout and the caps then
+    follow instead of the block's own, so every process packs the same
+    shapes; ``force_vals`` keeps a uniform binary panel's values (every
+    process's backward partials then have one width)."""
+    from ..ops.batch import (max_row_nnz, pack_batch, pack_panel,
+                             panel_width_of)
     u_cap = len(padded)
-    width = panel_width(cblk, b_cap)
+    fmax, nnz = agreed if agreed is not None \
+        else (max_row_nnz(cblk), cblk.nnz)
+    width = panel_width_of(fmax, nnz, b_cap)
     if width is not None:
         width = shapes.cap(job + ".w", width, exact=True)
         i32, f32, binary = pack_panel(cblk, n_lanes, padded, b_cap, width,
-                                      u_cap, counts=counts)
+                                      u_cap, counts=counts,
+                                      force_vals=force_vals)
         chunks = (chunk_host(i32, f32, b_cap, width, u_cap, binary)
                   if stream_chunk else None)
         return Payload("panel", i32, f32, binary, b_cap, width, u_cap,
                        chunks=chunks)
-    nnz_cap = shapes.cap(job + ".nnz", cblk.nnz, dim_min)
-    row_cap = shapes.cap(job + ".row", max_row_nnz(cblk))
+    nnz_cap = shapes.cap(job + ".nnz", nnz, dim_min)
+    row_cap = shapes.cap(job + ".row", fmax)
     i32, f32, binary = pack_batch(cblk, n_lanes, padded, b_cap, nnz_cap,
                                   u_cap, counts=counts)
     return Payload("coo", i32, f32, binary, b_cap, nnz_cap, u_cap, row_cap)

@@ -33,8 +33,16 @@ over a ``(dp, 1)`` mesh (parallel/mesh.py), as the JAX learner's
 shard_map does: a (tile, block) slice is cut into dp row shards, each
 shard's (g, h) partial is computed on its own and the partials are
 summed in dp order; the prediction update takes the whole slice (each
-row's sum is its own, so its bits are the shards'). The multi-host
-branches (the DCN allreduce) are ROADMAP.md item 11b.
+row's sum is its own, so its bits are the shards').
+
+Across processes (``launch.py -n N``, parallel/multihost.py) each host
+reads its byte range of the rows; the feature dictionaries, the group
+stats and the row totals are unioned and summed over the hosts, every
+block's (g, h) partials are summed over them in rank order
+(``allreduce_np``: a gather and a float64 host sum, under the dead-host
+monitor), and every host applies the same diag-Newton update; the
+epoch's progress sums over them too. In-host row sharding (``mesh_dp >
+1``) is single-host only, as in the JAX learner.
 """
 
 from __future__ import annotations
@@ -58,6 +66,8 @@ from ..losses.metrics import accuracy_times_n, auc_times_n_np, logit_objv_np
 from ..obs import REGISTRY, trace
 from ..ops.batch import bucket
 from ..ops.kv import expand_ranges, find_position
+from ..parallel import fault
+from ..parallel.multihost import allreduce_np, global_kv_union, host_part
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
@@ -175,10 +185,14 @@ class BCDLearner(Learner):
                              "the reference (bcd_updater.h InitWeights)")
         self.dev = resolve_device(self.device)
         self.mesh = None
+        # multi-host: per-block partials meet in the hosts' allreduce, the
+        # reference's workers pushing partial block gradients that the
+        # servers sum (src/bcd/bcd_learner.cc:236-263)
+        self._host_rank, self._num_hosts = host_part()
+        self.monitor = fault.from_env(self._host_rank, self._num_hosts)
         if self.param.mesh_dp > 1:
             from ..parallel import make_mesh
-            from ..parallel.mesh import process_count
-            if process_count() > 1:
+            if self._num_hosts > 1:
                 raise ValueError(
                     "bcd multi-host runs shard rows across hosts; in-host "
                     "row sharding (mesh_dp > 1) is single-host only — set "
@@ -188,6 +202,9 @@ class BCDLearner(Learner):
             self.dev = self.mesh.home
         return remain
 
+    def _allreduce_np(self, buf: np.ndarray, sum_dtype=None) -> np.ndarray:
+        return allreduce_np(buf, self.monitor, sum_dtype=sum_dtype)
+
     # ----------------------------------------------------------- data prep
     def _prepare(self) -> None:
         """PrepareData + BuildFeatureMap (bcd_learner.cc:96-155): read and
@@ -196,15 +213,24 @@ class BCDLearner(Learner):
         tb = TileBuilder()
         stats = np.zeros((1 << p.num_feature_group_bits) + 2,
                          dtype=np.float64)
-        for blk in Reader(p.data_in, p.data_format,
+        part, nparts = self._host_rank, self._num_hosts
+        for blk in Reader(p.data_in, p.data_format, part, nparts,
                           chunk_bytes=p.data_chunk_size):
             add_group_stats(stats, blk, p.num_feature_group_bits)
             tb.add(blk, is_train=True)
         if p.data_val:
-            for blk in Reader(p.data_val, p.data_format,
+            for blk in Reader(p.data_val, p.data_format, part, nparts,
                               chunk_bytes=p.data_chunk_size):
                 tb.add(blk, is_train=False)
         self.ntrain, self.nval = tb.nrows_train, tb.nrows_val
+        if self._num_hosts > 1:
+            # the feature partition and the tail filter must be the same
+            # on every host (BuildFeatureMap, bcd_learner.cc:141-155)
+            tb.ids, tb.cnts = global_kv_union(tb.ids, tb.cnts)
+            stats = self._allreduce_np(stats)
+            tot = self._allreduce_np(np.array([self.ntrain, self.nval],
+                                              dtype=np.int64))
+            self.ntrain, self.nval = int(tot[0]), int(tot[1])
         self.feaids = tb.filter_tail(up.tail_feature_filter)
         nf = len(self.feaids)
 
@@ -330,6 +356,10 @@ class BCDLearner(Learner):
                 gh = gh + self._slice_grad(tile, s, nf_cap)
         # (g, h) leave the device in one copy
         gh = gh.cpu().numpy()
+        if self._num_hosts > 1:
+            # every host's partials, float32 on the wire, summed in
+            # float64: every host then applies the same update
+            gh = self._allreduce_np(gh, sum_dtype=np.float64)
         g_np = gh[:nf_blk, 0].astype(np.float64)
         h_np = gh[:nf_blk, 1].astype(np.float64)
 
@@ -366,6 +396,9 @@ class BCDLearner(Learner):
             objv += logit_objv_np(lab, pred)
             auc += auc_times_n_np(lab, pred)
             acc += accuracy_times_n(lab, pred, 0.5)
+        if self._num_hosts > 1:
+            count, objv, auc, acc = (float(v) for v in self._allreduce_np(
+                np.array([count, objv, auc, acc], dtype=np.float64)))
         return BCDProgress(count=count, objv=objv, auc=auc, acc=acc,
                            nnz_w=float(np.sum(self.w != 0)))
 

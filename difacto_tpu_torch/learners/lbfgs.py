@@ -45,8 +45,16 @@ heuristic ntrain/nnz.
 and every reduction over it (the Gram matrix, the dots of the line
 search, the regularizer) is a per-shard partial on the shard's device,
 summed in fs order; elementwise updates and the tiles' gathers see the
-same values either way. The multi-host branches (the gradient
-allreduce, ``global_kv_union``) are ROADMAP.md item 11b.
+same values either way.
+
+Across processes (``launch.py -n N``, parallel/multihost.py) each host
+reads its byte range of the data; the dictionaries are unioned
+(``global_kv_union``) so every host lays out the same [w, V...] vector,
+the row and nonzero totals are summed, and each f/∇f pass sums every
+host's raw (objv, auc) and gradient partials (``allreduce_np``: a gather
+and a float64 host sum in rank order, under the dead-host monitor);
+every host then runs the same two-loop and line search. In-host vector
+sharding (``mesh_fs > 1``) is single-host only, as in the JAX learner.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ from ..losses.metrics import auc_times_n
 from ..obs import REGISTRY, trace
 from ..ops.batch import DeviceBatch, bucket, pad_batch
 from ..ops.kv import expand_ranges, find_position
+from ..parallel import fault
+from ..parallel.multihost import allreduce_np, global_kv_union, host_part
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
@@ -157,10 +167,14 @@ class LBFGSLearner(Learner):
         self.k = self.uparam.V_dim
         self.dev = resolve_device(self.device)
         self.mesh = None
+        # multi-host: the hosts' partial gradients are summed, as the
+        # reference's servers sum the workers' pushes
+        # (src/lbfgs/lbfgs_learner.cc:121-125)
+        self._host_rank, self._num_hosts = host_part()
+        self.monitor = fault.from_env(self._host_rank, self._num_hosts)
         if self.param.mesh_fs > 1:
             from ..parallel import make_mesh
-            from ..parallel.mesh import process_count
-            if process_count() > 1:
+            if self._num_hosts > 1:
                 raise ValueError(
                     "lbfgs multi-host runs shard DATA across hosts; in-host "
                     "vector sharding (mesh_fs > 1) is single-host only — "
@@ -212,16 +226,27 @@ class LBFGSLearner(Learner):
         p = self.param
         chunk = int(p.data_chunk_size * (1 << 20))
         tb = TileBuilder()
-        for blk in Reader(p.data_in, p.data_format, chunk_bytes=chunk):
+        part, nparts = self._host_rank, self._num_hosts
+        for blk in Reader(p.data_in, p.data_format, part, nparts,
+                          chunk_bytes=chunk):
             tb.add(blk, is_train=True)
         if p.data_val:
-            for blk in Reader(p.data_val, p.data_format, chunk_bytes=chunk):
+            for blk in Reader(p.data_val, p.data_format, part, nparts,
+                              chunk_bytes=chunk):
                 tb.add(blk, is_train=False)
         self._builder = tb
         self._raw = {"train": [(cb, u) for cb, u, t in tb.tiles if t],
                      "val": [(cb, u) for cb, u, t in tb.tiles if not t]}
         self.ntrain, self.nval = tb.nrows_train, tb.nrows_val
         self.train_nnz = tb.nnz_train
+        if self._num_hosts > 1:
+            # every host lays out the same global [w, V...] vector
+            # (InitServer, lbfgs_updater.h:35-56); the totals sum in int64
+            tb.ids, tb.cnts = global_kv_union(tb.ids, tb.cnts)
+            tot = allreduce_np(np.array(
+                [self.ntrain, self.nval, self.train_nnz], dtype=np.int64),
+                self.monitor)
+            self.ntrain, self.nval, self.train_nnz = (int(t) for t in tot)
         log.info("found %d training examples, %d features",
                  self.ntrain, len(tb.ids))
 
@@ -401,6 +426,15 @@ class LBFGSLearner(Learner):
                 objv += float(oa[0])
                 auc += float(oa[1])
             step_h.observe(time.perf_counter() - t0)
+        if self._num_hosts > 1:
+            # the scalars in float64; the raw gradient gathers as float32
+            # and sums in float64, before the gamma transform
+            scal = allreduce_np(np.array([objv, auc], dtype=np.float64),
+                                self.monitor)
+            objv, auc = float(scal[0]), float(scal[1])
+            g = allreduce_np(grad.cpu().numpy(), self.monitor,
+                             sum_dtype=np.float64)
+            grad = self._put_vec(g.astype(np.float32))
         return objv, auc, self._finish_grad(grad)
 
     # ----------------------------------------------------------- run
@@ -486,6 +520,9 @@ class LBFGSLearner(Learner):
             val_auc = 0.0
             for tile in self._iter_tiles("val"):
                 val_auc += float(self._tile_pred_auc(self.weights, tile))
+            if self._num_hosts > 1 and self.nval:
+                val_auc = float(allreduce_np(
+                    np.array([val_auc], dtype=np.float64), self.monitor)[0])
             prog = LBFGSProgress(
                 objv=new_objv,
                 auc=auc / max(self.ntrain, 1),

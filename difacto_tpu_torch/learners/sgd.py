@@ -69,8 +69,25 @@ the backward sums its per-slot partials over dp blocks of each batch
 the JAX learner, the producers' fast paths (``device_dedup``,
 ``stream_chunks``) stay off under a mesh, the dictionary store stages
 its replay cache in its second pass and does not repad it, and the
-write-ahead log refuses a mesh. ``bounded_delay > 0`` (multi-host, item
-11b) raises.
+write-ahead log refuses a mesh.
+
+Multi-host training (parallel/multihost.py; ``launch.py -n N``): the
+mesh's dp axis spans the processes and each holds a whole replica of the
+fs-sharded table. Epochs run the JAX learner's synchronized schedule
+(``_run_epoch_spmd``, ``_iterate_spmd``): each host reads its own byte
+range of every part, a lookahead thread exchanges each step's keys over
+the control plane (hashed slots, or on the dictionary store's first pass
+the raw ids, whose sorted union every host inserts in the same order),
+remaps the host's columns to union positions and packs the batch at the
+shapes every host agreed on, and the dispatch thread runs the step, whose
+data plane gathers every host's gradient partials and sums them in global
+dp order, so every host pushes the same rows. With ``bounded_delay`` τ >
+0 the exchange runs up to ``2 + τ`` steps ahead, bounded by the peers'
+step clocks; the trajectory does not move with τ. A one-process mesh run
+with τ > 0 takes the same schedule. Checkpoints are
+``<model_out>[_iter-k]_part-<rank>``; rank 0 writes the ``.meta`` marker
+and prunes every rank's old generations, and ``auto_resume`` loads any
+rank's part, its own first.
 """
 
 from __future__ import annotations
@@ -94,9 +111,12 @@ from ..data.batch_reader import BatchReader
 from ..data.cached import CachedBatchReader, cache_probe
 from ..capacity.sketch import make_admission
 from ..data.localizer import compact
-from ..data.pack_stream import (Payload, ShapeSchedule, StreamSpec,
-                                pack_mapped, prepare_from_uniq,
-                                prepare_hashed, spec_iter, timed_reader)
+from ..data.pack_stream import (BlkInfo, Payload, ShapeSchedule,
+                                StreamSpec, pack_mapped, pack_payload,
+                                prepare_from_uniq, prepare_hashed,
+                                spec_iter, timed_reader)
+from ..data.prefetch import prefetch
+from ..data.rowblock import RowBlock
 from ..data.producer_pool import (HELD_LEASES, OrderedProducerPool,
                                   ProcessProducerPool)
 from ..data.reader import Reader
@@ -105,11 +125,17 @@ from ..obs import REGISTRY, MetricsFlusher, Registry, trace
 from ..ops.batch import (bucket, panel_chunk_tokens_flat, unpack_batch,
                          unpack_panel, unpack_panel_raw)
 from ..ops.fused import dedup_tokens
+from ..parallel import fault
+from ..parallel.multihost import (DataPlane, clock_open, control_allgather_np,
+                                  control_cleanup, host_part, post_clock,
+                                  wait_clock)
 from ..parallel.sharded import ShardedSlots
 from ..step import fire_step_fault, make_step_fns
 from ..store.local import SlotStore
+from ..store.slots import pad_slots_oob
 from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
-from ..updaters.sgd_updater import SGDUpdaterParam, gather_bytes
+from ..updaters.sgd_updater import (TRASH_SLOT, SGDUpdaterParam,
+                                     gather_bytes)
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.progress import Progress, ReportProg
@@ -361,10 +387,6 @@ class SGDLearner(Learner):
         self.param, remain = SGDLearnerParam.init_allow_unknown(kwargs)
         uparam, remain = SGDUpdaterParam.init_allow_unknown(remain)
         p = self.param
-        if p.bounded_delay > 0:
-            raise NotImplementedError(
-                "bounded_delay > 0 is not ported yet (ROADMAP.md, item 11b: "
-                "multi-host under torch.distributed)")
         if p.task != 0:
             raise NotImplementedError(
                 "the learner's prediction job is task=pred on the CLI "
@@ -376,20 +398,54 @@ class SGDLearner(Learner):
             uparam = dataclasses.replace(uparam, V_dim=self.loss.V_dim)
         self.mesh = None
         self._dim_min = 8
-        if p.mesh_fs * p.mesh_dp > 1 or p.mesh_force:
+        # multi-host: this host's rank, its byte-range share of the data
+        # and the dead-host monitor (parallel/fault.py, enabled by
+        # launch.py through DIFACTO_HB_*)
+        self._host_rank, self._num_hosts = host_part()
+        self.monitor = fault.from_env(self._host_rank, self._num_hosts)
+        # the bounded-delay window: the knob, else the launcher's
+        # cluster-wide DIFACTO_BOUNDED_DELAY, else synchronous
+        self._tau = (p.bounded_delay if p.bounded_delay >= 0
+                     else int(os.environ.get("DIFACTO_BOUNDED_DELAY", "0")))
+        on_mesh = p.mesh_fs * p.mesh_dp > 1 or p.mesh_force
+        if self._num_hosts > 1 and not on_mesh:
+            # the synchronized schedule runs over a mesh; hosts without
+            # one would train independent models that never meet
+            raise ValueError(
+                "multi-host training needs a mesh: set mesh_dp to a "
+                f"multiple of the process count {self._num_hosts}")
+        if on_mesh:
             from ..ops.batch import mesh_dim_min
             from ..parallel import make_mesh
             self.mesh = make_mesh(dp=p.mesh_dp, fs=p.mesh_fs,
                                   device=self.device)
             self._dim_min = mesh_dim_min(p.mesh_dp)
             if p.mesh_dp > 1:
-                # the backward's per-slot partials sum over dp blocks; a
-                # dp-cut chunk layout is not declared ascending, as in the
-                # JAX learner (losses/__init__.py chunks_sorted)
+                # the backward's per-slot partials sum over dp blocks
+                # (this host's, and every host's through the data plane);
+                # a dp-cut chunk layout is not declared ascending, as in
+                # the JAX learner (losses/__init__.py chunks_sorted)
                 self.loss = dataclasses.replace(
-                    self.loss, chunks_sorted=False, dp=p.mesh_dp)
+                    self.loss, chunks_sorted=False,
+                    dp=len(self.mesh.dp_local),
+                    plane=DataPlane(self.monitor)
+                    if self._num_hosts > 1 else None)
             log.info("mesh: dp=%d fs=%d over %s", p.mesh_dp, p.mesh_fs,
                      self.mesh)
+        # the synchronized/windowed schedule: any multi-host mesh run, and
+        # a one-host mesh run with a τ > 0 window (the same schedule, its
+        # clock posts taking their single-process returns)
+        self._spmd_schedule = self.mesh is not None and (
+            self._num_hosts > 1 or self._tau > 0)
+        # its shape limits (the JAX learner's): the rows follow
+        # batch_size, nonzeros and distinct features default to 64 each
+        auto = bucket(p.batch_size * 64, self._dim_min)
+        self._spmd_b_cap = bucket(p.batch_size, self._dim_min)
+        self._spmd_nnz_cap = p.nnz_cap or auto
+        self._spmd_u_cap = p.uniq_cap or auto
+        # job types this host has passed over once: later passes of the
+        # dictionary store exchange slots instead of ids
+        self._dict_ids_done: set = set()
         self.store = SlotStore(uparam, device=self.device,
                                init=self._table_init,
                                virgin_V=self._tier_virgin_V, mesh=self.mesh)
@@ -493,7 +549,7 @@ class SGDLearner(Learner):
         if p.replica_peers and p.model_out:
             from ..durability.replicate import Replicator, parse_peers
             self._replica = Replicator(
-                parse_peers(p.replica_peers), p.replica_k, 0,
+                parse_peers(p.replica_peers), p.replica_k, self._host_rank,
                 root=os.path.dirname(p.model_out) or ".")
 
     # -------------------------------------------------------------- run
@@ -595,10 +651,11 @@ class SGDLearner(Learner):
             self._flusher.close()
             self._flusher = None
 
-    @staticmethod
-    def _model_name(prefix: str, it: int) -> str:
-        """``<prefix>[_iter-k]_part-0`` (ModelName, sgd_learner.h:65-69)."""
-        return prefix + (f"_iter-{it}" if it >= 0 else "") + "_part-0"
+    def _model_name(self, prefix: str, it: int) -> str:
+        """``<prefix>[_iter-k]_part-<rank>`` (ModelName,
+        sgd_learner.h:65-69): each host writes its own files."""
+        return prefix + (f"_iter-{it}" if it >= 0 else "") \
+            + f"_part-{self._host_rank}"
 
     # ----------------------------------------------------- checkpoints
     def _meta_path(self) -> str:
@@ -606,12 +663,14 @@ class SGDLearner(Learner):
 
     def _save_checkpoint(self, epoch: int) -> None:
         """Commit one resumable generation: the table WITH its optimizer
-        state at ``<model_out>_iter-<epoch>_part-0`` (manifest stamped
-        with the epoch and the family's next generation), then the
-        ``.meta`` marker, written last, so a crash mid-save resumes from
-        the previous complete epoch; ``ckpt_keep`` > 0 prunes all but the
-        newest that many generations, never the WAL chain's live base nor
-        an epoch a replica push is still copying. With the durability
+        state at ``<model_out>_iter-<epoch>_part-<rank>`` (manifest
+        stamped with the epoch and the family's next generation), then on
+        rank 0 the ``.meta`` marker, written last, so a crash mid-save
+        resumes from the previous complete epoch; ``ckpt_keep`` > 0 makes
+        rank 0 prune all but the newest that many generations of every
+        rank's parts (a rank evicted after a failure prunes nothing), never
+        the WAL chain's live base nor an epoch a replica push is still
+        copying. With the durability
         legs on, the open WAL window is sealed first, the chain is rooted
         at the new generation, and the generation's files are pushed to
         the peers."""
@@ -620,20 +679,22 @@ class SGDLearner(Learner):
             self._wal_flush()
         path = self._model_name(p.model_out, epoch)
         self.store.save(path, save_aux=True, epoch=epoch)
-        with stream.open_stream(self._meta_path(), "w") as f:
-            f.write(json.dumps({"last_epoch": epoch}))
-        if p.ckpt_keep > 0:
-            mft.prune_checkpoints(
-                p.model_out, p.ckpt_keep,
-                protect=self._durability_protected_epochs())
+        if self._host_rank == 0:
+            with stream.open_stream(self._meta_path(), "w") as f:
+                f.write(json.dumps({"last_epoch": epoch}))
+            if p.ckpt_keep > 0:
+                mft.prune_checkpoints(
+                    p.model_out, p.ckpt_keep,
+                    protect=self._durability_protected_epochs())
         if self._wal is not None or self._replica is not None:
             gen = int((mft.read(path) or {}).get("generation", 0))
             if self._wal is not None:
                 self._wal.rebase(gen, epoch)
             if self._replica is not None:
-                self._replica.push(
-                    sorted(stream.glob(path + "*")) + [self._meta_path()],
-                    generation=gen, epoch=epoch)
+                files = sorted(stream.glob(path + "*"))
+                if self._host_rank == 0:
+                    files.append(self._meta_path())
+                self._replica.push(files, generation=gen, epoch=epoch)
 
     def _durability_protected_epochs(self) -> set:
         """Epochs ``ckpt_keep`` must not retire now: the base of the live
@@ -668,7 +729,9 @@ class SGDLearner(Learner):
         torn part behind the marker, or a marker naming bytes that never
         finished); each load requires its manifest, and a corrupt
         generation is logged and skipped, walking back to the newest good
-        one."""
+        one. Any rank's part will do (the replicas are identical), this
+        host's first: a host that joined after an eviction may not have
+        written one."""
         base = self.param.model_out
         epochs = set()
         try:
@@ -680,10 +743,11 @@ class SGDLearner(Learner):
                  if re.search(r"_iter-(\d+)_part-\d+$", q)]
         for q in parts:
             epochs.add(int(re.search(r"_iter-(\d+)_part-", q).group(1)))
+        own = self._model_name(base, -1)[len(base):]
         for epoch in sorted(epochs, reverse=True):
-            for path in stream.glob(f"{base}_iter-{epoch}_part-*"):
-                if not re.search(r"_part-\d+$", path):
-                    continue
+            found = [q for q in stream.glob(f"{base}_iter-{epoch}_part-*")
+                     if re.search(r"_part-\d+$", q)]
+            for path in sorted(found, key=lambda q: (not q.endswith(own), q)):
                 try:
                     self.store.load(path, weights_only=False,
                                     require_manifest=True)
@@ -701,7 +765,10 @@ class SGDLearner(Learner):
     def _run_epoch(self, epoch: int, job_type: int, prog: Progress) -> None:
         n_jobs = (self.param.num_jobs_per_epoch if job_type == K_TRAINING
                   else 1)
-        self._iterate_parts(job_type, epoch, n_jobs, prog)
+        if self._spmd_schedule:
+            self._run_epoch_spmd(epoch, job_type, n_jobs, prog)
+        else:
+            self._iterate_parts(job_type, epoch, n_jobs, prog)
 
     def _make_reader(self, job_type: int, epoch: int, g_idx: int,
                      g_num: int):
@@ -1042,7 +1109,277 @@ class SGDLearner(Learner):
         if cache is not None:
             cache.finish_pass()
 
-    def _stage_payload(self, payload: Payload) -> _DevPayload:
+    # ------------------------------------------------ the SPMD schedule
+    def _guarded(self, fn, *args):
+        """``fn(*args)`` under the dead-host watchdog when heartbeats are
+        on (a dead peer raises fault.HostFailure, or exits the process
+        when it dies mid-wait)."""
+        if self.monitor is None:
+            return fn(*args)
+        return self.monitor.guarded(fn, *args)
+
+    def _run_epoch_spmd(self, epoch: int, job_type: int, n_jobs: int,
+                        prog: Progress) -> None:
+        """An epoch of the synchronized schedule (the JAX learner's
+        ``_run_epoch_body``, sgd.py:1071-1111): a ready replay cache
+        replays its staged steps (every host in the same order, with no
+        control exchange; the data plane still gathers each step's
+        partials), and the parts it does not hold run through
+        :meth:`_iterate_spmd`."""
+        cache = self._get_cache(job_type)
+        cached_parts: set = set()
+        if cache is not None and cache.ready:
+            if cache.capacity is not None \
+                    and cache.capacity != self.store.state.capacity:
+                # staged pads are true only at the staging capacity
+                cache.invalidate("store capacity changed since staging")
+            else:
+                self._replay_cached(job_type, epoch, cache, prog)
+                if not cache.partial:
+                    return
+                cached_parts = cache.parts()
+        before = Progress(nrows=prog.nrows, loss=prog.loss, auc=prog.auc)
+        pending: list = []
+        for part in range(n_jobs):
+            if part in cached_parts:
+                continue
+            self._iterate_spmd(job_type, epoch, part, n_jobs, pending, cache)
+            if self._row_due(job_type):
+                self._merge_pending(pending, prog)
+                pending = []
+                self._report_part(job_type, before, prog)
+                before = Progress(nrows=prog.nrows, loss=prog.loss,
+                                  auc=prog.auc)
+            elif len(pending) >= self._MERGE_CAP:
+                self._merge_pending(pending, prog)
+                pending = []
+        self._final_merge(job_type, pending, prog)
+        if prog.nrows > before.nrows:
+            self._report_part(job_type, before, prog)
+        # the dictionary now holds every id of this job's data: later
+        # streamed passes exchange slots
+        self._dict_ids_done.add(job_type)
+        if cache is not None and not cache.ready:
+            cache.finish_pass()
+
+    def _iterate_spmd(self, job_type: int, epoch: int, part: int,
+                      n_jobs: int, pending: list,
+                      cache: Optional[_DeviceBatchCache]) -> None:
+        """One part of the synchronized schedule (the JAX learner's
+        ``_iterate_data_spmd``, sgd.py:1183-1660). Per step, on every host:
+
+        1. read the next batch of this host's byte range (or none);
+        2. exchange [keys | counts | nu | widest row | nnz | rows | has]
+           over the control plane (hashed slots; on the dictionary
+           store's first pass the raw uint64 ids);
+        3. take the sorted key union (the dictionary inserts it, in the
+           same order on every host), remap this host's columns to union
+           positions and pack the batch at shapes every host derives from
+           the same maxima (data/pack_stream.pack_payload ``agreed``);
+        4. run the step: the pull and push over the union, the backward's
+           partials gathered from every host and summed in dp order.
+
+        Steps 1-3 run on a lookahead thread (data/prefetch.py), up to
+        ``2 + τ`` steps ahead; step 4 on this thread. The part ends when
+        no host has data, so every host runs the same steps. With τ > 0
+        each host posts a clock after dispatching a step, and the
+        lookahead waits, before staging step s, until every peer has
+        dispatched step s - τ - 1: the waits move, the trajectory does
+        not."""
+        p = self.param
+        is_train = job_type == K_TRAINING
+        push_cnt = is_train and epoch == 0 and self.loss.V_dim > 0
+        job = "train" if is_train else "eval"
+        reader = self._make_reader(job_type, epoch,
+                                   self._host_rank * n_jobs + part,
+                                   n_jobs * self._num_hosts)
+        b_cap, nnz_cap = self._spmd_b_cap, self._spmd_nnz_cap
+        u_cap = self._spmd_u_cap
+        dim_min = self._dim_min
+        tau = self._tau
+        several = self._num_hosts > 1
+        clock_gen = clock_open() if tau > 0 else -1
+        sent, done = [0], [0]   # steps staged / dispatched (one writer each)
+        if tau > 0:
+            stale_g = REGISTRY.gauge(
+                "train_staleness_batches",
+                "bounded-delay pipeline skew: staged-ahead batches not "
+                "yet dispatched on this host").labels(
+                    rank=str(self._host_rank))
+            wait_c = REGISTRY.counter(
+                "exchange_wait_seconds_total",
+                "seconds the windowed exchange thread spent blocked on "
+                "peer clocks (τ-window full)")
+            delay_h = REGISTRY.histogram(
+                "push_delay_batches",
+                "batches of delay between staging a step and posting "
+                "its clock (bounded above by τ + pipeline depth)",
+                bounds=(0, 1, 2, 4, 8, 16, 32))
+
+        def produce():
+            for blk in reader:
+                if is_train:
+                    yield blk, compact(blk, need_counts=push_cnt)
+                    continue
+                # validation reads whole chunks: cut them into row windows
+                # within the row and the nonzero limits
+                s = 0
+                while s < blk.size:
+                    e = min(s + p.batch_size, blk.size)
+                    lim = blk.offset[s] + min(nnz_cap, u_cap)
+                    e_nnz = int(np.searchsorted(blk.offset, lim,
+                                                side="right")) - 1
+                    e = max(min(e, e_nnz), s + 1)
+                    sub = blk.slice(s, e)
+                    s = e
+                    yield sub, compact(sub, need_counts=False)
+
+        empty = RowBlock(offset=np.zeros(1, np.int64),
+                         label=np.zeros(0, np.float32),
+                         index=np.zeros(0, np.uint32))
+
+        def exchange():
+            it = iter(produce())
+            hashed = self.store.hashed
+            # the capacity the dispatch thread will have when each batch
+            # steps: dictionary growth is deferred to it
+            cap_logical = self.store.state.capacity
+            use_ids = not hashed and (
+                job_type not in self._dict_ids_done
+                or (is_train and p.neg_sampling != 1))
+            while True:
+                if tau > 0 and sent[0] - tau - 1 >= 0:
+                    waited = 0.0
+                    for r in range(self._num_hosts):
+                        if r != self._host_rank:
+                            waited += self._guarded(
+                                wait_clock, clock_gen, r, sent[0] - tau - 1)
+                    if waited:
+                        wait_c.inc(waited)
+                item = next(it, None)
+                payload = np.zeros((2 * u_cap if push_cnt else u_cap) + 5,
+                                   dtype=np.uint64 if use_ids else np.int32)
+                cblk = uniq = slots_np = None
+                if item is not None:
+                    blk, (cblk, uniq, cnts) = item
+                    if use_ids:
+                        local_keys = uniq
+                    elif hashed:
+                        slots_np, remap, cnts = self.store.map_keys_dedup(
+                            uniq, cnts)
+                        if remap is not None:
+                            cblk = dataclasses.replace(
+                                cblk,
+                                index=remap[cblk.index].astype(np.uint32))
+                        local_keys = slots_np
+                    else:
+                        # every id is known after the first pass: ship
+                        # the slots, sorted, the columns remapped to them
+                        slots_l = self.store.lookup(uniq)
+                        if (slots_l == TRASH_SLOT).any():
+                            raise RuntimeError(
+                                "dictionary slot exchange saw an unknown "
+                                "feature id after the first pass: the "
+                                "input data changed between epochs")
+                        slots_np, remap = np.unique(slots_l,
+                                                    return_inverse=True)
+                        slots_np = slots_np.astype(np.int32)
+                        cblk = dataclasses.replace(
+                            cblk, index=remap[cblk.index].astype(np.uint32))
+                        local_keys = slots_np
+                    nu = len(local_keys)
+                    if nu > u_cap or blk.nnz > nnz_cap or blk.size > b_cap:
+                        raise ValueError(
+                            f"batch (rows={blk.size}, nnz={blk.nnz}, "
+                            f"uniq={nu}) exceeds the multi-host shape "
+                            f"schedule (b_cap={b_cap}, nnz_cap={nnz_cap}, "
+                            f"uniq_cap={u_cap}); raise nnz_cap/uniq_cap in "
+                            "the config (b_cap follows batch_size)")
+                    payload[:nu] = local_keys
+                    if push_cnt and cnts is not None:
+                        payload[u_cap:u_cap + nu] = cnts.astype(
+                            payload.dtype)
+                    row_nnz = np.diff(cblk.offset)
+                    payload[-5:] = (nu, int(row_nnz.max()) if len(row_nnz)
+                                    else 0, blk.nnz, blk.size, 1)
+                g = self._guarded(control_allgather_np, payload)
+                if g[:, -1].max() == 0:
+                    return
+                nus = g[:, -5].astype(np.int64)
+                spans = [g[h, :nus[h]] for h in range(len(g)) if nus[h]]
+                union = (np.unique(np.concatenate(spans)) if spans
+                         else np.empty(0, payload.dtype))
+                grow = None
+                rank = None
+                if not use_ids:
+                    slots_sorted = union.astype(np.int32)
+                else:
+                    # the same union into the same dictionary on every
+                    # host gives every host the same new slots
+                    slots_u = self.store.map_keys(union, grow=False)
+                    new_cap = self.store.capacity_for(
+                        self.store.next_slot, current=cap_logical)
+                    if new_cap != cap_logical:
+                        cap_logical = grow = new_cap
+                    # dictionary slots follow insertion; the kernels take
+                    # them ascending: sort, and keep the permutation
+                    order = np.argsort(slots_u)
+                    slots_sorted = slots_u[order].astype(np.int32)
+                    rank = np.empty(len(order), dtype=np.int64)
+                    rank[order] = np.arange(len(order))
+                gu = len(slots_sorted)
+                counts = None
+                if push_cnt:
+                    # every host's counts summed in host order
+                    cts = np.zeros(gu, dtype=np.float64)
+                    for h in range(len(g)):
+                        k = int(nus[h])
+                        pos = np.searchsorted(union, g[h, :k])
+                        if rank is not None:
+                            pos = rank[pos]
+                        np.add.at(cts, pos, g[h, u_cap:u_cap + k].astype(
+                            np.float64))
+                    counts = cts.astype(np.float32)
+                if cblk is None:
+                    cblk = empty
+                elif use_ids:
+                    cblk = dataclasses.replace(cblk, index=rank[
+                        np.searchsorted(union, uniq)][cblk.index].astype(
+                            np.uint32))
+                else:
+                    cblk = dataclasses.replace(cblk, index=np.searchsorted(
+                        union, slots_np)[cblk.index].astype(np.uint32))
+                padded = pad_slots_oob(slots_sorted,
+                                       self._shapes.cap(job + ".u", gu),
+                                       cap_logical)
+                pl = pack_payload(self._shapes, cblk, gu, padded, b_cap,
+                                  dim_min, job, counts=counts,
+                                  agreed=(int(g[:, -4].max()),
+                                          int(g[:, -3].max())),
+                                  force_vals=several)
+                staged = self._stage_payload(pl, capacity=cap_logical)
+                sent[0] += 1
+                yield staged, BlkInfo(size=int(g[:, -2].sum())), grow
+
+        for staged, info, grow in prefetch(exchange(), depth=2 + tau):
+            if grow is not None:
+                # deferred dictionary growth, in step order, before the
+                # first step whose slots address the grown table
+                self.store.grow_to(grow)
+            self._dispatch_prepared(job_type, info, staged, push_cnt,
+                                    pending, cache, part)
+            if tau > 0:
+                done[0] += 1
+                post_clock(clock_gen, done[0] - 1)
+                ahead = sent[0] - done[0]
+                stale_g.set(float(ahead))
+                delay_h.observe(float(ahead))
+        # every host has read every control payload of the part: reclaim
+        # the store's keys
+        self._guarded(control_cleanup)
+
+    def _stage_payload(self, payload: Payload,
+                       capacity: Optional[int] = None) -> _DevPayload:
         """Copy a packed payload's buffers to the device (the transfer
         stage); the returned payload holds device tensors. On the CPU they
         alias the host arrays.
@@ -1052,7 +1389,8 @@ class SGDLearner(Learner):
         promoting and demoting on this thread, timed into
         ``tier_route_s``/``tier_routes``) before the copy. With the WAL on,
         the batch's slot section is kept on the host (``host_slots``) for
-        the touched-row window."""
+        the touched-row window. ``capacity`` (default: the live one) is the
+        table's when the batch steps, which the shard routing follows."""
         t0 = time.perf_counter()
         dev = self.store.device
         if self.store.tier is not None:
@@ -1076,7 +1414,7 @@ class SGDLearner(Learner):
             from ..parallel.sharded import plan_slots
             offsets, local = plan_slots(
                 payload.i32[off:off + payload.u_cap],
-                self.store.state.capacity, self.store.fs_count)
+                capacity or self.store.state.capacity, self.store.fs_count)
             route = (offsets, to_dev(local))
         out = _DevPayload(*payload._replace(
             i32=to_dev(payload.i32), f32=to_dev(payload.f32),
@@ -1132,7 +1470,7 @@ class SGDLearner(Learner):
             chunks = panel_chunk_tokens_flat(
                 i32[:cells], None if payload.binary else f32[:cells],
                 payload.u_cap, payload.b_cap, payload.d2,
-                dp_div=self.param.mesh_dp if self.mesh is not None else 1)
+                dp_div=self.loss.dp)
         staged = _Staged(payload.layout, i32, f32, payload.b_cap,
                          payload.d2, payload.u_cap, payload.row_cap,
                          payload.binary, blk.size, chunks, payload.route)

@@ -21,11 +21,15 @@ class LossSpec:
     on one card; a data-parallel batch concatenated from per-rank blocks
     would not be). ``dp`` > 1 (a mesh's data-parallel degree) sums the
     backward's per-slot partials over dp blocks of the batch's leading
-    axes (losses/fm.dp_reduce)."""
+    axes (losses/fm.dp_reduce). ``plane`` (a parallel.multihost.DataPlane,
+    multi-host training) gathers every process's: ``dp`` is then this
+    process's block count, and the step takes the objective and the AUC
+    over every process's rows."""
     name: str
     V_dim: int
     chunks_sorted: bool = True
     dp: int = 1
+    plane: object = None
 
     def predict(self, params: FMParams, batch):
         if isinstance(batch, PanelBatch):
@@ -42,8 +46,8 @@ class LossSpec:
     def calc_grad(self, params: FMParams, batch, pred, xv=None):
         if isinstance(batch, PanelBatch):
             return fm_grad_panel(params, batch, pred, xv,
-                                 self.chunks_sorted, self.dp)
-        return fm_grad(params, batch, pred, xv, self.dp)
+                                 self.chunks_sorted, self.dp, self.plane)
+        return fm_grad(params, batch, pred, xv, self.dp, self.plane)
 
     def evaluate(self, pred, batch):
         return logit_objv(pred, batch)

@@ -39,6 +39,9 @@ cut into ``dp`` equal blocks along that leading axis (the JAX package's
 and the partials summed in dp order (:func:`dp_reduce`: a fixed order, no
 atomics, so a run repeats bit for bit). The forward is
 per row, so it runs once over the batch: its bits are each block's.
+Across processes (``plane``) each process computes its own blocks'
+partials and :func:`dp_reduce` sums every process's, gathered, in global
+dp order.
 """
 
 from __future__ import annotations
@@ -55,20 +58,27 @@ PRED_CLAMP = 20.0
 
 
 def dp_reduce(reduce, data: torch.Tensor, lanes: torch.Tensor, U: int,
-              dp: int = 1) -> torch.Tensor:
+              dp: int = 1, plane=None) -> torch.Tensor:
     """``reduce(data, lanes, U)`` (ops/segment.lane_sum or chunk_sum) over
     ``dp`` equal leading-axis blocks, the per-lane partials summed in dp
-    order. ``dp == 1`` is the plain reduction."""
-    if dp == 1:
+    order. ``dp == 1`` is the plain reduction. Across processes
+    (``plane``, a parallel.multihost.DataPlane) ``dp`` is this process's
+    block count: its partials are gathered with every process's, and all
+    of them are summed in global dp order (host-major), the same order on
+    every rank, so every rank gets the same bits."""
+    if dp == 1 and plane is None:
         return reduce(data, lanes, U)
     n = data.shape[0]
     if n % dp:
         raise ValueError(f"leading axis {n} does not split over dp={dp} "
                          "(size the caps with ops.batch.mesh_dim_min)")
     m = n // dp
+    parts = [reduce(data[b * m:(b + 1) * m], lanes[b * m:(b + 1) * m], U)
+             for b in range(dp)]
+    if plane is not None:
+        parts = plane.gather(torch.stack(parts)).flatten(0, 1).unbind(0)
     red = None
-    for b in range(dp):
-        part = reduce(data[b * m:(b + 1) * m], lanes[b * m:(b + 1) * m], U)
+    for part in parts:
         red = part if red is None else red + part
     return red
 
@@ -123,20 +133,21 @@ def _p_vector(pred: torch.Tensor, batch) -> torch.Tensor:
 
 
 def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
-            xv: Optional[torch.Tensor] = None, dp: int = 1
+            xv: Optional[torch.Tensor] = None, dp: int = 1, plane=None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """COO backward -> (gw[U], gV[U, k] or None). The three transposed
     products share one lane sum over [x p XV | x p | x^2 p]; ``xv`` is the
     forward's X·V (None recomputes it). ``dp`` > 1 sums the entries' lane
-    sums over dp blocks of the nonzeros (:func:`dp_reduce`)."""
+    sums over dp blocks of the nonzeros, and ``plane`` over every
+    process's (:func:`dp_reduce`)."""
     U = params.w.shape[0]
     vals, rows, cols = batch.vals, batch.rows, batch.cols
     p = _p_vector(pred, batch)
     if params.V is None or params.V.shape[1] == 0:
-        if dp == 1:
+        if dp == 1 and plane is None:
             return spmv_t(vals, rows, cols, p, U), None
         return dp_reduce(lane_sum, (vals * p[rows])[:, None], cols, U,
-                         dp)[:, 0], None
+                         dp, plane)[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm[:, None]
@@ -146,7 +157,7 @@ def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
     contrib = torch.cat([vals[:, None] * (p[:, None] * XV)[rows],
                          (vals * pr)[:, None], (vals ** 2 * pr)[:, None]],
                         dim=1)
-    red = dp_reduce(lane_sum, contrib, cols, U, dp)
+    red = dp_reduce(lane_sum, contrib, cols, U, dp, plane)
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -203,7 +214,8 @@ def _chunk_tokens(rowq: torch.Tensor, chunk_idx: torch.Tensor
 
 def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
                            p: torch.Tensor, xv: Optional[torch.Tensor],
-                           sorted_chunks: bool = True, dp: int = 1
+                           sorted_chunks: bool = True, dp: int = 1,
+                           plane=None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Chunked-run backward (``pb.chunk_*`` set): each chunk's L token
     rows of the row quantities (p XV | p) are gathered and summed to one
@@ -224,7 +236,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
         if cv is not None:
             toks = toks * cv
         gw = dp_reduce(csum, torch.sum(toks, dim=1)[:, None],
-                       pb.chunk_lane, U, dp)[:, 0]
+                       pb.chunk_lane, U, dp, plane)[:, 0]
         return gw, None
     k = params.V.shape[1]
     vm = _vmask(params)
@@ -232,7 +244,8 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
     rowq = torch.cat([p[:, None] * xv, p[:, None]], dim=1)     # [B, k+1]
     toks = _chunk_tokens(rowq, pb.chunk_idx)                   # [C, L, k+1]
     if cv is None:
-        red = dp_reduce(csum, torch.sum(toks, dim=1), pb.chunk_lane, U, dp)
+        red = dp_reduce(csum, torch.sum(toks, dim=1), pb.chunk_lane, U, dp,
+                        plane)
         t1, gw = red[:, :k], red[:, k]
         xxp = gw
     else:
@@ -240,7 +253,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
         partial = torch.cat([torch.sum(toks * v, dim=1),
                              torch.sum(toks[:, :, k:] * (v * v), dim=1)],
                             dim=1)                             # [C, k+2]
-        red = dp_reduce(csum, partial, pb.chunk_lane, U, dp)
+        red = dp_reduce(csum, partial, pb.chunk_lane, U, dp, plane)
         t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -248,7 +261,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
 
 def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
                   xv: Optional[torch.Tensor] = None,
-                  sorted_chunks: bool = True, dp: int = 1
+                  sorted_chunks: bool = True, dp: int = 1, plane=None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Panel backward: each cell contributes broadcasts of its row's
     (p XV | p | p) times (x | x | x^2), rounded to V's container dtype as
@@ -261,14 +274,15 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
     if pb.chunk_lane is not None:
         if params.V is not None and params.V.shape[1] > 0 and xv is None:
             _, xv = fm_predict_panel_xv(params, pb)
-        return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks, dp)
+        return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks, dp,
+                                      plane)
     flat_idx = pb.idx.reshape(B * F)
     if params.V is None or params.V.shape[1] == 0:
         cell = p[:, None].expand(B, F)
         if pb.vals is not None:
             cell = cell * pb.vals
         return dp_reduce(lane_sum, cell.reshape(B * F, 1), flat_idx, U,
-                         dp)[:, 0], None
+                         dp, plane)[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm.to(params.V.dtype)[:, None]
@@ -286,7 +300,7 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
                                       dim=2)
     contrib = contrib.to(params.V.dtype).to(torch.float32)
     red = dp_reduce(lane_sum, contrib.reshape(B * F, k + 2), flat_idx, U,
-                    dp)
+                    dp, plane)
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV

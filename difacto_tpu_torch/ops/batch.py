@@ -108,27 +108,29 @@ def max_row_nnz(blk: RowBlock) -> int:
 def panel_width(blk: RowBlock, batch_cap: int) -> Optional[int]:
     """Fixed panel width for this block, or None when the COO layout is
     denser: panel when B * F_max stays within 1.5x the COO nnz pad."""
-    counts = np.diff(blk.offset)
-    if len(counts) == 0:
-        return None
-    fmax = int(counts.max())
-    if fmax == 0:
-        return None
-    if batch_cap * fmax <= 1.5 * bucket(blk.nnz):
-        return fmax
-    return None
+    return panel_width_of(max_row_nnz(blk), blk.nnz, batch_cap)
 
 
-def _panel_arrays(blk: RowBlock, batch_cap: int, width: int):
+def panel_width_of(fmax: int, nnz: int, batch_cap: int) -> Optional[int]:
+    """:func:`panel_width` from a block's widest row and nonzero count
+    (the multi-host step decides on every process's maxima)."""
+    if fmax == 0 or batch_cap * fmax > 1.5 * bucket(nnz):
+        return None
+    return fmax
+
+
+def _panel_arrays(blk: RowBlock, batch_cap: int, width: int,
+                  force_vals: bool = False):
     """Host panel arrays: (idx[B,F], vals[B,F] or None, labels, rweight,
-    row_mask). A uniform full block keeps binary rows binary; anything
-    else gets explicit values, zero on pad cells."""
+    row_mask). A uniform full block keeps binary rows binary, unless
+    ``force_vals``; anything else gets explicit values, zero on pad
+    cells."""
     b = blk.size
     counts = np.diff(blk.offset).astype(np.int64)
     if counts.size and counts.max() > width:
         raise ValueError(f"row nnz {counts.max()} exceeds panel width "
                          f"{width}")
-    uniform = counts.size and (counts == width).all()
+    uniform = counts.size and (counts == width).all() and not force_vals
     if uniform and b == batch_cap:
         idx = blk.index.reshape(b, width).astype(np.int32)
         vals = (None if blk.value is None
@@ -153,14 +155,16 @@ def _panel_arrays(blk: RowBlock, batch_cap: int, width: int):
 
 def pack_panel(blk: RowBlock, num_uniq: int, slots: np.ndarray,
                batch_cap: int, width: int, u_cap: int,
-               counts: Optional[np.ndarray] = None):
+               counts: Optional[np.ndarray] = None,
+               force_vals: bool = False):
     """Panel twin of :func:`pack_batch`:
     i32 = [idx(B*F) | slots(u_cap) | b, num_uniq];
-    f32 = [vals(B*F)? | labels(B) | rweight(B) | row_mask(B) | counts(u)?]."""
+    f32 = [vals(B*F)? | labels(B) | rweight(B) | row_mask(B) | counts(u)?].
+    ``force_vals`` keeps the vals section on a uniform binary block."""
     if len(slots) != u_cap:
         raise ValueError(f"slots must arrive pre-padded to u_cap={u_cap}")
-    idx, vals, labels, rweight, row_mask = _panel_arrays(blk, batch_cap,
-                                                         width)
+    idx, vals, labels, rweight, row_mask = _panel_arrays(
+        blk, batch_cap, width, force_vals)
     binary = vals is None
     cells = batch_cap * width
     i32 = np.empty(cells + u_cap + 2, dtype=np.int32)

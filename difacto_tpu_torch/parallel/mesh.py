@@ -17,11 +17,18 @@ Devices come from :func:`~difacto_tpu_torch.utils.platform.mesh_devices`:
 the visible cards, or the CPU, each repeated
 ``DIFACTO_TORCH_VIRTUAL_DEVICES`` times, so the 2 x 4 mesh of the example
 configs runs on one card (its eight logical devices all on that card) as
-the JAX package's tests run it on eight virtual CPU devices. A mesh lies
-on one physical device: the table is one tensor there and each shard and
-each batch block is a view of it. A mesh over several cards raises
-(placing each shard on its own card is a ROADMAP.md follow-up), as does
-a mesh across processes (ROADMAP.md item 11b).
+the JAX package's tests run it on eight virtual CPU devices. In one
+process a mesh lies on one physical device: the table is one tensor
+there and each shard and each batch block is a view of it. A mesh over
+several cards of one process raises (placing each shard on its own card
+is a ROADMAP.md follow-up).
+
+Across processes (parallel/multihost.py, launch.py) the dp axis spans
+them, host-major, as in the JAX package (mesh.py:53-65): process ``r``
+holds the dp blocks ``dp_local`` = ``[r * dp / n, (r + 1) * dp / n)``,
+and ``fs`` stays inside each process, so every process holds a whole
+replica of the fs-sharded table on its card
+(``cuda:{rank % device_count}``).
 
 All shapes are padded to power-of-two-based buckets (ops/batch.py), so
 power-of-two axes divide them (``mesh_dim_min``).
@@ -38,12 +45,16 @@ FS_AXIS = "fs"
 
 
 class Mesh:
-    """A ``dp x fs`` grid of logical devices (``devices[d][f]``, each a
-    ``torch.device``, all the same physical one)."""
+    """A ``dp x fs`` grid of logical devices. ``devices[d][f]`` (each a
+    ``torch.device``, all the same physical one) are this process's rows
+    of the grid: its dp blocks ``dp_local``, a range of the global dp
+    axis (all of it in one process)."""
 
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+    def __init__(self, devices: Sequence[Sequence[torch.device]],
+                 dp: Optional[int] = None, dp_lo: int = 0):
         self.devices: List[List[torch.device]] = [list(r) for r in devices]
-        self.shape = {DP_AXIS: len(self.devices),
+        self.dp_local = range(dp_lo, dp_lo + len(self.devices))
+        self.shape = {DP_AXIS: dp or len(self.devices),
                       FS_AXIS: len(self.devices[0])}
 
     @property
@@ -56,33 +67,14 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        """The one physical device of the mesh: the table, the batch and
-        the step live there."""
+        """This process's one physical device of the mesh: its replica of
+        the table, its batch blocks and its steps live there."""
         return self.devices[0][0]
 
     def __repr__(self) -> str:
-        return f"Mesh(dp={self.dp}, fs={self.fs}, on {self.home})"
-
-
-def process_count() -> int:
-    """Processes of this run: torch.distributed's world size when it is
-    initialized, else 1."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def check_single_process(what: str) -> None:
-    """The multi-host branch of the JAX package's ``make_mesh``
-    (mesh.py:53-65: the fs axis stays inside a host, a multi-host mesh
-    uses every device) is not ported: more than one process raises."""
-    n = process_count()
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} across {n} processes is not ported yet (ROADMAP.md, "
-            "item 11b: multi-host under torch.distributed); this mesh runs "
-            "in one process")
+        return (f"Mesh(dp={self.dp}, fs={self.fs}, dp_local="
+                f"[{self.dp_local.start}, {self.dp_local.stop}), on "
+                f"{self.home})")
 
 
 def make_mesh(dp: int = 1, fs: int = 1,
@@ -92,12 +84,40 @@ def make_mesh(dp: int = 1, fs: int = 1,
     ``device``'s kind (utils/platform.mesh_devices) or of ``devices``.
     Axis sizes must be powers of two: every sharded dimension (the table
     capacity, the batch buckets) is padded to a power of two or 1.5 times
-    one, so only power-of-two axes divide them evenly."""
+    one, so only power-of-two axes divide them evenly.
+
+    Across processes the JAX package's rules hold (mesh.py:53-65 and its
+    learner's sgd.py:473-478): the mesh uses every logical device of
+    every process, ``fs`` divides a process's count (the table is whole
+    in each process) and ``dp`` is a multiple of the process count; this
+    process gets its ``dp / n`` rows."""
+    from .multihost import process_count, process_index
     for name, v in ((DP_AXIS, dp), (FS_AXIS, fs)):
         if v < 1 or (v & (v - 1)) != 0:
             raise ValueError(f"mesh axis {name}={v} must be a power of two")
     n = dp * fs
-    check_single_process("a mesh")
+    nproc = process_count()
+    if nproc > 1:
+        from ..utils.platform import logical_devices
+        local = list(devices) if devices is not None \
+            else logical_devices(device)[0]
+        if n != len(local) * nproc:
+            raise ValueError(
+                f"multi-host meshes must use every device: dp*fs={n} != "
+                f"{len(local) * nproc} global devices")
+        if fs > len(local) or len(local) % fs:
+            raise ValueError(
+                f"mesh fs={fs} must divide the local device count "
+                f"{len(local)} (the feature-sharded table must be "
+                "host-complete)")
+        if dp % nproc:
+            raise ValueError(f"mesh_dp={dp} must be a multiple of the host "
+                             f"count {nproc}")
+        dp_local = dp // nproc
+        devices = local
+        n = dp_local * fs
+    else:
+        dp_local = dp
     if devices is None:
         from ..utils.platform import mesh_devices
         devices = mesh_devices(n, device)
@@ -110,7 +130,8 @@ def make_mesh(dp: int = 1, fs: int = 1,
             "ported yet (ROADMAP.md: the mesh on several cards, each "
             "shard on its own card); set DIFACTO_TORCH_VIRTUAL_DEVICES to "
             "put the mesh on one card")
-    return Mesh([devices[d * fs:(d + 1) * fs] for d in range(dp)])
+    return Mesh([devices[d * fs:(d + 1) * fs] for d in range(dp_local)],
+                dp=dp, dp_lo=process_index() * dp_local)
 
 
 def fs_size(mesh: Optional[Mesh]) -> int:
@@ -119,7 +140,7 @@ def fs_size(mesh: Optional[Mesh]) -> int:
 
 
 def dp_size(mesh: Optional[Mesh]) -> int:
-    """The data-parallel degree of a mesh (1 for no mesh)."""
+    """The global data-parallel degree of a mesh (1 for no mesh)."""
     return 1 if mesh is None else mesh.dp
 
 
@@ -156,18 +177,20 @@ def state_sharding(mesh: Mesh):
 
 def batch_sharding(mesh: Mesh):
     """A batch leaf's placement (JAX: ``P('dp')``, scalars replicated):
-    a function of a tensor to its ``dp`` leading-axis blocks, views of
-    it. The leading axis must divide by dp (``mesh_dim_min`` sizes the
-    buckets so)."""
+    a function of this process's batch tensor to its ``dp_local`` leading
+    axis blocks, views of it. The leading axis must divide by their count
+    (``mesh_dim_min`` sizes the buckets so)."""
+    nb = len(mesh.dp_local)
+
     def place(x: torch.Tensor):
         if x.dim() == 0:
-            return [x] * mesh.dp
+            return [x] * nb
         n = x.shape[0]
-        if n % mesh.dp:
+        if n % nb:
             raise ValueError(f"leading axis {n} does not split over "
-                             f"dp={mesh.dp}")
-        m = n // mesh.dp
-        return [x[b * m:(b + 1) * m] for b in range(mesh.dp)]
+                             f"dp={nb}")
+        m = n // nb
+        return [x[b * m:(b + 1) * m] for b in range(nb)]
     return place
 
 
@@ -181,17 +204,17 @@ def replicated(mesh: Mesh):
 
 def put_global(arr, placement):
     """Place a host array (numpy or tensor) with ``placement`` (one of
-    the functions above). One process only: the JAX package's
-    multi-process branch waits for ROADMAP.md item 11b."""
-    check_single_process("put_global")
+    the functions above). Across processes every process passes the same
+    value (a replicated input, a same-seed init) and places its copy."""
     x = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
     return placement(x)
 
 
 def put_dp_local(local_arr, mesh: Mesh):
-    """This process's batch block split over dp (one process: the block
-    is the global batch)."""
-    check_single_process("put_dp_local")
+    """This process's batch block split over its ``dp_local`` blocks: the
+    global batch is every process's block in process order (host-major,
+    the JAX package's ``put_dp_local``); in one process the block is the
+    global batch."""
     x = local_arr if isinstance(local_arr, torch.Tensor) \
         else torch.from_numpy(local_arr)
     return batch_sharding(mesh)(x.to(mesh.home))

@@ -20,7 +20,11 @@ Under a ``(dp, fs)`` mesh (parallel/mesh.py) the same functions run: a
 and the push one kernel launch per non-empty key-range shard run
 (updaters/sgd_updater.make_fns), and a loss with ``dp > 1`` sums the
 backward's per-slot partials over dp blocks of the batch in dp order
-(losses/fm.dp_reduce) before the one push per shard. The JAX step's
+(losses/fm.dp_reduce) before the one push per shard. Across processes
+(a loss with a ``plane``, parallel/multihost.py) the sum takes every
+process's partials, gathered, and the objective and the AUC are taken
+over every process's rows, so each rank pushes the same sums and reports
+the global batch's metrics. The JAX step's
 ``state_constrainer`` (pinning the returned state to its fs layout
 inside the jitted program) has no counterpart beyond that placement: the
 push writes each shard in place, so the table never leaves its layout.
@@ -47,23 +51,31 @@ def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
         w, V, vmask = fns.rows_to_params(state, rows)
         return FMParams(w=w, V=V, v_mask=vmask), rows
 
+    def metrics(pred, batch, auc_fn):
+        """(objv, auc) of the batch, or across processes of the global
+        batch (every process's rows, gathered)."""
+        rows = batch
+        if loss.plane is not None:
+            pred, rows = loss.plane.global_batch(pred, batch)
+        objv = loss.evaluate(pred, rows)
+        if auc_fn is None:
+            return objv, torch.zeros((), dtype=torch.float32,
+                                     device=pred.device)
+        return objv, auc_fn(rows.labels, pred, rows.row_mask)
+
     def forward(state, batch, slots):
         params, _ = pull(state, slots)
         pred = loss.predict(params, batch)
-        objv = loss.evaluate(pred, batch)
-        auc = auc_times_n(batch.labels, pred, batch.row_mask)
+        objv, auc = metrics(pred, batch, auc_times_n)
         return params, pred, objv, auc
+
+    train_auc_fn = {"binned": auc_times_n_binned, "exact": auc_times_n,
+                    "none": None}[train_auc]
 
     def train_step(state, batch, slots):
         params, rows = pull(state, slots)
         pred, xv = loss.predict_xv(params, batch)
-        objv = loss.evaluate(pred, batch)
-        if train_auc == "binned":
-            auc = auc_times_n_binned(batch.labels, pred, batch.row_mask)
-        elif train_auc == "exact":
-            auc = auc_times_n(batch.labels, pred, batch.row_mask)
-        else:
-            auc = torch.zeros((), dtype=torch.float32, device=pred.device)
+        objv, auc = metrics(pred, batch, train_auc_fn)
         gw, gV = loss.calc_grad(params, batch, pred, xv)
         if gV is None:
             state = fns.apply_grad(state, slots, gw, None, None)

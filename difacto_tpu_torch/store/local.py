@@ -165,13 +165,22 @@ class SlotStore:
     def num_features(self) -> int:
         return len(self._keys)
 
-    def map_keys(self, keys: np.ndarray, insert: bool = True) -> np.ndarray:
+    @property
+    def next_slot(self) -> int:
+        """The slot the next inserted id takes (dictionary store)."""
+        return self._next_slot
+
+    def map_keys(self, keys: np.ndarray, insert: bool = True,
+                 grow: bool = True) -> np.ndarray:
         """Unique byte-reversed uint64 ids -> int32 slots. Hashed: the
         modular rule. Dictionary: known ids get their slot; unknown ids
         are inserted with the next slots in input order (the reference's
         operator[] inserts on Get, sgd_updater.cc:46), growing the table
         as needed, or map to TRASH_SLOT when ``insert`` is off or the
-        store is read-only."""
+        store is read-only. ``grow=False`` inserts without growing the
+        table: the multi-host schedule's lookahead thread inserts, and the
+        dispatch thread grows (:meth:`grow_to`) before the first step
+        that needs the rows."""
         keys = np.asarray(keys, dtype=FEAID_DTYPE)
         if self.hashed:
             return hash_slots(keys, self.param.hash_capacity)
@@ -198,7 +207,8 @@ class SlotStore:
                 pos = np.searchsorted(self._keys, nk)
                 self._keys = np.insert(self._keys, pos, nk)
                 self._slots = np.insert(self._slots, pos, ns)
-                self._ensure_capacity(self._next_slot)
+                if grow:
+                    self._ensure_capacity(self._next_slot)
         return out
 
     def map_keys_dedup(self, keys: np.ndarray,
@@ -220,10 +230,10 @@ class SlotStore:
             return uniq.astype(np.int32), inv, counts
         return slots, None, counts
 
-    def capacity_for(self, need: int) -> int:
-        """The capacity after doubling the live one until ``need`` slots
-        fit."""
-        cap = self.state.capacity
+    def capacity_for(self, need: int, current: Optional[int] = None) -> int:
+        """The capacity after doubling the live one (or ``current``) until
+        ``need`` slots fit."""
+        cap = self.state.capacity if current is None else current
         while cap < need:
             cap *= 2
         return cap

@@ -61,9 +61,13 @@ and kinds).
   The tier's
   points pass a returned kind to :func:`act_default` (``kill`` dies,
   ``truncate``/``close`` refuse the move), where the JAX package drops
-  it. The JAX package's other two points, ``push.stale`` and
-  ``dcn.collective``, belong to multi-host training (ROADMAP.md, item
-  11b).
+  it. Multi-host training (parallel/multihost.py) wires the last two:
+  ``dcn.collective`` (every cross-host control exchange, the store's
+  allgather and the gloo one — ``err`` is a dead coordinator or a
+  partitioned link) and ``push.stale`` (a host publishing its step clock
+  under a bounded-delay window). Both fire before the single-process
+  early return, so a one-process τ > 0 run reaches them: 25 of the JAX
+  package's 25 points.
 - ``kind`` — what happens when the fault fires:
     - ``err``      raise :class:`FaultInjected` (an OSError, so IO call
                    sites treat it exactly like a real IO failure);

@@ -11,6 +11,12 @@ physical ones, each repeated ``DIFACTO_TORCH_VIRTUAL_DEVICES`` times, the
 port's counterpart of the JAX package's
 ``--xla_force_host_platform_device_count`` (``=8`` puts the example
 configs' 2 x 4 mesh on one card, or on the CPU in the tests).
+
+Across processes (parallel/multihost.py) a rank's card is
+``cuda:{rank % device_count}`` (multihost.initialize makes it the
+current device, so ``device=cuda`` resolves to it), and its
+logical devices are that card repeated ``DIFACTO_TORCH_VIRTUAL_DEVICES``
+times.
 """
 
 from __future__ import annotations
@@ -42,12 +48,16 @@ _LOGGED_SHARING: set = set()
 
 def logical_devices(device="cuda") -> tuple:
     """(every logical device of ``device``'s kind, the repeat count):
-    the physical devices (:func:`mesh_devices`), each repeated
-    ``DIFACTO_TORCH_VIRTUAL_DEVICES`` times."""
+    the physical devices (:func:`mesh_devices`; across processes this
+    rank's card alone), each repeated ``DIFACTO_TORCH_VIRTUAL_DEVICES``
+    times."""
     import os
 
+    from ..parallel.multihost import process_count
     dev = resolve_device(device)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and process_count() > 1:
+        phys = [dev]
+    elif dev.type == "cuda":
         phys = [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     else:

@@ -888,3 +888,57 @@ def test_mesh_learner_on_the_card_leaves_the_flat_table(cuda, monkeypatch):
     assert torch.equal(run([("mesh_fs", "4")]), flat)
     a = run([("mesh_dp", "2"), ("mesh_fs", "4")])
     assert torch.equal(run([("mesh_dp", "2"), ("mesh_fs", "4")]), a)
+
+
+def _blocks(dev):
+    g = torch.Generator().manual_seed(5)
+    data = torch.randn(512, 18, generator=g).to(dev)
+    lanes = torch.sort(torch.randint(0, 300, (512,), generator=g,
+                                     dtype=torch.int32)).values.to(dev)
+    return data, lanes
+
+
+def test_data_plane_on_the_card_sums_in_order(cuda, tmp_path):
+    """Two processes on the card (launch.py, gloo): each gathers its dp
+    block's partials through pinned host memory and sums every block in
+    rank order on the card; the result equals one process's dp_reduce
+    over both blocks on the same card, bit for bit, on both ranks."""
+    import socket
+    import subprocess
+    import sys
+
+    from difacto_tpu_torch.losses.fm import dp_reduce
+    from difacto_tpu_torch.ops.segment import lane_sum
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data, lanes = _blocks(cuda)
+    want = dp_reduce(lane_sum, data, lanes, 300, dp=2).cpu()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "launch.py"), "-n", "2",
+         "--port", str(port), "--", sys.executable, __file__, "dataplane",
+         str(tmp_path)], cwd=root, env=env, capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for r in (0, 1):
+        got = torch.from_numpy(np.load(tmp_path / f"sum-{r}.npy"))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+if __name__ == "__main__":
+    import sys
+
+    from difacto_tpu_torch.losses.fm import dp_reduce
+    from difacto_tpu_torch.ops.segment import lane_sum
+    from difacto_tpu_torch.parallel.multihost import (DataPlane, initialize,
+                                                      process_index)
+    initialize()
+    rank = process_index()
+    data, lanes = _blocks(torch.device("cuda"))
+    mine = slice(rank * 256, (rank + 1) * 256)
+    got = dp_reduce(lane_sum, data[mine], lanes[mine], 300, dp=1,
+                    plane=DataPlane())
+    assert got.device.type == "cuda"
+    np.save(os.path.join(sys.argv[2], f"sum-{rank}.npy"), got.cpu().numpy())

@@ -727,3 +727,55 @@ def test_fleet_runs_with_jax_poisoned(tmp_path):
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-1] == "ok"
+
+
+def test_multihost_runs_with_jax_poisoned(tmp_path):
+    """Multi-host training (parallel/multihost.py, parallel/fault.py)
+    where jax and difacto_tpu cannot be imported: the repo's launch.py,
+    unedited, runs poisoned too (its optional imports of the JAX package
+    are on its failure paths), and starts two ranks of the port's CLI
+    that train over the 2 x 4 mesh with heartbeats on and write both
+    ranks' models."""
+    import socket
+    poison = textwrap.dedent("""
+        import runpy, sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "difacto_tpu",
+                                          "ml_dtypes"):
+                    raise ImportError(f"poisoned import: {name}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+    """)
+    rank = poison + textwrap.dedent(f"""
+        sys.argv = ["difacto_tpu_torch", "device=cpu",
+                    "data_in={_RCV1}", "V_dim=2", "batch_size=50",
+                    "hash_capacity=4096", "mesh_dp=2", "mesh_fs=4",
+                    "max_num_epochs=2", "report_interval=0",
+                    "model_out={tmp_path / 'm'}"]
+        try:
+            runpy.run_module("difacto_tpu_torch", run_name="__main__")
+        finally:
+            bad = [m for m in sys.modules if m.split(".")[0] in
+                   ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
+            assert not bad, bad
+    """)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    launcher = poison + textwrap.dedent(f"""
+        sys.argv = ["launch.py", "-n", "2", "--port", "{ports[0]}",
+                    "--max-restarts", "1", "--hb-port", "{ports[1]}", "--",
+                    sys.executable, "-c", {rank!r}]
+        runpy.run_path("launch.py", run_name="__main__")
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT, DIFACTO_TORCH_VIRTUAL_DEVICES="4")
+    out = subprocess.run([sys.executable, "-c", launcher], cwd=_ROOT,
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "m_part-0").exists()
+    assert (tmp_path / "m_part-1").exists()

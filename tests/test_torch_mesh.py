@@ -93,11 +93,23 @@ def test_mesh_devices_map_logical_to_physical(monkeypatch, caplog):
 
 
 def test_more_than_one_process_raises(monkeypatch):
-    monkeypatch.setattr(tmesh, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    """Across processes make_mesh takes the JAX package's multi-host
+    checks (mesh.py:53-65, sgd.py:473-478): the mesh uses every process's
+    devices and fs divides a process's count; a good mesh gives this
+    process its dp rows."""
+    from difacto_tpu_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(multihost, "process_index", lambda: 1)
+    monkeypatch.setenv("DIFACTO_TORCH_VIRTUAL_DEVICES", "4")
+    with pytest.raises(ValueError, match="must use every device"):
         tpar.make_mesh(dp=1, fs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tpar.put_global(np.zeros(4), lambda x: x)
+    with pytest.raises(ValueError, match="must divide the local device"):
+        tpar.make_mesh(dp=1, fs=8, device="cpu")
+    m = tpar.make_mesh(dp=4, fs=2, device="cpu")
+    assert m.shape == {"dp": 4, "fs": 2} and m.dp_local == range(2, 4)
+    assert len(tpar.put_dp_local(np.zeros(8, np.float32), m)) == 2
+    x = tpar.put_global(np.arange(4), tpar.replicated(m))
+    assert x.tolist() == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("cap,fs", [(1024, 1), (1024, 4), (4096, 8),

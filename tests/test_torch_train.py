@@ -434,18 +434,23 @@ def test_cli_train_saves_a_model_jax_pred_scores(tmp_path):
     "cold_tier_rows=64"])
 def test_knobs_that_change_the_result_raise_when_not_ported(knob,
                                                             tmp_path):
-    """Only multi-host's knob (``bounded_delay > 0``) still raises, naming
-    its ROADMAP.md item 11b; ``mesh_force`` now builds the 1 x 1 mesh and
-    trains (its table equals the flat run's, tests/test_torch_fs_sharding.py),
-    and the capacity and durability knobs are ported (with a
-    ``model_out`` for the WAL)."""
+    """No knob raises now: ``bounded_delay`` without a mesh keeps the
+    plain schedule and trains as the JAX learner does (its windowed
+    schedule needs a mesh, tests/test_torch_multihost.py); ``mesh_force``
+    builds the 1 x 1 mesh and trains (its table equals the flat run's,
+    tests/test_torch_fs_sharding.py), and the capacity and durability
+    knobs are ported (with a ``model_out`` for the WAL)."""
     k, v = knob.split("=")
     kwargs = dict([("data_in", RCV1), ("V_dim", "2"),
                    ("hash_capacity", "4096")])
     kwargs[k] = v
     if k == "bounded_delay":
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            SGDLearner(device="cpu").init(list(kwargs.items()))
+        kwargs["max_num_epochs"] = "1"
+        ln = SGDLearner(device="cpu")
+        assert ln.init(list(kwargs.items())) == []
+        assert ln._tau == 2 and not ln._spmd_schedule
+        ln.run()
+        assert ln.store.state.VVg.abs().sum() > 0
         return
     if k == "mesh_force":
         kwargs["max_num_epochs"] = "1"
