@@ -6,8 +6,10 @@
 Drives the port's serving and training paths (and the batch learners,
 phase 14, the capacity tier and the durable training state, phase 15,
 the serve lifecycle and the online loop, phase 16, the serving fleet,
-phase 17, the fault points and tracers, phase 18, and the examples'
-(dp, fs) mesh, phase 19) at the full width
+phase 17, the fault points and tracers, phase 18, the examples'
+(dp, fs) mesh, phase 19, multi-host training, phase 20, and the run-time
+tracers of steps, copies, syncs and collectives, phase 21) at the full
+width
 of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
 threads and worker processes, from text and from the rec2 cache that
@@ -311,6 +313,28 @@ their plain PyTorch versions. Phases:
     (d) BCD and L-BFGS on two ranks on rcv1 at the goldens. (e)
     ``bounded_delay_report`` at the conf's geometry (fs 4, 1,048,576 rows
     a shard, V_dim 16, 1,000 rows of 39 nonzeros a step).
+21. the port's tracers (utils/devtrace.py, utils/collscan.py, the device
+    annotations of obs/trace.py), run last, each leg in interpreters of
+    its own with only its knobs set: (a) phase 3's pred and phase 4's
+    server (three windows, then the same twice more) under
+    ``DIFACTO_JAXTRACE=1``: the programs' signatures frozen after the warm
+    windows (``devmap`` finds no unknown site, no undeclared copy and no
+    signature after the warm-up), no undeclared CUDA sync under a serve
+    dispatch (``torch.cuda.set_sync_debug_mode("warn")``, classified by
+    stack), ``serve.scores`` once per pred window and dispatch, each
+    kernel site's launches equal to ``gather_rows_cuda.launches``; (b)
+    phase 7's replayed 2-epoch train traced and untraced: no signature
+    new in epoch 1, the tables' digests and the losses equal, the
+    launches phase 7's; both runs' epoch walls and every undeclared sync
+    site of the train run with its count per step; (c) ``DIFACTO_TRACE``
+    and ``DIFACTO_TRACE_DEVICE`` over 5,000 rows, 2 epochs (the second
+    replayed): the exported Chrome trace holds the gather and the
+    scatter kernels, each inside a range named after a span; (d)
+    ``DIFACTO_HLOSCAN=1`` with ``DIFACTO_HLOSCAN_ROWS=4194304`` over
+    phase 20 (a)'s ``launch.py -n 2`` for 1 epoch: no table-axis
+    collective, each rank's scanned collectives and bytes equal its data
+    plane's counters, the bytes a train step and the peak above entry
+    per program printed, ``collmap --check`` exits 0.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -320,8 +344,8 @@ holds exactly ``rounds`` times the events of a one-pass profile.
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
 scatter's two routes as two entries; launches summed over the main
 paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r), 18 (a) and
-(b), 19 (a), (c) and (d) and 20 (a) on both ranks, each counted from 0
-just before its own run), then, as the last line,
+(b), 19 (a), (c) and (d), 20 (a) on both ranks and 21 (a), (b) and (d),
+each counted from 0 just before its own run), then, as the last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when there is no CUDA device, when the port is not beside it, or when any
 phase fails. Imports nothing of JAX.
@@ -982,16 +1006,19 @@ def _h2d_copies(fn) -> tuple:
     return len(h2d), len(ev)
 
 
-def _train(kwargs: list, watch_replays: bool = False):
+def _train(kwargs: list, watch_replays: bool = False, epoch_end=None):
     """One ``task=train`` run through the learner: (learner, per-epoch
     (training, validation) progress, [(epoch, job, wall s)], and with
     ``watch_replays`` [(epoch, job, host-to-device copies, device
-    events)] of every replayed epoch, from the profiler)."""
+    events)] of every replayed epoch, from the profiler). ``epoch_end``
+    is called with each epoch's number after its progress is kept."""
     from difacto_tpu_torch.learners.sgd import SGDLearner
     ln = SGDLearner(device=DEV)
     ln.init(list(kwargs))
     progress, walls, replays = [], [], []
     ln.add_epoch_end_callback(lambda k, t, v: progress.append((t, v)))
+    if epoch_end is not None:
+        ln.add_epoch_end_callback(lambda k, t, v: epoch_end(k))
     run_epoch, replay = ln._run_epoch, ln._replay_cached
 
     def timed(epoch, job_type, prog):
@@ -5318,6 +5345,13 @@ def rank_cli(spec_path: str) -> int:
         if spec.get("digest"):
             out["digest"] = hashlib.sha256(
                 ln.store.state.VVg.cpu().numpy()).hexdigest()
+        if spec.get("scan"):
+            # phase 21 (d): the collective scan of this rank's run
+            from difacto_tpu_torch.utils import collscan, devtrace
+            collscan.dump(f"{spec['out']}-{rank}-scan.json")
+            out["train_site"] = ln._train_step.site
+            out["train_calls"] = devtrace.sites()[
+                ln._train_step.site]["calls"]
         if spec.get("profile"):
             from difacto_tpu_torch.learners.sgd import K_TRAINING
             staged = [st for items in
@@ -5357,10 +5391,11 @@ def rank_cli(spec_path: str) -> int:
 
 
 def _launch_ranks(work: str, name: str, argv: list, launch_extra=(),
-                  timeout: float = 600.0, **spec) -> tuple:
+                  timeout: float = 600.0, env_extra=None, **spec) -> tuple:
     """Phase 20: ``launch.py -n 2 [launch_extra] -- python -c <rank_cli>``
-    from the repo root with ``MH_DEVICES`` logical devices per rank; the
-    ranks' evidence (of the last attempt) and the launcher's stderr."""
+    from the repo root with ``MH_DEVICES`` logical devices per rank (and
+    ``env_extra`` in their environment); the ranks' evidence (of the last
+    attempt) and the launcher's stderr."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(work, "mh_" + name)
     spec.update(argv=argv, out=out, dev=DEV)
@@ -5370,6 +5405,7 @@ def _launch_ranks(work: str, name: str, argv: list, launch_extra=(),
     env = dict(os.environ)
     env["DIFACTO_TORCH_VIRTUAL_DEVICES"] = str(MH_DEVICES)
     env["PYTHONPATH"] = root
+    env.update(env_extra or {})
     cmd = [sys.executable, os.path.join(root, "launch.py"), "-n", "2",
            "--port", str(_free_port()), *launch_extra, "--",
            sys.executable, "-c",
@@ -5650,6 +5686,428 @@ def phase_multihost(work: str, tr: dict, t19: dict, smi: str) -> dict:
     out["seconds"] = dt
     return out
 
+# ------------------------------------------------------------- phase 21
+P21_DEVICE_ROWS = 5_000     # (c): 5 steps an epoch, epoch 1 replayed
+P21_SPANS = ("epoch", "consumer.dispatch")
+P21_KERNELS = ("gather_rows_kernel", "scatter_kernel")
+# every knob the port reads for its tracers: a child of phase 21 starts
+# with none but its own
+P21_KNOBS = ("DIFACTO_JAXTRACE", "DIFACTO_JAXTRACE_OUT", "DIFACTO_HLOSCAN",
+             "DIFACTO_HLOSCAN_ROWS", "DIFACTO_HLOSCAN_BUDGET",
+             "DIFACTO_HLOSCAN_OUT", "DIFACTO_TRACE", "DIFACTO_TRACE_DEVICE",
+             "DIFACTO_LOCKTRACE", "DIFACTO_RACETRACE")
+
+
+def _fetch_points(fetches: dict) -> dict:
+    out: dict = {}
+    for rec in fetches.values():
+        out[rec["point"]] = out.get(rec["point"], 0) + rec["count"]
+    return out
+
+
+def _p21_serve(spec: dict) -> dict:
+    """Phase 21 (a), in the traced child: phase 3's pred of 20,000 rows,
+    then phase 4's server over the same store answering three windows
+    that straddle the pred windows (the warm-up, dumped), and the same
+    windows twice more (dumped again)."""
+    import torch
+    from difacto_tpu_torch.__main__ import run_pred
+    from difacto_tpu_torch.ops import fused
+    from difacto_tpu_torch.serve import ServeServer, open_serving_store
+    from difacto_tpu_torch.tools import devmap
+    from difacto_tpu_torch.utils import devtrace
+    store, _, _ = open_serving_store(spec["model"], device=DEV)
+    devtrace.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    run_pred([tuple(x) for x in spec["pred_kwargs"]], device=DEV,
+             store=store)
+    sync()
+    pred_s = time.perf_counter() - t0
+    n_pred = _fetch_points(devtrace.fetches()).get("serve.scores", 0)
+    batch = spec["batch"]
+    with open(spec["data"], "rb") as f:
+        rows = f.read().splitlines()
+    with open(spec["pred_out"] + "_part-0", "rb") as f:
+        col = [ln.split(b"\t")[1] for ln in f.read().splitlines()]
+    los = [batch // 2 + i * batch for i in range(3)]
+    warm, final = spec["out"] + "-serve-warm.json", \
+        spec["out"] + "-serve.json"
+    srv = ServeServer(store, batch_size=batch, max_delay_ms=2000.0,
+                      queue_cap=4 * batch, data_format="criteo").start()
+    wrong = 0
+    try:
+        with socket.create_connection((srv.host, srv.port), timeout=120) \
+                as c:
+            f = c.makefile("rb")
+            for rnd in range(3):
+                for lo in los:
+                    win = rows[lo:lo + batch]
+                    c.sendall(b"".join(r + b"\n" for r in win))
+                    got = [f.readline().rstrip(b"\n") for _ in win]
+                    wrong += sum(g != w for g, w in
+                                 zip(got, col[lo:lo + batch]))
+                if rnd == 0:
+                    devtrace.dump(warm)
+        dispatches = srv.executor.stats()["dispatches"]
+    finally:
+        srv.close()
+    sync()
+    devtrace.dump(final)
+    d_final, d_warm = devtrace.load(final), devtrace.load(warm)
+    graph = devmap.build(os.path.dirname(os.path.abspath(__file__)),
+                         d_final, d_warm)
+    kernels = {r["label"]: r["launches"] for r in d_final["sites"].values()
+               if r["kind"] == "kernel"}
+    progs = {r["label"]: [r["calls"], r["compiles"]]
+             for r in d_final["sites"].values()
+             if r["kind"] == "program" and r["calls"]}
+    del store
+    torch.cuda.empty_cache() if DEV == "cuda" else None
+    return {"pred_windows": n_pred, "pred_s": pred_s,
+            "dispatches": dispatches, "wrong": wrong,
+            "points": _fetch_points(d_final["fetches"]),
+            "puts": _fetch_points(d_final["puts"]),
+            "syncs": d_final["syncs"],
+            "declared_syncs": d_final["declared_syncs"],
+            "failures": devmap.failures(graph), "kernels": kernels,
+            "counters": _counts(), "programs": progs,
+            "warm_programs": {r["label"]: [r["calls"], r["compiles"]]
+                              for r in d_warm["sites"].values()
+                              if r["kind"] == "program" and r["calls"]}}
+
+
+def _p21_train(spec: dict) -> dict:
+    """Phase 21 (b): phase 7's 2-epoch train (epoch 1 replays), dumped
+    after epoch 0 and at the end when tracing is on; the launches, epoch
+    walls, losses and the table's digest either way."""
+    import hashlib
+
+    from difacto_tpu_torch.tools import devmap
+    from difacto_tpu_torch.utils import devtrace
+    devtrace.reset()
+    _reset_counts()
+    traced = devtrace.enabled()
+    warm, final = spec["out"] + "-train-warm.json", \
+        spec["out"] + "-train.json"
+
+    def epoch_end(k):
+        if traced and k == 0:
+            devtrace.dump(warm)
+
+    ln, progress, walls, _ = _train([tuple(x) for x in spec["kwargs"]],
+                                    epoch_end=epoch_end)
+    out = {"launches": _counts(), "walls": walls,
+           "loss": [t.loss / max(t.nrows, 1) for t, _ in progress]}
+    if traced:
+        devtrace.dump(final)
+        d_final, d_warm = devtrace.load(final), devtrace.load(warm)
+        graph = devmap.build(os.path.dirname(os.path.abspath(__file__)),
+                             d_final, d_warm)
+        out.update(
+            steps=d_final["sites"][ln._train_step.site]["calls"],
+            syncs=d_final["syncs"],
+            declared_syncs=d_final["declared_syncs"],
+            new_signatures=graph["new_signatures"],
+            failures=graph["unknown_sites"] + graph["unknown_fetches"],
+            points=_fetch_points(d_final["fetches"]),
+            puts=_fetch_points(d_final["puts"]),
+            kernels={r["label"]: r["launches"]
+                     for r in d_final["sites"].values()
+                     if r["kind"] == "kernel"},
+            programs={r["label"]: [r["calls"], r["compiles"]]
+                      for r in d_final["sites"].values()
+                      if r["kind"] == "program" and r["calls"]})
+    # after the dump: the digest's copy is the smoke's, not the run's
+    out["digest"] = hashlib.sha256(ln.store.state.VVg.cpu().numpy()
+                                   ).hexdigest()
+    return out
+
+
+def tooling_child(spec_path: str) -> int:
+    """Phase 21's child interpreter (``python -c 'import chip_smoke;
+    chip_smoke.tooling_child(SPEC)'``), its knobs set by the parent:
+    ``traced`` runs (a) and (b) under DIFACTO_JAXTRACE=1, ``untraced``
+    (b) with every knob off, ``device`` a few replayed steps under
+    DIFACTO_TRACE and DIFACTO_TRACE_DEVICE (c). Writes its evidence to
+    ``<out>.json``."""
+    from difacto_tpu_torch.utils import devtrace
+    with open(spec_path) as f:
+        spec = json.load(f)
+    global DEV
+    DEV = spec["dev"]
+    if DEV == "cpu":        # a rehearsal: plain kernels, counted
+        _plain_counting()
+    out = {"mode": spec["mode"], "enabled": devtrace.enabled()}
+    if spec["mode"] == "traced":
+        out["a"] = _p21_serve(spec)
+    if spec["mode"] in ("traced", "untraced"):
+        out["b"] = _p21_train(spec)
+    if spec["mode"] == "device":
+        _reset_counts()
+        _, _, walls, _ = _train([tuple(x) for x in spec["kwargs"]])
+        out.update(launches=_counts(), walls=walls)
+    # the detector turns on with the first wrapper the port makes
+    out["sync_debug"] = devtrace.sync_debug_on()
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _tooling_child(work: str, mode: str, knobs: dict, **spec) -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, f"p21_{mode}")
+    spec.update(mode=mode, out=out, dev=DEV)
+    with open(out + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    env = {k: v for k, v in os.environ.items() if k not in P21_KNOBS}
+    env.update(knobs, PYTHONPATH=root)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.tooling_child({out + '.spec.json'!r}))"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 21 {mode}: the child exited "
+                             f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(out + ".json") as f:
+        got = json.load(f)
+    got["wall"] = time.monotonic() - t0
+    return got
+
+
+def _kernels_in_spans(events: list) -> dict:
+    """Per kernel of ``P21_KERNELS``: (events, events inside a span's
+    range). A kernel is inside when a GPU-side range of a span's name
+    (``gpu_user_annotation``) holds it, or when its launch (the runtime
+    call of the same correlation id) lies in a CPU range of a span's
+    name on the launching thread."""
+    def span(name: str) -> bool:
+        return name in P21_SPANS or name.startswith("ProfilerStep#")
+
+    gpu = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+           if e.get("cat") == "gpu_user_annotation" and span(e["name"])]
+    cpu: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and span(e["name"]):
+            cpu.setdefault((e.get("pid"), e.get("tid")), []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0)))
+    launch = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "cuda_runtime" and corr is not None:
+            launch[corr] = (e.get("pid"), e.get("tid"), e["ts"])
+    out = {}
+    for name in P21_KERNELS:
+        ks = [e for e in events
+              if e.get("cat") == "kernel" and name in e.get("name", "")]
+        inside = 0
+        for k in ks:
+            lo, hi = k["ts"], k["ts"] + k.get("dur", 0)
+            ok = any(a <= lo and hi <= b for a, b in gpu)
+            corr = (k.get("args") or {}).get("correlation")
+            if not ok and corr in launch:
+                pid, tid, t = launch[corr]
+                ok = any(a <= t <= b for a, b in cpu.get((pid, tid), []))
+            inside += ok
+        out[name] = (len(ks), inside)
+    return out
+
+
+def phase_tooling(work: str, conf: list, tr: dict, batch: int,
+                  smi: str) -> dict:
+    """Phase 21: the port's tracers on the card at full width.
+
+    (a) phase 3's pred and phase 4's server, traced
+    (``DIFACTO_JAXTRACE=1``, in a child): signatures frozen after the
+    warm windows, no undeclared sync under a serve dispatch,
+    ``serve.scores`` once per window, each kernel site's launches equal
+    to ``gather_rows_cuda.launches``. (b) phase 7's replayed 2-epoch
+    train traced and untraced, each in a child: no signature new in epoch
+    1, the two tables bit for bit, the untraced run's launches phase 7's;
+    the epoch walls of both and every undeclared sync of the train step
+    per step. (c) ``DIFACTO_TRACE`` + ``DIFACTO_TRACE_DEVICE`` over a few
+    replayed steps: the exported Chrome trace holds both kernels, each
+    inside a range named after a span. (d) ``DIFACTO_HLOSCAN=1`` with
+    ``DIFACTO_HLOSCAN_ROWS`` at the table's rows over phase 20 (a)'s
+    ``launch.py -n 2`` for 1 epoch: no table-axis collective, the scan's
+    collectives equal the data plane's counters, the peak per program,
+    ``collmap --check`` exits 0."""
+    import contextlib
+    import io
+
+    from difacto_tpu_torch.tools import collmap
+    from difacto_tpu_torch.utils import collscan
+    t21 = time.monotonic()
+    out = {"launches": dict.fromkeys(COUNTERS, 0)}
+    kwargs = [list(x) for x in conf] + [
+        ["data_in", tr["data_in"]], ["data_val", tr["data_val"]],
+        ["max_num_epochs", "2"], ["stop_rel_objv", "0"],
+        ["stop_val_auc", "-2"]]
+    data = os.path.join(work, "criteo.txt")
+    pred_out = os.path.join(work, "p21_pred")
+    T = _tooling_child(
+        work, "traced", {"DIFACTO_JAXTRACE": "1"}, kwargs=kwargs,
+        model=os.path.join(work, "model"), data=data, pred_out=pred_out,
+        batch=batch, pred_kwargs=[list(x) for x in conf] + [
+            ["data_in", data], ["pred_out", pred_out]])
+    a, bt = T["a"], T["b"]
+    if not (T["enabled"] and (T["sync_debug"] or DEV != "cuda")):
+        raise AssertionError(f"phase 21: the traced child ran untraced: "
+                             f"{T}")
+    # (a)
+    want_scores = a["pred_windows"] + a["dispatches"]
+    if a["failures"] or a["wrong"] or a["points"].get(
+            "serve.scores") != want_scores or not a["pred_windows"]:
+        raise AssertionError(f"phase 21 (a): {a}")
+    serve_syncs = {s: r for s, r in a["syncs"].items() if r["serve"]}
+    if serve_syncs:
+        raise AssertionError(f"phase 21 (a): undeclared syncs under the "
+                             f"serve dispatch: {serve_syncs}")
+    # (a rehearsal off the card counts plain versions, which no kernel
+    # site sees)
+    if DEV == "cuda" and (a["kernels"].get("gather_rows_cuda")
+                          != a["counters"]["gather_rows_cuda"]
+                          or not a["kernels"].get("gather_rows_cuda")):
+        raise AssertionError(f"phase 21 (a): kernel sites {a['kernels']} "
+                             f"against the counters {a['counters']}")
+    for c in COUNTERS:
+        out["launches"][c] += a["counters"][c] + bt["launches"][c]
+    log(f"  (a) traced pred ({a['pred_windows']} windows, "
+        f"{a['pred_s']:.2f} s) and serve (3 windows, then twice more; "
+        f"{a['dispatches']} dispatches, answers = the pred column): "
+        f"programs [calls, signatures] warm {a['warm_programs']} -> "
+        f"{a['programs']}; fetch points {a['points']}, host-to-device "
+        f"{a['puts']}; kernel sites {a['kernels']} = counters; syncs "
+        f"declared {a['declared_syncs']}, undeclared by site "
+        f"{ {s: r['count'] for s, r in a['syncs'].items()} } (none under "
+        f"a serve dispatch)")
+    # (b)
+    U = _tooling_child(work, "untraced", {}, kwargs=kwargs)
+    bu = U["b"]
+    if U["enabled"] or U["sync_debug"]:
+        raise AssertionError(f"phase 21: the untraced child traced: {U}")
+    if bu["launches"] != tr["launches"]:
+        raise AssertionError(f"phase 21 (b): untraced launches "
+                             f"{bu['launches']}, phase 7's "
+                             f"{tr['launches']}")
+    if bt["launches"] != tr["launches"] or (
+            DEV == "cuda" and bt["kernels"] != bt["launches"]):
+        raise AssertionError(f"phase 21 (b): traced launches "
+                             f"{bt['launches']} (sites {bt['kernels']}), "
+                             f"phase 7's {tr['launches']}")
+    if bt["digest"] != bu["digest"] or bt["loss"] != bu["loss"]:
+        raise AssertionError("phase 21 (b): the traced run's table or "
+                             "losses differ from the untraced run's")
+    if bt["new_signatures"] or bt["failures"]:
+        raise AssertionError(f"phase 21 (b): {bt['new_signatures']} "
+                             f"{bt['failures']}")
+    for c in COUNTERS:
+        out["launches"][c] += bu["launches"][c]
+    steps = bt["steps"]
+    per_step = {s: [r["count"], round(r["count"] / steps, 4),
+                    r["in_program"]]
+                for s, r in sorted(bt["syncs"].items(),
+                                   key=lambda kv: -kv[1]["count"])}
+    out["train_syncs"] = per_step
+    log(f"  (b) phase 7's train traced and untraced: tables and losses "
+        f"bit for bit, launches {bu['launches']} = phase 7's; programs "
+        f"[calls, signatures] {bt['programs']}, none new in epoch 1; "
+        f"fetch points {bt['points']}, host-to-device {bt['puts']}")
+    log(f"  (b) epoch walls, traced: {_epoch_walls(bt['walls'])}; "
+        f"untraced: {_epoch_walls(bu['walls'])}; child walls "
+        f"{T['wall']:.1f} / {U['wall']:.1f} s")
+    log(f"  (b) undeclared syncs of the train run over {steps} train "
+        f"steps, [count, per step, inside a program] by site: "
+        f"{per_step}; declared {bt['declared_syncs']}")
+    # (c)
+    small = os.path.join(work, "p21_small.txt")
+    with open(tr["data_in"], "rb") as f:
+        head = f.read().splitlines(keepends=True)[:P21_DEVICE_ROWS]
+    with open(small, "wb") as f:
+        f.write(b"".join(head))
+    spans, logdir = os.path.join(work, "p21_spans.json"), \
+        os.path.join(work, "p21_device")
+    D = _tooling_child(
+        work, "device", {"DIFACTO_TRACE": spans,
+                         "DIFACTO_TRACE_DEVICE": logdir},
+        kwargs=[list(x) for x in conf] + [
+            ["data_in", small], ["max_num_epochs", "2"],
+            ["stop_rel_objv", "0"]])
+    traces = sorted(f for f in os.listdir(logdir) if f.endswith(".json"))
+    if len(traces) != 1:
+        raise AssertionError(f"phase 21 (c): traces {traces} in {logdir}")
+    with open(os.path.join(logdir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    with open(spans) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    inside = _kernels_in_spans(events) if DEV == "cuda" else {}
+    if DEV == "cuda" and not all(n > 0 and k == n
+                                 for n, k in inside.values()):
+        raise AssertionError(f"phase 21 (c): kernels (events, inside a "
+                             f"span) {inside}")
+    if not set(P21_SPANS) <= names:
+        raise AssertionError(f"phase 21 (c): span names {names}")
+    ranges = {e["name"] for e in events
+              if e.get("cat") in ("user_annotation", "gpu_user_annotation")}
+    log(f"  (c) DIFACTO_TRACE_DEVICE over {P21_DEVICE_ROWS} rows, 2 epochs "
+        f"(epoch 1 replayed): {len(events)} trace events, span ranges "
+        f"{sorted(r for r in ranges if not r.startswith('ProfilerStep'))} "
+        f"and {sum(r.startswith('ProfilerStep') for r in ranges)} "
+        f"profiler steps; kernels (events, inside a span range) {inside}; "
+        f"epoch walls {_epoch_walls(D['walls'])}")
+    # (d); a rehearsal off the card takes a table wider than its union
+    # caps (at 8,192 rows a step's partials are as wide as the table)
+    rows = str(dict(conf)["hash_capacity"]) if DEV == "cuda" else "32768"
+    base = [CONF, f"data_in={tr['data_in']}", f"data_val={tr['data_val']}",
+            "max_num_epochs=1", "stop_rel_objv=0", "stop_val_auc=-2",
+            f"device={DEV}"]
+    if DEV == "cpu":
+        base.append(f"hash_capacity={rows}")
+    ranks, _, d_wall = _launch_ranks(
+        work, "scan", base, scan=True,
+        env_extra={"DIFACTO_HLOSCAN": "1", "DIFACTO_HLOSCAN_ROWS": rows})
+    if len(ranks) != 2 or any(r["rc"] != 0 for r in ranks):
+        raise AssertionError(f"phase 21 (d): ranks {ranks}")
+    for r in ranks:
+        path = os.path.join(work, f"mh_scan-{r['rank']}-scan.json")
+        doc = collscan.load(path)
+        progs = doc["programs"]
+        tot = collscan.totals(progs)
+        plane = r["plane"]
+        if doc["rows"] != int(rows) or collscan.violations(progs):
+            raise AssertionError(f"phase 21 (d) rank {r['rank']}: "
+                                 f"{collscan.violations(progs)}")
+        if tot != {"calls": plane["calls"], "bytes": plane["bytes_out"]}:
+            raise AssertionError(f"phase 21 (d) rank {r['rank']}: scan "
+                                 f"{tot}, data plane {plane}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = collmap.main(["--root", os.path.dirname(
+                os.path.abspath(__file__)), "--dynamic", path, "--check"])
+        if rc != 0:
+            raise AssertionError(f"phase 21 (d): collmap --check exited "
+                                 f"{rc} on rank {r['rank']}'s scan")
+        for c in COUNTERS:
+            out["launches"][c] += r["launches"][c]
+        train = progs[r["train_site"]]
+        part = max(train["collectives"], key=lambda c: c["bytes"])
+        n = r["train_calls"]
+        log(f"  (d) rank {r['rank']}: {tot['calls']} collectives, "
+            f"{tot['bytes']} B = the data plane's counters; the train "
+            f"step ({n} steps): "
+            f"{collscan.totals(progs, site=r['train_site'])['bytes'] / n:.0f}"
+            f" B a step, its partials {part['shape']} {part['dtype']} "
+            f"{part['bytes']} B; 0 table-axis at {rows} rows; peak above "
+            f"entry per program "
+            f"{ {p['label'] or s: p['peak_temp_bytes'] for s, p in progs.items() if p['traced']} }"
+            f"; store {doc['store']}; collmap --check 0")
+    log(f"  (d) {d_wall:.1f} s of launch.py")
+    log(f"phase 21 ok in {time.monotonic() - t21:.1f} s: the tracers at "
+        f"full width ({smi})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -5747,18 +6205,23 @@ def main(argv=None) -> int:
             gc.unfreeze()
         t18 = phase_faults(work, conf, bits_a, smi)
         del bits_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        t21 = phase_tooling(work, conf, tr, batch, smi)
         if any(m in sys.modules for m in ("jax", "difacto_tpu",
                                           "ml_dtypes")):
             raise AssertionError("the smoke imported JAX, difacto_tpu or "
                                  "ml_dtypes")
         # launches on the main paths: phases 3, 4, 7, 9, 10, 12, 13, 15,
-        # 16 (p) and (q), 17 (r), 18 (a) and (b), 19 (a), (c) and (d) and
-        # 20 (a) (both ranks), each read just after its own run
+        # 16 (p) and (q), 17 (r), 18 (a) and (b), 19 (a), (c) and (d), 20
+        # (a) (both ranks) and 21 (a), (b) (both runs) and (d) (both
+        # ranks), each read just after its own run
         tl = {c: tr["launches"][c] + td["launches"][c] + tx["launches"][c]
               + ts_launches[c] + tc["launches"][c] + tq["launches"][c]
               + tp["launches"][c] + to["launches"][c] + tf["launches"][c]
               + t18["launches"][c] + t19["launches"][c]
-              + t20["launches"][c] for c in COUNTERS}
+              + t20["launches"][c] + t21["launches"][c]
+              for c in COUNTERS}
         kernels = []
         for name, launches, err, t in (
                 ("gather_rows", pred_launches + serve_launches

@@ -68,6 +68,7 @@ from ..ops.batch import bucket
 from ..ops.kv import expand_ranges, find_position
 from ..parallel import fault
 from ..parallel.multihost import allreduce_np, global_kv_union, host_part
+from ..utils import devtrace
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
@@ -200,6 +201,10 @@ class BCDLearner(Learner):
             self.mesh = make_mesh(dp=self.param.mesh_dp, fs=1,
                                   device=self.device)
             self.dev = self.mesh.home
+        # the block programs (the JAX learner's jit sites), traced per
+        # creation site under DIFACTO_JAXTRACE; nf_cap keys by value
+        self._grad_gh = devtrace.traced(delta_grad, statics=(4,))
+        self._pred_add = devtrace.traced(delta_pred_update)
         return remain
 
     def _allreduce_np(self, buf: np.ndarray, sum_dtype=None) -> np.ndarray:
@@ -324,15 +329,15 @@ class BCDLearner(Learner):
         mesh each dp row shard's partial on its device, summed in dp
         order."""
         if self.mesh is None:
-            return delta_grad(tile["pred"], tile["labels"], tile["mask"], s,
-                              nf_cap)
+            return self._grad_gh(tile["pred"], tile["labels"], tile["mask"],
+                                 s, nf_cap)
         shards = s[1]
         m = tile["b_cap"] // len(shards)
         gh = None
         for d, part in enumerate(shards):
             dev = part.rows.device
             lo, hi = d * m, (d + 1) * m
-            g = delta_grad(tile["pred"][lo:hi].to(dev),
+            g = self._grad_gh(tile["pred"][lo:hi].to(dev),
                            tile["labels"][lo:hi].to(dev),
                            tile["mask"][lo:hi].to(dev), part,
                            nf_cap).to(self.dev)
@@ -355,7 +360,7 @@ class BCDLearner(Learner):
             if s is not None:
                 gh = gh + self._slice_grad(tile, s, nf_cap)
         # (g, h) leave the device in one copy
-        gh = gh.cpu().numpy()
+        gh = devtrace.fetch(gh, point="bcd.grad_gh").numpy()
         if self._num_hosts > 1:
             # every host's partials, float32 on the wire, summed in
             # float64: every host then applies the same update
@@ -381,11 +386,13 @@ class BCDLearner(Learner):
             s = self._tile_cache.fetch(t, f)
             if s is not None:
                 full = s if self.mesh is None else s[0]
-                tile["pred"] = delta_pred_update(tile["pred"], full, d_dev)
+                tile["pred"] = self._pred_add(tile["pred"], full, d_dev)
 
     def _progress(self) -> BCDProgress:
-        preds = torch.cat([t["pred"][:t["size"]]
-                           for t in self.tiles]).cpu().numpy()
+        # every tile's predictions in one copy, for the host metrics
+        preds = devtrace.fetch(torch.cat([t["pred"][:t["size"]]
+                                          for t in self.tiles]),
+                               point="bcd.progress").numpy()
         count = objv = auc = acc = 0.0
         o = 0
         for tile in self.tiles:

@@ -80,6 +80,7 @@ from ..ops.batch import DeviceBatch, bucket, pad_batch
 from ..ops.kv import expand_ranges, find_position
 from ..parallel import fault
 from ..parallel.multihost import allreduce_np, global_kv_union, host_part
+from ..utils import devtrace
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
@@ -198,12 +199,16 @@ class LBFGSLearner(Learner):
             out = q if out is None else out + q
         return out
 
+    # the pass's programs (the JAX learner's jit sites), traced per
+    # creation site under DIFACTO_JAXTRACE (the methods themselves off)
+    @devtrace.traced
     def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.mesh is None:
             return torch.dot(a, b)
         return self._vsum(torch.dot(x, y) for x, y in
                           zip(self._shards(a), self._shards(b)))
 
+    @devtrace.traced
     def _gram(self, basis: torch.Tensor) -> torch.Tensor:
         if self.mesh is None:
             return basis @ basis.T
@@ -337,7 +342,8 @@ class LBFGSLearner(Learner):
         lens = self.lens[ok].astype(np.int64)
         src_idx = expand_ranges(ck_off[pos[ok].astype(np.int64)], lens)
         dst_idx = expand_ranges(self.offsets[:-1][ok], lens)
-        w = self.weights.cpu().numpy().copy()
+        w = devtrace.fetch(self.weights,
+                           point="lbfgs.warm_start").numpy().copy()
         w[dst_idx] = ck_w[src_idx]
         self.weights = self._put_vec(w)
         return int(ok.sum())
@@ -375,6 +381,7 @@ class LBFGSLearner(Learner):
         V = weights[self._v_index(tile)] * tile.v_mask[:, None]
         return FMParams(w=w, V=V, v_mask=tile.v_mask)
 
+    @devtrace.traced
     def _tile_grad(self, weights, grad, tile: Tile):
         """(objv, auc) on this tile; the loss gradient added into
         ``grad`` in place (the module docstring's scatter)."""
@@ -392,10 +399,12 @@ class LBFGSLearner(Learner):
                             .reshape(-1))
         return torch.stack([objv, auc])
 
+    @devtrace.traced
     def _tile_pred_auc(self, weights, tile: Tile) -> torch.Tensor:
         pred = fm_predict(self._gather_params(weights, tile), tile.batch)
         return auc_times_n(tile.batch.labels, pred, tile.batch.row_mask)
 
+    @devtrace.traced
     def _finish_grad(self, grad: torch.Tensor) -> torch.Tensor:
         """The gamma transform (CalcGrad, lbfgs_learner.cc:283-286), and
         zeros past ``N`` so dots and axpys see none of the trash region."""
@@ -404,6 +413,7 @@ class LBFGSLearner(Learner):
             grad = torch.sign(grad) * torch.abs(grad) ** gamma
         return torch.where(self._real, grad, torch.zeros_like(grad))
 
+    @devtrace.traced
     def _reg_objv(self, weights) -> torch.Tensor:
         r = self.reg_c * weights * weights
         if self.mesh is None:
@@ -422,7 +432,8 @@ class LBFGSLearner(Learner):
         for tile in self._iter_tiles("train"):
             t0 = time.perf_counter()
             with trace.span("lbfgs.tile_grad"):
-                oa = self._tile_grad(weights, grad, tile).cpu().numpy()
+                oa = devtrace.fetch(self._tile_grad(weights, grad, tile),
+                                    point="lbfgs.tile_metrics").numpy()
                 objv += float(oa[0])
                 auc += float(oa[1])
             step_h.observe(time.perf_counter() - t0)
@@ -432,7 +443,8 @@ class LBFGSLearner(Learner):
             scal = allreduce_np(np.array([objv, auc], dtype=np.float64),
                                 self.monitor)
             objv, auc = float(scal[0]), float(scal[1])
-            g = allreduce_np(grad.cpu().numpy(), self.monitor,
+            g = allreduce_np(devtrace.fetch(grad, point="lbfgs.grad")
+                             .numpy(), self.monitor,
                              sum_dtype=np.float64)
             grad = self._put_vec(g.astype(np.float32))
         return objv, auc, self._finish_grad(grad)
@@ -447,7 +459,8 @@ class LBFGSLearner(Learner):
         if p.model_in:
             n = self._warm_start(p.model_in)
             log.info("warm start from %s: %d features matched", p.model_in, n)
-        r0 = float(self._reg_objv(self.weights))
+        r0 = float(devtrace.fetch(self._reg_objv(self.weights),
+                                  point="lbfgs.linesearch"))
         f0, auc, g_loss = self._calc_grad(self.weights)
         objv = r0 + f0
 
@@ -475,7 +488,8 @@ class LBFGSLearner(Learner):
             # kCalcDirection (lbfgs_updater.h:105-121): two-loop or -g
             if y_hist:
                 basis = torch.stack([*s_hist, *y_hist, grads])
-                B = self._gram(basis).cpu().numpy().astype(np.float64)
+                B = devtrace.fetch(self._gram(basis), point="lbfgs.gram"
+                                   ).numpy().astype(np.float64)
                 delta = torch.from_numpy(calc_delta(B).astype(np.float32))
                 direction = delta.to(self.dev) @ basis
             else:
@@ -484,7 +498,8 @@ class LBFGSLearner(Learner):
             if len(s_hist) == up.m:
                 s_hist.pop(0)
             s_hist.append(direction)
-            p_gf = float(self._dot(grads, direction))
+            p_gf = float(devtrace.fetch(self._dot(grads, direction),
+                                        point="lbfgs.linesearch"))
 
             # line search (lbfgs_learner.cc:46-71)
             log.info(" - start linesearch with objv = %g, <p,g> = %g",
@@ -499,11 +514,11 @@ class LBFGSLearner(Learner):
                 alpha = trial
                 f_new, auc, g_loss = self._calc_grad(self.weights)
                 # the Wolfe test's three scalars in one host copy
-                ls = torch.stack([
+                ls = devtrace.fetch(torch.stack([
                     self._reg_objv(self.weights),
                     self._dot(g_loss, direction),
                     self._dot(self.reg_c * self.weights, direction),
-                ]).cpu().numpy()
+                ]), point="lbfgs.linesearch").numpy()
                 new_objv = f_new + float(ls[0])
                 pg_new = float(ls[1]) + float(ls[2])
                 log.info(" - alpha = %g, objv = %g, <p,g> = %g",
@@ -519,7 +534,9 @@ class LBFGSLearner(Learner):
             # kEvaluate (lbfgs_learner.cc:72-84)
             val_auc = 0.0
             for tile in self._iter_tiles("val"):
-                val_auc += float(self._tile_pred_auc(self.weights, tile))
+                val_auc += float(devtrace.fetch(
+                    self._tile_pred_auc(self.weights, tile),
+                    point="lbfgs.val_auc"))
             if self._num_hosts > 1 and self.nval:
                 val_auc = float(allreduce_np(
                     np.array([val_auc], dtype=np.float64), self.monitor)[0])
@@ -527,7 +544,8 @@ class LBFGSLearner(Learner):
                 objv=new_objv,
                 auc=auc / max(self.ntrain, 1),
                 val_auc=val_auc / self.nval if self.nval else 0.0,
-                nnz_w=float(torch.count_nonzero(self.weights)))
+                nnz_w=float(devtrace.fetch(torch.count_nonzero(
+                    self.weights), point="lbfgs.nnz")))
             log.info("epoch %d: objv = %.9g, training AUC = %.9g, "
                      "validation AUC = %.9g, nnz(w) = %d", epoch,
                      prog.objv, prog.auc, prog.val_auc, int(prog.nnz_w))
@@ -562,7 +580,9 @@ class LBFGSLearner(Learner):
         and manifest."""
         p = self._ckpt_path(path)
         stream.save_npz(p, feaids=self.feaids, lens=self.lens,
-                        weights=self.weights[:self.N].cpu().numpy(),
+                        weights=devtrace.fetch(
+                            self.weights[:self.N],
+                            point="lbfgs.save").numpy(),
                         V_dim=np.array(self.k), learner=np.array("lbfgs"),
                         manifest={"learner": "lbfgs",
                                   "rows": int(len(self.feaids)),

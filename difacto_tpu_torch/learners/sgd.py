@@ -136,6 +136,7 @@ from ..store.slots import pad_slots_oob
 from ..tracker.workload_pool import WorkloadPool, WorkloadPoolParam
 from ..updaters.sgd_updater import (TRASH_SLOT, SGDUpdaterParam,
                                      gather_bytes)
+from ..utils import devtrace
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.progress import Progress, ReportProg
@@ -482,8 +483,14 @@ class SGDLearner(Learner):
             "slot-table row bytes gathered+scattered per dispatched "
             "device program").labels(path="train")
         self._last_producer_mode = "thread"
-        _, self._train_step, self._eval_step = make_step_fns(
+        # the step programs, traced per creation site under
+        # DIFACTO_JAXTRACE (utils/devtrace.py; the functions themselves
+        # with tracing off)
+        _, train_step, eval_step = make_step_fns(
             self.store.fns, self.loss, train_auc=p.train_auc)
+        self._train_step = devtrace.traced(train_step)
+        self._eval_step = devtrace.traced(eval_step)
+        self._apply_count = devtrace.traced(self.store.fns.apply_count)
         self._init_durability()
         return remain
 
@@ -765,10 +772,11 @@ class SGDLearner(Learner):
     def _run_epoch(self, epoch: int, job_type: int, prog: Progress) -> None:
         n_jobs = (self.param.num_jobs_per_epoch if job_type == K_TRAINING
                   else 1)
-        if self._spmd_schedule:
-            self._run_epoch_spmd(epoch, job_type, n_jobs, prog)
-        else:
-            self._iterate_parts(job_type, epoch, n_jobs, prog)
+        with trace.span("epoch", epoch=epoch, job=job_type):
+            if self._spmd_schedule:
+                self._run_epoch_spmd(epoch, job_type, n_jobs, prog)
+            else:
+                self._iterate_parts(job_type, epoch, n_jobs, prog)
 
     def _make_reader(self, job_type: int, epoch: int, g_idx: int,
                      g_num: int):
@@ -1051,7 +1059,9 @@ class SGDLearner(Learner):
 
         def dispatch_entry(entry) -> None:
             e_part, e_item, e_lease = entry
-            with trace.span("consumer.dispatch", part=e_part):
+            # step_num marks a profiler step under DIFACTO_TRACE_DEVICE
+            with trace.span("consumer.dispatch", part=e_part,
+                            step_num=e_part):
                 self._dispatch_item(job_type, e_item, push_cnt, pending,
                                     cache, e_part)
             if e_lease is not None:
@@ -1145,15 +1155,15 @@ class SGDLearner(Learner):
                 continue
             self._iterate_spmd(job_type, epoch, part, n_jobs, pending, cache)
             if self._row_due(job_type):
-                self._merge_pending(pending, prog)
+                self._merge_pending(pending, prog, point="sgd.spmd_metrics")
                 pending = []
                 self._report_part(job_type, before, prog)
                 before = Progress(nrows=prog.nrows, loss=prog.loss,
                                   auc=prog.auc)
             elif len(pending) >= self._MERGE_CAP:
-                self._merge_pending(pending, prog)
+                self._merge_pending(pending, prog, point="sgd.spmd_metrics")
                 pending = []
-        self._final_merge(job_type, pending, prog)
+        self._final_merge(job_type, pending, prog, point="sgd.spmd_metrics")
         if prog.nrows > before.nrows:
             self._report_part(job_type, before, prog)
         # the dictionary now holds every id of this job's data: later
@@ -1405,7 +1415,8 @@ class SGDLearner(Learner):
                 host_slots=payload.i32[off:off + payload.u_cap].copy())
 
         def to_dev(a):
-            return None if a is None else torch.from_numpy(a).to(dev)
+            return None if a is None \
+                else devtrace.to_device(a, dev, point="sgd.stage")
 
         route = None
         if self.mesh is not None and payload.layout in ("panel", "coo"):
@@ -1585,7 +1596,7 @@ class SGDLearner(Learner):
             slots = ShardedSlots(slots, st.route[1], st.route[0])
         if job_type == K_TRAINING:
             if counts is not None:
-                self.store.state = self.store.fns.apply_count(
+                self.store.state = self._apply_count(
                     self.store.state, slots, counts)
             self.store.state, objv, auc = self._train_step(
                 self.store.state, batch, slots)
@@ -1646,25 +1657,29 @@ class SGDLearner(Learner):
         log.info("device cache repadded to capacity %d", cap)
 
     def _final_merge(self, job_type: int, pending: list,
-                     prog: Progress) -> None:
+                     prog: Progress, point: str = "sgd.metrics") -> None:
         """The epoch-final metric fetch; a training epoch fetches the
         store's (penalty, nnz) in the same transfer."""
         extra = self.store.evaluate_dev() if job_type == K_TRAINING else ()
-        vals = self._merge_pending(pending, prog, extra=extra)
+        vals = self._merge_pending(pending, prog, extra=extra, point=point)
         if extra:
             self._eval_scalars = (vals[0], vals[1])
 
-    def _merge_pending(self, pending: list, prog: Progress,
-                       extra=()) -> list:
+    def _merge_pending(self, pending: list, prog: Progress, extra=(),
+                       point: str = "sgd.metrics") -> list:
         """Fetch the held metric scalars (and ``extra`` device scalars) in
-        ONE transfer and merge them; returns the extras' values."""
+        ONE transfer and merge them; returns the extras' values. The
+        fetch is the declared sync ``point`` (``sgd.spmd_metrics`` on
+        the synchronized schedule, as the JAX learner names its drain)."""
         extra = list(extra)
         if not pending and not extra:
             return []
         t0 = time.perf_counter()
-        vals = torch.stack([s.to(torch.float32) for _, o, a in pending
-                            for s in (o, a)]
-                           + [e.to(torch.float32) for e in extra]).cpu()
+        vals = devtrace.fetch(
+            torch.stack([s.to(torch.float32) for _, o, a in pending
+                         for s in (o, a)]
+                        + [e.to(torch.float32) for e in extra]),
+            point=point)
         vals = vals.tolist()
         self._stage_c["step"].inc(time.perf_counter() - t0)
         for i, (nrows, _, _) in enumerate(pending):

@@ -1,5 +1,5 @@
-"""Nestable host trace spans emitting Chrome trace-event JSON
-(counterpart of difacto_tpu/obs/trace.py, host spans only).
+"""Nestable trace spans emitting Chrome trace-event JSON (counterpart
+of difacto_tpu/obs/trace.py).
 
 ``with span("consumer.dispatch", part=3):`` records one complete ("X")
 event with microsecond timestamps, its span id, its parent span id and
@@ -14,9 +14,19 @@ producer span that built its batch.
 
 Tracing is off unless ``DIFACTO_TRACE=<path>`` is set or :func:`start`
 is called; an inactive span is one global read. The event buffer is
-bounded (200k events); overflow drops and counts new events. The JAX
-package's device annotations (``DIFACTO_TRACE_DEVICE``) are not ported:
-their counterpart here would be NVTX ranges.
+bounded (200k events); overflow drops and counts new events.
+
+Device time: with ``DIFACTO_TRACE_DEVICE=<logdir>`` the module also runs
+a ``torch.profiler`` session (CPU activity, and CUDA activity on a card)
+from its import to the process's exit, which exports a Chrome trace into
+``<logdir>`` (utils/profiling.py), and every span body runs inside
+``torch.profiler.record_function(name)`` and, on a card, an NVTX range of
+the same name (``torch.cuda.nvtx.range_push``/``range_pop``), so Perfetto
+and Nsight Systems show the kernels under the host spans' names. A span
+with a ``step_num`` arg also marks a profiler step
+(``ProfilerStep#<step_num>``, the counterpart of JAX's
+``StepTraceAnnotation``). Without the knob the module never creates a
+profiler.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import atexit
 import contextlib
 import itertools
 import json
+import logging
 import os
 import threading
 import time
@@ -39,6 +50,9 @@ _events: List[dict] = []
 _dropped = 0
 _active = False
 _path: Optional[str] = None
+_prof = None              # torch.profiler session once device tracing is on
+_prof_dir: Optional[str] = None
+_nvtx = False             # NVTX ranges beside the record_function ranges
 _trace_id = 0
 _span_ids = itertools.count(1)
 _tls = threading.local()  # per-thread span stack
@@ -84,6 +98,62 @@ def stop() -> None:
     _active = False
 
 
+def start_device(logdir: str) -> bool:
+    """Start a torch.profiler session that stop_device() exports into
+    ``logdir``, and annotate every span from here on
+    (``DIFACTO_TRACE_DEVICE``). Returns False when the profiler cannot
+    start; host spans go on without it."""
+    global _prof, _prof_dir, _nvtx
+    try:
+        import torch
+
+        from ..utils.profiling import start_profiler
+        cuda = torch.cuda.is_available()
+        prof = start_profiler(cuda)
+    except Exception as e:  # pragma: no cover - profiler/backend quirks
+        logging.getLogger(__name__).warning(
+            "device trace unavailable (%s); host spans continue", e)
+        return False
+    # lint: ok(data-race) write-once setup before any span thread
+    _prof_dir, _nvtx = logdir, cuda
+    # lint: ok(data-race) write-once setup before any span thread
+    _prof = prof
+    return True
+
+
+def stop_device() -> Optional[str]:
+    """Stop the device session and export its Chrome trace into the
+    logdir; returns the trace's path (None when no session ran)."""
+    global _prof
+    prof, _prof = _prof, None
+    if prof is None:
+        return None
+    try:
+        from ..utils.profiling import stop_profiler
+        return stop_profiler(prof, _prof_dir)
+    except Exception as e:  # pragma: no cover - teardown shield
+        logging.getLogger(__name__).warning(
+            "device trace stop failed: %s", e)
+        return None
+
+
+@contextlib.contextmanager
+def _annotated(name: str, args: dict) -> Iterator[None]:
+    """The span body inside a record_function range (under a
+    ``ProfilerStep#<step_num>`` range for a step span) and an NVTX range
+    of the span's name."""
+    import torch
+    with contextlib.ExitStack() as stack:
+        if "step_num" in args:
+            stack.enter_context(torch.profiler.record_function(
+                f"ProfilerStep#{args['step_num']}"))
+        stack.enter_context(torch.profiler.record_function(name))
+        if _nvtx:
+            torch.cuda.nvtx.range_push(name)
+            stack.callback(torch.cuda.nvtx.range_pop)
+        yield
+
+
 def current_span_id() -> int:
     """The innermost open span's id on this thread (0 outside any)."""
     stack = getattr(_tls, "stack", None)
@@ -126,7 +196,8 @@ def drain_events() -> List[dict]:
 @contextlib.contextmanager
 def span(name: str, **args) -> Iterator[int]:
     """Record a complete trace event around the body; keyword args (ints
-    and strings) go into the event's ``args``."""
+    and strings) go into the event's ``args``. Under device tracing the
+    body runs inside ranges of the span's name."""
     if not _active:
         yield 0
         return
@@ -136,9 +207,12 @@ def span(name: str, **args) -> Iterator[int]:
     sid = next(_span_ids)
     parent = stack[-1] if stack else 0
     stack.append(sid)
+    ann = _annotated(name, args) if _prof is not None \
+        else contextlib.nullcontext()
     t0 = _now_us()
     try:
-        yield sid
+        with ann:
+            yield sid
     finally:
         dur = _now_us() - t0
         stack.pop()
@@ -171,13 +245,21 @@ def save(path: Optional[str] = None) -> Optional[str]:
 
 def _maybe_start_from_env() -> None:
     path = os.environ.get("DIFACTO_TRACE", "")
-    if not path:
+    dev = os.environ.get("DIFACTO_TRACE_DEVICE", "")
+    if not path and not dev:
         return
     if os.environ.get("DIFACTO_OBS_CHILD"):
-        start()         # a producer worker: collect, the parent writes
+        # a producer worker: collect, the parent writes; the profiler is
+        # the parent's too (workers own no device)
+        start()
         return
-    start(path)
-    atexit.register(save)
+    start(path or None)
+    if path:
+        atexit.register(save)
+    if dev and start_device(dev):
+        # one profiler session per process, exported at exit into the
+        # logdir next to the span file
+        atexit.register(stop_device)
 
 
 _maybe_start_from_env()

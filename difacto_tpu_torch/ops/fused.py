@@ -18,7 +18,10 @@
   CPU table they run :func:`fm_update_rows_ref` / :func:`scatter_rows_ref`.
 
 There is no fallback between kernel and plain version: a CUDA table that
-a kernel cannot take raises.
+a kernel cannot take raises. The three ``*_cuda`` entry points go through
+``utils/devtrace.kernel`` (the counterpart of ``jaxtrace.pallas_call``):
+the same functions with tracing off, launch-counting wrappers per entry
+point with it on.
 - :func:`dedup_tokens` — the device-dedup step's sort and run-length
   dedup of a batch's raw hashed tokens (torch ops, as the JAX package's
   is jnp: it is not a kernel of its own).
@@ -40,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import devtrace
 from . import build
 
 # ------------------------------------------------------------------ dedup
@@ -228,6 +232,7 @@ def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
 
 
 gather_rows_cuda.launches = 0
+gather_rows_cuda = devtrace.kernel(gather_rows_cuda)
 
 
 # -------------------------------------------------------- scatter (push)
@@ -402,3 +407,5 @@ def fm_update_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
 
 scatter_rows_cuda.launches = 0
 fm_update_rows_cuda.launches = 0
+scatter_rows_cuda = devtrace.kernel(scatter_rows_cuda)
+fm_update_rows_cuda = devtrace.kernel(fm_update_rows_cuda)

@@ -25,6 +25,8 @@ from __future__ import annotations
 import time
 from typing import Optional, Sequence
 
+from ..utils import devtrace
+
 
 def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
                             base_capacity: int = 1 << 12,
@@ -38,7 +40,6 @@ def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
     step_ms} and the JAX report's scaling summary. Rungs past the logical
     device count are skipped (``skipped_fs``)."""
     import numpy as np
-    import torch
 
     from ..updaters.sgd_updater import state_bytes
     from ..utils.platform import logical_devices, resolve_device
@@ -52,9 +53,7 @@ def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
     rng = np.random.RandomState(0)
 
     def fence(t):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return float(t)
+        return float(devtrace.fetch(t, point="capacity.fence", fence=True))
 
     for fs in fs_values:
         if fs > n_dev:
@@ -125,6 +124,9 @@ def _synthetic_step(fs: int, base_capacity: int, V_dim: int, batch: int,
     if V_dim:
         store.state = set_all_live(param, store.state)
     _, train_step, _ = make_step_fns(store.fns, create_loss("fm", V_dim))
+    # the timed step, traced under DIFACTO_JAXTRACE (the JAX reports'
+    # pjit sites)
+    train_step = devtrace.traced(train_step)
     u_cap = min(cap // 2, max(64, batch * nnz_per_row // 4))
     uniq = np.sort(rng.permutation(cap - 1)[:u_cap] + 1)
     host = pad_slots_oob(uniq.astype(np.int32), u_cap, cap)
@@ -163,7 +165,6 @@ def bounded_delay_report(hosts_values: Sequence[int] = (1, 2, 4),
     ``auc_legs`` adds short real trainings through the windowed schedule
     at each τ (``auc_delta`` against τ=0)."""
     import numpy as np
-    import torch
 
     from ..data.prefetch import prefetch
     from ..utils.platform import logical_devices, resolve_device
@@ -176,9 +177,8 @@ def bounded_delay_report(hosts_values: Sequence[int] = (1, 2, 4),
         dev, np.random.RandomState(seed))
 
     def fence(objv):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return float(objv)
+        return float(devtrace.fetch(objv, point="capacity.fence",
+                                    fence=True))
 
     state, objv, _ = step(state, b, slots)      # warm
     fence(objv)

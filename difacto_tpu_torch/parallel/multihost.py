@@ -46,6 +46,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import collscan, devtrace
 from ..utils.locktrace import mutex
 
 log = logging.getLogger("difacto_tpu_torch")
@@ -206,7 +207,12 @@ def allgather_np(arr) -> np.ndarray:
     src = torch.from_numpy(a.reshape(-1).view(np.uint8).copy())
     out = torch.empty((process_count(), src.numel()), dtype=torch.uint8)
     dist.all_gather(list(out.unbind(0)), src)
-    return out.numpy().view(a.dtype).reshape((process_count(),) + a.shape)
+    if collscan.enabled():
+        collscan.record_collective("all_gather", a.shape, a.dtype, a.nbytes,
+                                   process_count(), skip_files=(__file__,))
+    # the gathered host bytes (gloo's all_gather returns once they land)
+    got = devtrace.fetch(out, point="multihost.allgather")
+    return got.numpy().view(a.dtype).reshape((process_count(),) + a.shape)
 
 
 def control_allgather_np(arr) -> np.ndarray:
@@ -229,12 +235,17 @@ def control_allgather_np(arr) -> np.ndarray:
     cl.seq += 1
     st.set(f"{key}/{cl.rank}", a.tobytes())
     cl.wrote(f"{key}/{cl.rank}")
+    scan = collscan.enabled()
+    if scan:
+        collscan.record_store("set", a.nbytes)
     out = np.empty((cl.n,) + a.shape, a.dtype)
     for r in range(cl.n):
         if r == cl.rank:
             out[r] = a
         else:
             b = st.get(f"{key}/{r}")
+            if scan:
+                collscan.record_store("get", len(b))
             out[r] = np.frombuffer(b, a.dtype).reshape(a.shape)
     return out
 
@@ -268,6 +279,8 @@ def post_clock(gen: int, t: int) -> None:
     key = f"clock/{restart_attempt()}/{gen}/{cl.rank}/{t}"
     cl.store().set(key, b"1")
     cl.wrote(key)
+    if collscan.enabled():
+        collscan.record_store("set", 1)
 
 
 def wait_clock(gen: int, peer: int, t: int) -> float:
@@ -279,6 +292,8 @@ def wait_clock(gen: int, peer: int, t: int) -> float:
     from .fault import restart_attempt
     t0 = time.monotonic()
     _cluster.store().wait([f"clock/{restart_attempt()}/{gen}/{peer}/{t}"])
+    if collscan.enabled():
+        collscan.record_store("wait")
     return time.monotonic() - t0
 
 
@@ -295,10 +310,16 @@ def control_cleanup() -> None:
     cl.bar += 1
     st.set(f"bar/{bar}/{cl.rank}", b"1")
     st.wait([f"bar/{bar}/{r}" for r in range(cl.n)])
-    for k in cl.take_written():
+    written = cl.take_written()
+    for k in written:
         st.delete_key(k)
     if bar > 0:
         st.delete_key(f"bar/{bar - 1}/{cl.rank}")
+    if collscan.enabled():
+        collscan.record_store("set", 1)
+        collscan.record_store("wait")
+        for _ in range(len(written) + (bar > 0)):
+            collscan.record_store("delete")
 
 
 def global_kv_union(ids: np.ndarray, cnts: np.ndarray):
@@ -335,6 +356,31 @@ def allreduce_np(buf, monitor=None, sum_dtype=None) -> np.ndarray:
     return g.sum(axis=0, dtype=sum_dtype)
 
 
+def to_local_numpy(arr) -> np.ndarray:
+    """A tensor on this process's device as a full host numpy array (the
+    JAX package's ``to_local_numpy``). Every process holds whole tensors
+    (the table's replica is whole on each rank's card), so this is the
+    host copy; a bfloat16 tensor comes back as float32, as the store's
+    host views are. A numpy array passes through."""
+    if isinstance(arr, np.ndarray):
+        return arr
+    import torch
+    t = arr.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return devtrace.fetch(t, point="multihost.to_local_numpy").numpy()
+
+
+def local_rows(arr, lo: int, hi: int) -> np.ndarray:
+    """Rows ``[lo, hi)`` of a tensor as host numpy (the JAX package's
+    ``local_rows``): a declared device-to-host copy, as callers slice
+    prediction rows out for the pred writer. Every process holds the
+    whole tensor, so the rows are always local."""
+    if isinstance(arr, np.ndarray):
+        return arr[lo:hi]
+    return devtrace.fetch(arr[lo:hi], point="multihost.local_rows").numpy()
+
+
 class _Rows:
     """The global batch's rows as the objective and the AUCs read them."""
 
@@ -368,9 +414,11 @@ class DataPlane:
         n = process_count()
         cuda = t.device.type == "cuda"
         if cuda:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            torch.cuda.current_stream(t.device).synchronize()
+            # the partials leave the card once the step's queued kernels
+            # have made them: a declared sync of every gather
+            host = devtrace.fetch(
+                t, point="multihost.plane_stage",
+                out=torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
         else:
             host = t.contiguous()
         out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
@@ -399,7 +447,14 @@ class DataPlane:
         """``fn(*args)`` under the dead-host watchdog. A peer that dies
         mid-collective makes gloo raise; with heartbeats on, that becomes
         :class:`~.fault.HostFailure` once the monitor declares the peer
-        dead (the watchdog may exit first, with the same code)."""
+        dead (the watchdog may exit first, with the same code). The
+        collective scan records it (its input is the last argument)."""
+        if collscan.enabled():
+            src = args[-1]
+            collscan.record_collective(
+                fn.__name__, src.shape, src.dtype,
+                src.numel() * src.element_size(), process_count(),
+                skip_files=(__file__,))
         mon = self.monitor
         if mon is None:
             fn(*args)

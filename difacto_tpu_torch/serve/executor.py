@@ -38,6 +38,7 @@ from ..losses import LossSpec, create as create_loss
 from ..ops.batch import max_row_nnz, pack_batch, unpack_batch
 from ..step import make_predict_fn
 from ..store.local import SlotStore, pad_slots_oob
+from ..utils import devtrace
 from ..utils.locktrace import mutex
 
 
@@ -58,7 +59,9 @@ class PredictExecutor:
         self.store = store
         self.loss = loss if loss is not None \
             else create_loss("fm", store.param.V_dim)
-        self._step = make_predict_fn(store.fns, self.loss)
+        # traced per creation site under DIFACTO_JAXTRACE (the function
+        # itself with tracing off)
+        self._step = devtrace.traced(make_predict_fn(store.fns, self.loss))
         self.shapes = ShapeSchedule()
         self._mu = mutex()
         self._buckets: dict = {}   # statics key -> dispatch count
@@ -116,11 +119,13 @@ class PredictExecutor:
                                store.state.capacity)
         i32, f32, _ = pack_batch(blk, 1, padded, b_cap, nnz_cap, u_cap)
         batch, slots_t, _ = unpack_batch(
-            torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
+            devtrace.to_device(i32, dev, point="serve.stage"),
+            devtrace.to_device(f32, dev, point="serve.stage"),
             b_cap, nnz_cap, u_cap, row_cap, binary=binary)
         pred, _, _ = self._step(store.state, batch, store.shard_slots(
             slots_t, padded, store.state.capacity))
-        pred.cpu()                 # the warm ends when its launch does
+        # the warm ends when its launch does
+        devtrace.fetch(pred, point="serve.warm")
         with self._mu:
             if key not in self._buckets:
                 self._buckets[key] = 0
@@ -192,11 +197,13 @@ class PredictExecutor:
             self._buckets[key] = self._buckets.get(key, 0) + 1
             self._dispatches += 1
         batch, slots_t, _ = unpack_batch(
-            torch.from_numpy(i32).to(dev), torch.from_numpy(f32).to(dev),
+            devtrace.to_device(i32, dev, point="serve.stage"),
+            devtrace.to_device(f32, dev, point="serve.stage"),
             b_cap, nnz_cap, u_cap, row_cap, binary=binary)
         pred, objv, auc = self._step(store.state, batch, store.shard_slots(
             slots_t, padded, store.state.capacity))
-        return pred[:blk.size].cpu().numpy(), objv, auc
+        return devtrace.fetch(pred[:blk.size],
+                              point="serve.scores").numpy(), objv, auc
 
     def predict_scores(self, blk: RowBlock) -> np.ndarray:
         """Scores only — the micro-batcher's entry."""
