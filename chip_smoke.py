@@ -8,7 +8,8 @@ phase 14, the capacity tier and the durable training state, phase 15,
 the serve lifecycle and the online loop, phase 16, the serving fleet,
 phase 17, the fault points and tracers, phase 18, the examples'
 (dp, fs) mesh, phase 19, multi-host training, phase 20, and the run-time
-tracers of steps, copies, syncs and collectives, phase 21) at the full
+tracers of steps, copies, syncs and collectives, phase 21, checked
+against the port's own static analyzer, phase 22) at the full
 width
 of examples/criteo_hashed.conf (FM, V_dim 16,
 4,194,304 hashed rows: a 2.0 GiB fp32 table on the card), also streamed through the producer
@@ -335,6 +336,15 @@ their plain PyTorch versions. Phases:
     collective, each rank's scanned collectives and bytes equal its data
     plane's counters, the bytes a train step and the peak above entry
     per program printed, ``collmap --check`` exits 0.
+22. the port's own analyzer (difacto_tpu_torch/analysis, stdlib ``ast``:
+    the card machine has no jax), after phase 21: (a) ``python -m
+    difacto_tpu_torch.analysis`` over ``difacto_tpu_torch/`` with no
+    baseline gives 0 findings, with the findings per rule (all
+    suppressed), each pass's seconds and the hot set's size printed; (b)
+    its lock graph equals ``utils/lockorder.json``; (c) ``devmap --check``
+    over phase 21's dumps of the serve dispatch, the train run and both
+    ranks, and ``collmap --check`` over both ranks' scans, each merged
+    with the static model (dynamic within static).
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -803,6 +813,8 @@ def phase_measure(store, windows) -> dict:
             (fused.gather_rows_cuda, vecs), (fused.gather_rows_ref, vecs),
             (library, prefixes)))
     for t, s in vecs[:4]:
+        # lint: ok(torch-shard-kernel) the kernel against its plain
+        # version, beside the main path: a check, not a dispatch
         if not torch.equal(fused.gather_rows_cuda(t, s).view(torch.uint8),
                            fused.gather_rows_ref(t, s).view(torch.uint8)):
             raise AssertionError("kernel != plain on a main-path vector")
@@ -829,6 +841,7 @@ def phase_measure(store, windows) -> dict:
             (library, kp)))
         for t, s in kv[:2]:
             if not torch.equal(
+                    # lint: ok(torch-shard-kernel) a check beside the path
                     fused.gather_rows_cuda(t, s).view(torch.uint8),
                     fused.gather_rows_ref(t, s).view(torch.uint8)):
                 raise AssertionError(f"kernel != plain on a {kind} table")
@@ -2963,7 +2976,8 @@ def loadgen(spec_path: str) -> None:
     def answered() -> None:
         """The first window came back: the ``sending`` file says so."""
         if not os.path.exists(spec["sending"]):
-            open(spec["sending"], "w").close()
+            with open(spec["sending"], "w"):
+                pass
 
     def client():
         return ServeClient(endpoints=eps, retries=20, eject_after=3,
@@ -2986,7 +3000,7 @@ def loadgen(spec_path: str) -> None:
                     bad[k] += sum(g.startswith(b"!") for g in got)
                     i += w * spec["conns"]
 
-        ts = [threading.Thread(target=closed, args=(k,))
+        ts = [threading.Thread(target=closed, args=(k,), daemon=True)
               for k in range(spec["conns"])]
         for t in ts:
             t.start()
@@ -3034,7 +3048,7 @@ def loadgen(spec_path: str) -> None:
                     n += 1
                 failovers[k] = c.failovers
 
-        ts = [threading.Thread(target=open_loop, args=(k,))
+        ts = [threading.Thread(target=open_loop, args=(k,), daemon=True)
               for k in range(K)]
         for t in ts:
             t.start()
@@ -3101,11 +3115,11 @@ def _start_loadgen(work: str, name: str, **spec):
         json.dump(spec, f)
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("DIFACTO_FAULTS", None)
-    proc = subprocess.Popen(
-        [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.loadgen({path!r})"],
-        cwd=root, env=env, stdout=subprocess.DEVNULL,
-        stderr=open(os.path.join(work, f"{name}.log"), "wb"))
+    with open(os.path.join(work, f"{name}.log"), "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.loadgen({path!r})"],
+            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
     return proc, spec["out"], spec["stop"]
 
 
@@ -3581,7 +3595,11 @@ def phase_online(work: str, conf: list, uparam, smi: str) -> dict:
                            REGISTRY.value("online_rows_behind")))
 
     res = {}
-    tt = threading.Thread(target=lambda: res.update(trained=tr.run()))
+
+    def train():
+        res.update(trained=tr.run())
+
+    tt = threading.Thread(target=train)
     mon = threading.Thread(target=monitor)
     g = None
     _reset_counts()
@@ -4003,7 +4021,7 @@ class _Fleet:
             raise AssertionError(f"{name}: {r['bad']} rows answered !")
         return r["rows"] / r["seconds"], cores
 
-    def open(self, name: str, ep: tuple, rate: float, **spec):
+    def open_gen(self, name: str, ep: tuple, rate: float, **spec):
         window = max(1, int(round(rate / OPEN_CONNS * OPEN_TICK_S)))
         g, o, s = _start_loadgen(self.work, name, mode="open",
                                  endpoints=[ep], rows=self.rows_file,
@@ -4068,7 +4086,7 @@ def fleet_rates_roll(f: _Fleet) -> tuple:
         f"{8 * LIFE_CONNS} {rate_r2:.0f} ({rate_r2 / rate_a:.2f}x; cores "
         f"{cores_r2}) [{f.smi}]")
     rate = 0.5 * rate_r2
-    g, o, s = f.open("roll", ep_r2, rate)
+    g, o, s = f.open_gen("roll", ep_r2, rate)
     while not os.path.exists(s[:-len(".stop")] + ".sending"):
         if g.poll() is not None:
             raise AssertionError("(s) the load generator exited early")
@@ -4272,7 +4290,7 @@ def fleet_autoscale(f: _Fleet, rep: tuple) -> None:
                         down_shed_rate=1.0)
     try:
         urate = FLEET_OVERLOAD * f.out["rate_a"]
-        g, o, s = f.open("scale", (rtr.host, rtr.port), urate,
+        g, o, s = f.open_gen("scale", (rtr.host, rtr.port), urate,
                          p99_file=p99_file)
         scaler.start()
         t_first = None
@@ -5311,6 +5329,8 @@ def rank_cli(spec_path: str) -> int:
                 print(f"rank 1: SIGKILL at data-plane gather {n[0]}",
                       flush=True)
                 with open(spec["out"] + "-killed", "w") as f:
+                    # lint: ok(wall-clock) the kill's timestamp, read by
+                    # the parent process
                     f.write(repr(time.time()))
                 os.kill(os.getpid(), signal.SIGKILL)
             return real_gather(self, t)
@@ -5321,12 +5341,12 @@ def rank_cli(spec_path: str) -> int:
         argv.append(f"mesh_dp={nprocs * spec['dp_per_rank']}")
     _reset_counts()
     tally, restore = _routed_runs()
-    t_start = time.time()
+    t_start = time.monotonic()
     try:
         rc = cli.main(argv)
     finally:
         restore()
-    wall = time.time() - t_start
+    wall = time.monotonic() - t_start
     launches = _counts()
     ln = seen["ln"]
     out = {"rank": rank, "nprocs": nprocs, "attempt": attempt, "rc": rc,
@@ -5349,6 +5369,8 @@ def rank_cli(spec_path: str) -> int:
             # phase 21 (d): the collective scan of this rank's run
             from difacto_tpu_torch.utils import collscan, devtrace
             collscan.dump(f"{spec['out']}-{rank}-scan.json")
+            # and its traced programs, copies and syncs, for phase 22
+            devtrace.dump(f"{spec['out']}-{rank}-trace.json")
             out["train_site"] = ln._train_step.site
             out["train_calls"] = devtrace.sites()[
                 ln._train_step.site]["calls"]
@@ -6108,6 +6130,104 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
     return out
 
 
+# ------------------------------------------------------------- phase 22
+def phase_analyzer(work: str, smi: str) -> dict:
+    """Phase 22: the port's own analyzer where the port runs (the card
+    machine has no jax). (a) ``python -m difacto_tpu_torch.analysis``
+    over ``difacto_tpu_torch/`` with no baseline: 0 findings; the
+    findings per rule (every one suppressed with its reason), each
+    pass's seconds and the hot set's size. (b) Its lock graph is the
+    committed ``utils/lockorder.json``. (c) ``devmap --check`` over phase
+    21's dumps of the serve dispatch and the train run (each beside its
+    warm-up dump) and of both ranks' runs, and ``collmap --check`` over
+    both ranks' scans, each merged with the static model: dynamic within
+    static (no unknown site, copy, collective, grown unbounded signature
+    or unknown hot-path sync)."""
+    import collections
+    import contextlib
+    import io
+
+    from difacto_tpu_torch.analysis import cli
+    from difacto_tpu_torch.tools import collmap, devmap
+    from difacto_tpu_torch.utils import collscan, devtrace
+    t22 = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    # (a)
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["difacto_tpu_torch", "--root", root, "--baseline",
+                       "none", "--format", "json"])
+    lint_s = time.monotonic() - t0
+    doc = json.loads(buf.getvalue())
+    if rc != 0 or doc["counts"]["active"]:
+        active = [f for f in doc["findings"] if not f["suppressed"]]
+        raise AssertionError(f"phase 22 (a): the analyzer exited {rc}: "
+                             f"{doc['counts']} {active[:5]}")
+    per_rule = collections.Counter(f["rule"] for f in doc["findings"])
+    tm, sm = devmap.models(root)
+    slow = sorted(doc["rule_seconds"].items(), key=lambda kv: -kv[1])
+    log(f"  (a) python -m difacto_tpu_torch.analysis over "
+        f"{doc['counts']['files']} files: rc 0, 0 active findings in "
+        f"{lint_s:.2f} s ({doc['lint_seconds']} s of passes); findings "
+        f"per rule, all suppressed with a reason: "
+        f"{dict(sorted(per_rule.items()))}; seconds per pass: "
+        f"{dict(slow)}; hot set "
+        f"{len(tm.hot_funcs)} functions from {len(tm.hot_roots)} roots; "
+        f"{len(tm.sites)} traced sites, {len(tm.fetch_sites)} fetch "
+        f"sites, {len(sm.collective_sites)} collective lines")
+    # (b)
+    with open(os.path.join(root, cli.LOCKORDER)) as f:
+        committed = json.load(f)
+    graph_b = cli.lock_graph(root)
+    if graph_b != committed:
+        raise AssertionError("phase 22 (b): the analyzer's lock graph is "
+                             "not utils/lockorder.json")
+    log(f"  (b) the lock graph ({len(graph_b['sites'])} locks, "
+        f"{len(graph_b['edges'])} edges, {len(graph_b['cycles'])} cycles) "
+        f"= utils/lockorder.json")
+    # (c)
+    verdicts: dict = {}
+    for name, dyn, warm in (
+            ("serve", "p21_traced-serve.json", "p21_traced-serve-warm.json"),
+            ("train", "p21_traced-train.json", "p21_traced-train-warm.json"),
+            ("rank 0", "mh_scan-0-trace.json", None),
+            ("rank 1", "mh_scan-1-trace.json", None)):
+        path = os.path.join(work, dyn)
+        args = ["--root", root, "--dynamic", path, "--check"]
+        if warm:
+            args += ["--warm", os.path.join(work, warm)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = devmap.main(args)
+        graph = devmap.build(root, devtrace.load(path), devtrace.load(
+            os.path.join(work, warm)) if warm else None)
+        if rc != 0:
+            raise AssertionError(f"phase 22 (c) {name}: devmap --check "
+                                 f"exited {rc}: {devmap.failures(graph)}")
+        for site, v in graph["sync_verdicts"].items():
+            verdicts[site] = v
+    for r in (0, 1):
+        path = os.path.join(work, f"mh_scan-{r}-scan.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = collmap.main(["--root", root, "--dynamic", path,
+                               "--check"])
+        graph = collmap.build(root, collscan.load(path))
+        if rc != 0:
+            raise AssertionError(
+                f"phase 22 (c) rank {r}: collmap --check exited {rc}: "
+                f"{graph['unknown_collectives']} {graph['table_hits']} "
+                f"{graph['unknown_sites']}")
+    log(f"  (c) devmap --check over the serve, train and two rank dumps "
+        f"and collmap --check over the two scans: 0 each; the observed "
+        f"undeclared syncs by the model's verdict: {verdicts}")
+    dt = time.monotonic() - t22
+    log(f"phase 22 ok in {dt:.1f} s: the port's analyzer on the card "
+        f"machine ({smi})")
+    return {"seconds": dt, "findings": dict(per_rule),
+            "rule_seconds": doc["rule_seconds"],
+            "hot": len(tm.hot_funcs), "verdicts": verdicts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
@@ -6208,6 +6328,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t21 = phase_tooling(work, conf, tr, batch, smi)
+        phase_analyzer(work, smi)
         if any(m in sys.modules for m in ("jax", "difacto_tpu",
                                           "ml_dtypes")):
             raise AssertionError("the smoke imported JAX, difacto_tpu or "

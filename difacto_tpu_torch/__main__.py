@@ -207,8 +207,11 @@ def run_pred(kwargs: KWArgs, device="cuda", store=None) -> KWArgs:
                 if writer is not None:
                     writer.write(scores, sub.label)
                 n_rows += sub.size
+                # lint: ok(torch-host-sync) the window's two metric
+                # scalars, summed on the host as the JAX CLI's loop does;
+                # the scores themselves left through serve.scores
                 objv += float(o)
-                auc += float(a)
+                auc += float(a)  # lint: ok(torch-host-sync) as above
     finally:
         if writer is not None:
             writer.close()

@@ -368,6 +368,9 @@ class ShmRing:
         with self._mu:
             if self._unlinked:
                 return
+            # lint: ok(data-race) the second root is native.get_lib,
+            # whose temp-file unlink() resolves to this method by name;
+            # only the ring's owner unlinks it
             self._unlinked = True
         _live_rings.pop(self.name, None)
         self.close()

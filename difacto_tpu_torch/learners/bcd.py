@@ -337,6 +337,8 @@ class BCDLearner(Learner):
         for d, part in enumerate(shards):
             dev = part.rows.device
             lo, hi = d * m, (d + 1) * m
+            # lint: ok(torch-recompile) d < mesh_dp and m = the tile's
+            # bucketed b_cap / mesh_dp: one row-shard shape per b_cap rung
             g = self._grad_gh(tile["pred"][lo:hi].to(dev),
                            tile["labels"][lo:hi].to(dev),
                            tile["mask"][lo:hi].to(dev), part,

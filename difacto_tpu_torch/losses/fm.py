@@ -34,10 +34,15 @@ float32 tolerance. Logistic loss is the V_dim=0 case (V=None).
 Under a mesh's ``dp`` axis (``dp > 1``) the backward's per-slot sums are
 the data-parallel part: the per-entry (COO), per-cell (panel) or
 per-chunk (chunked panel) contributions are computed as on one device,
-cut into ``dp`` equal blocks along that leading axis (the JAX package's
+cut into ``dp`` blocks along that leading axis (the JAX package's
 ``batch_sharding``, ``P('dp')``), each block reduced to per-lane partials
 and the partials summed in dp order (:func:`dp_reduce`: a fixed order, no
-atomics, so a run repeats bit for bit). The forward is
+atomics). The blocks are cut from the batch's real rows (its real chunks)
+by :func:`dp_blocks`, not at half the padded axis as in JAX: the sticky
+caps a batch is padded to depend on which batches the producers packed
+before it, so a cut at the cap moved between runs and a run did not
+repeat; a cut from the real count does not move, so a run repeats bit
+for bit. The forward is
 per row, so it runs once over the batch: its bits are each block's.
 Across processes (``plane``) each process computes its own blocks'
 partials and :func:`dp_reduce` sums every process's, gathered, in global
@@ -57,24 +62,43 @@ from ..ops.segment import (chunk_sum, lane_sum, row_sum, segment_sum, spmv,
 PRED_CLAMP = 20.0
 
 
+def dp_blocks(pos: torch.Tensor, real: torch.Tensor, dp: int
+              ) -> torch.Tensor:
+    """Each entry's dp block for :func:`dp_reduce`: ``pos`` is the entry's
+    row (a chunked panel's: its chunk) and ``real`` the batch's count of
+    real rows (chunks), a device scalar. The real positions are cut into
+    ``dp`` runs in order at boundaries set by ``real`` alone, so the cut
+    does not move with the caps the batch was padded to; positions past
+    ``real`` get block ``dp`` and drop out (their contributions are
+    zeros)."""
+    n = torch.clamp(real.to(torch.int64), min=1)
+    return torch.clamp(pos.to(torch.int64) * dp // n, max=dp)
+
+
 def dp_reduce(reduce, data: torch.Tensor, lanes: torch.Tensor, U: int,
-              dp: int = 1, plane=None) -> torch.Tensor:
+              dp: int = 1, plane=None,
+              blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``reduce(data, lanes, U)`` (ops/segment.lane_sum or chunk_sum) over
-    ``dp`` equal leading-axis blocks, the per-lane partials summed in dp
-    order. ``dp == 1`` is the plain reduction. Across processes
-    (``plane``, a parallel.multihost.DataPlane) ``dp`` is this process's
-    block count: its partials are gathered with every process's, and all
-    of them are summed in global dp order (host-major), the same order on
-    every rank, so every rank gets the same bits."""
+    ``dp`` blocks of the leading axis, the per-lane partials summed in dp
+    order. ``blocks`` gives each entry's block (:func:`dp_blocks`); by
+    default the blocks are equal runs of the leading axis. Each block's
+    pass drops the other blocks' entries by lane, so ``reduce`` must take
+    unsorted lanes when ``dp > 1``. ``dp == 1`` is the plain reduction.
+    Across processes (``plane``, a parallel.multihost.DataPlane) ``dp`` is
+    this process's block count: its partials are gathered with every
+    process's, and all of them are summed in global dp order
+    (host-major), the same order on every rank, so every rank gets the
+    same bits."""
     if dp == 1 and plane is None:
         return reduce(data, lanes, U)
-    n = data.shape[0]
-    if n % dp:
-        raise ValueError(f"leading axis {n} does not split over dp={dp} "
-                         "(size the caps with ops.batch.mesh_dim_min)")
-    m = n // dp
-    parts = [reduce(data[b * m:(b + 1) * m], lanes[b * m:(b + 1) * m], U)
-             for b in range(dp)]
+    if dp == 1:
+        parts = [reduce(data, lanes, U)]
+    else:
+        if blocks is None:
+            n = data.shape[0]
+            blocks = torch.arange(n, device=lanes.device) * dp // max(n, 1)
+        parts = [reduce(data, lanes.masked_fill(blocks != b, U), U)
+                 for b in range(dp)]
     if plane is not None:
         parts = plane.gather(torch.stack(parts)).flatten(0, 1).unbind(0)
     red = None
@@ -132,6 +156,12 @@ def _p_vector(pred: torch.Tensor, batch) -> torch.Tensor:
     return p * batch.rweight * batch.row_mask
 
 
+def _coo_blocks(batch: DeviceBatch, dp: int) -> Optional[torch.Tensor]:
+    """The nonzeros' dp blocks by their rows (pad entries sit in the last
+    real row with value 0)."""
+    return dp_blocks(batch.rows, batch.num_rows, dp) if dp > 1 else None
+
+
 def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
             xv: Optional[torch.Tensor] = None, dp: int = 1, plane=None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -147,7 +177,7 @@ def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
         if dp == 1 and plane is None:
             return spmv_t(vals, rows, cols, p, U), None
         return dp_reduce(lane_sum, (vals * p[rows])[:, None], cols, U,
-                         dp, plane)[:, 0], None
+                         dp, plane, _coo_blocks(batch, dp))[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm[:, None]
@@ -157,7 +187,8 @@ def fm_grad(params: FMParams, batch: DeviceBatch, pred: torch.Tensor,
     contrib = torch.cat([vals[:, None] * (p[:, None] * XV)[rows],
                          (vals * pr)[:, None], (vals ** 2 * pr)[:, None]],
                         dim=1)
-    red = dp_reduce(lane_sum, contrib, cols, U, dp, plane)
+    red = dp_reduce(lane_sum, contrib, cols, U, dp, plane,
+                    _coo_blocks(batch, dp))
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -227,6 +258,13 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
     float32 tolerance."""
     U = params.w.shape[0]
     cv = pb.chunk_vals
+    blocks = None
+    if dp > 1:
+        # the real chunks lead, the pad chunks (lane U) trail
+        C = pb.chunk_lane.shape[0]
+        blocks = dp_blocks(torch.arange(C, device=pb.chunk_lane.device),
+                           (pb.chunk_lane < U).sum(), dp)
+        sorted_chunks = False
 
     def csum(partial, lanes, n):
         return chunk_sum(partial, lanes, n, sorted_chunks)
@@ -236,7 +274,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
         if cv is not None:
             toks = toks * cv
         gw = dp_reduce(csum, torch.sum(toks, dim=1)[:, None],
-                       pb.chunk_lane, U, dp, plane)[:, 0]
+                       pb.chunk_lane, U, dp, plane, blocks)[:, 0]
         return gw, None
     k = params.V.shape[1]
     vm = _vmask(params)
@@ -245,7 +283,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
     toks = _chunk_tokens(rowq, pb.chunk_idx)                   # [C, L, k+1]
     if cv is None:
         red = dp_reduce(csum, torch.sum(toks, dim=1), pb.chunk_lane, U, dp,
-                        plane)
+                        plane, blocks)
         t1, gw = red[:, :k], red[:, k]
         xxp = gw
     else:
@@ -253,7 +291,7 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
         partial = torch.cat([torch.sum(toks * v, dim=1),
                              torch.sum(toks[:, :, k:] * (v * v), dim=1)],
                             dim=1)                             # [C, k+2]
-        red = dp_reduce(csum, partial, pb.chunk_lane, U, dp, plane)
+        red = dp_reduce(csum, partial, pb.chunk_lane, U, dp, plane, blocks)
         t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
@@ -277,12 +315,16 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
         return _fm_grad_panel_chunked(params, pb, p, xv, sorted_chunks, dp,
                                       plane)
     flat_idx = pb.idx.reshape(B * F)
+    blocks = None
+    if dp > 1:
+        cell_row = torch.arange(B * F, device=flat_idx.device) // F
+        blocks = dp_blocks(cell_row, pb.num_rows, dp)
     if params.V is None or params.V.shape[1] == 0:
         cell = p[:, None].expand(B, F)
         if pb.vals is not None:
             cell = cell * pb.vals
         return dp_reduce(lane_sum, cell.reshape(B * F, 1), flat_idx, U,
-                         dp, plane)[:, 0], None
+                         dp, plane, blocks)[:, 0], None
     k = params.V.shape[1]
     vm = _vmask(params)
     Vm = params.V * vm.to(params.V.dtype)[:, None]
@@ -300,7 +342,7 @@ def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,
                                       dim=2)
     contrib = contrib.to(params.V.dtype).to(torch.float32)
     red = dp_reduce(lane_sum, contrib.reshape(B * F, k + 2), flat_idx, U,
-                    dp, plane)
+                    dp, plane, blocks)
     t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV

@@ -164,6 +164,7 @@ class ServeClient:
         stamp = self.blacklist.stamp()
         if stamp == self._bl_stamp:
             return
+        # lint: ok(data-race) single-owner instance (see _failover)
         self._bl_stamp = stamp
         self._absorb_blacklist()
 
@@ -229,9 +230,10 @@ class ServeClient:
         j = healthy[0] if healthy else \
             min(cands, key=lambda k: self._eps[k].down_until)
         if j != i:
-            # a ServeClient instance is owned by ONE thread
+            # lint: ok(data-race) a ServeClient instance is owned by ONE
+            # thread; the roots are distinct instances (counter likewise)
             self.failovers += 1
-        self._cur = j
+        self._cur = j  # lint: ok(data-race) single-owner instance
         a = attempts.get(j, 0)
         if a > 0:
             self._backoff(a - 1, deadline)
@@ -242,12 +244,14 @@ class ServeClient:
                 self._rfile.close()
             except OSError:
                 pass
+            # lint: ok(data-race) single-owner instance (see _failover)
             self._rfile = None
         if self._sock is not None:
             try:
                 self._sock.close()
             except OSError:
                 pass
+            # lint: ok(data-race) single-owner instance (see _failover)
             self._sock = None
 
     def _ensure_conn(self, deadline: Optional[float],

@@ -54,6 +54,8 @@ def state_to_numpy(param: SGDUpdaterParam, state: SGDState,
         else:
             k, h, _, _ = row_layout(param, state.capacity)
             cols["V"], cols["Vg"] = state.VVg[:, :k], state.VVg[:, h:h + k]
+    # lint: ok(torch-host-sync) the table's columns leave once per save
+    # or shard report (a run's end), never per step
     out = {f: cols[f].cpu() for f in keys}
     for f in ("V", "Vg"):
         if f in out:

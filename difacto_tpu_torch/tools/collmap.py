@@ -1,8 +1,11 @@
 """Merged static + dynamic map of the port's collectives and memory
 peaks (counterpart of the root ``tools/hlomap.py``).
 
-The static half is the inventory of traced programs
-(:func:`~difacto_tpu_torch.tools.devmap.inventory`). The dynamic half
+The static half is the port analyzer's sharding-flow model
+(``difacto_tpu_torch/analysis/shardflow.py``): the traced programs, and
+every line from which a collective can be issued outside one (a call that
+reaches a ``torch.distributed`` collective or the data plane). The
+dynamic half
 is a utils/collscan.py dump (``DIFACTO_HLOSCAN=1`` with
 ``DIFACTO_HLOSCAN_OUT=<path>``, or ``collscan.dump``): per program, the
 ``torch.distributed`` collectives it issued (kind, shape, dtype, bytes,
@@ -14,13 +17,16 @@ from them the control plane's store traffic. Merging answers:
   ``table_hits``)?
 - did any program's peak exceed ``DIFACTO_HLOSCAN_BUDGET``
   (``budget_hits``)?
-- did a traced program run at a site the inventory does not know
+- did a traced program run at a site the model does not know
   (``unknown_sites``)?
+- was a collective recorded at a site the model does not know: a traced
+  program outside the model, or a host line the model does not see
+  reaching a collective (``unknown_collectives``)?
 
     python -m difacto_tpu_torch.tools.collmap --dynamic scan.json
         [--json collmap.json] [--check]
 
-``--check`` exits 1 on any of the three; the default is informational.
+``--check`` exits 1 on any of the four; the default is informational.
 """
 
 from __future__ import annotations
@@ -31,17 +37,21 @@ import sys
 from pathlib import Path
 
 from ..utils import collscan
-from .devmap import inventory
+from .devmap import inventory, models
 
 
 def build(root=".", dynamic=None) -> dict:
     """{'sites', 'programs', 'store', 'table_hits', 'budget_hits',
-    'unknown_sites'}: the inventory merged with a collscan.load dict."""
+    'unknown_sites', 'unknown_collectives'}: the model merged with a
+    collscan.load dict."""
     inv = inventory(root)
+    _, shard = models(root)
     out = {"sites": {s: r for s, r in inv["sites"].items()
                      if r["kind"] == "program"},
+           "collective_sites": sorted(shard.collective_sites),
            "programs": {}, "store": {}, "table_hits": [],
-           "budget_hits": [], "unknown_sites": []}
+           "budget_hits": [], "unknown_sites": [],
+           "unknown_collectives": []}
     if not dynamic:
         return out
     progs = dynamic["programs"]
@@ -56,6 +66,9 @@ def build(root=".", dynamic=None) -> dict:
         # (traced false) and is not a program of the inventory
         if rec.get("traced") and site not in out["sites"]:
             out["unknown_sites"].append(site)
+        if rec.get("collectives") and not shard.knows_collective_at(
+                site, bool(rec.get("traced"))):
+            out["unknown_collectives"].append(site)
     return out
 
 
@@ -80,8 +93,9 @@ def to_text(graph: dict) -> str:
         for v in graph[key]:
             lines.append(f"{key.upper().replace('_', '-')}: "
                          f"{v['site']}  {v['detail']}")
-    for site in graph["unknown_sites"]:
-        lines.append(f"UNKNOWN-SITES: {site}")
+    for key in ("unknown_sites", "unknown_collectives"):
+        for site in graph[key]:
+            lines.append(f"{key.upper().replace('_', '-')}: {site}")
     return "\n".join(lines)
 
 
@@ -95,7 +109,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, help="write JSON here")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 on a table-axis collective, a budget "
-                         "breach or a program outside the inventory")
+                         "breach, or a program or a collective outside "
+                         "the model")
     args = ap.parse_args(argv)
     dynamic = collscan.load(args.dynamic) if args.dynamic else None
     graph = build(args.root, dynamic)
@@ -106,9 +121,11 @@ def main(argv=None) -> int:
         print(f"collmap: wrote {args.json}")
     print(to_text(graph))
     if args.check and (graph["table_hits"] or graph["budget_hits"]
-                       or graph["unknown_sites"]):
+                       or graph["unknown_sites"]
+                       or graph["unknown_collectives"]):
         print("collmap: CHECK FAILED: table-axis collective, budget "
-              "breach, or program outside the inventory", file=sys.stderr)
+              "breach, or a program or collective outside the model",
+              file=sys.stderr)
         return 1
     return 0
 

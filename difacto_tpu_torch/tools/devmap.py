@@ -2,23 +2,28 @@
 declared copies and CUDA syncs (counterpart of the root
 ``tools/jitmap.py``).
 
-The static half is an AST inventory of ``difacto_tpu_torch/``: every
-``devtrace.traced`` creation site (a call, or an ``@devtrace.traced``
-method), every ``devtrace.kernel`` site, and every ``devtrace.fetch`` /
-``devtrace.to_device`` call site with its ``point=`` name. The dynamic
-half is a utils/devtrace.py dump (``DIFACTO_JAXTRACE=1`` with
+The static half is the port analyzer's traced-program model
+(``difacto_tpu_torch/analysis/torchflow.py``): every ``devtrace.traced``
+creation site (a call, or an ``@devtrace.traced`` method) with its call
+sites and whether every static and shape reaching it is bounded, every
+``devtrace.kernel`` site, every ``devtrace.fetch`` / ``devtrace.to_device``
+call site with its ``point=`` name, and the hot set. The dynamic half is
+a utils/devtrace.py dump (``DIFACTO_JAXTRACE=1`` with
 ``DIFACTO_JAXTRACE_OUT=<path>``, or ``devtrace.dump``). Both key sites by
 the same ``relpath:lineno``, so merging answers which programs a run
 exercised with how many signatures, whether a site or a copy happened
-outside the inventory, and where the run synced undeclared.
+outside the model, and where the run synced undeclared.
 
     python -m difacto_tpu_torch.tools.devmap [--dynamic dump.json]
         [--warm warm.json] [--json devmap.json] [--check]
 
-``--check`` exits 1 on a dynamic site unknown to the inventory, a copy
-at a site or under a point the inventory does not declare, a signature
-first seen after the ``--warm`` dump, or an undeclared sync under a
-serve dispatch; the default is informational (exit 0).
+``--check`` exits 1 on a dynamic site unknown to the model, a copy at a
+site or under a point the model does not declare, a signature first seen
+after the ``--warm`` dump, a site whose signatures grew (more than one)
+though the model could not prove its inputs bounded, an undeclared sync
+under a serve dispatch, or an undeclared sync at a hot-set line the
+model neither flags nor suppresses (``torch-host-sync``); the default is
+informational (exit 0).
 """
 
 from __future__ import annotations
@@ -28,95 +33,54 @@ import ast
 import json
 import sys
 from pathlib import Path
-from typing import Optional
 
 from ..utils import devtrace
 
 PORT = "difacto_tpu_torch"
-_KINDS = {"traced": "program", "kernel": "kernel", "fetch": "fetch",
-          "to_device": "put"}
+_MODELS: dict = {}
 
 
-def _devtrace_name(node) -> Optional[str]:
-    """``traced``/``kernel``/``fetch``/``to_device`` when ``node`` is
-    ``devtrace.<that name>``, the one spelling the port uses."""
-    if isinstance(node, ast.Attribute) and node.attr in _KINDS \
-            and isinstance(node.value, ast.Name) \
-            and node.value.id == "devtrace":
-        return node.attr
-    return None
+def models(root="."):
+    """(torchflow model, shardflow model) of the port under ``root``,
+    built once per process for an unchanged tree."""
+    from ..analysis import core
+    from ..analysis.shardflow import get_shard_model
+    from ..analysis.torchflow import get_torch_model
+    root = Path(root).resolve()
+    files = sorted((root / PORT).rglob("*.py"))
+    stamp = tuple((str(p), p.stat().st_mtime_ns) for p in files)
+    got = _MODELS.get(root)
+    if got is None or got[0] != stamp:
+        project = core.Project(root, [PORT])
+        got = _MODELS[root] = (stamp, get_torch_model(project),
+                               get_shard_model(project))
+    return got[1], got[2]
+
+
+def _label(site) -> str:
+    """What a site wraps, as written: its argument, or the decorated
+    function's name."""
+    if isinstance(site.node, ast.Call) and site.node.args:
+        return ast.unparse(site.node.args[0])
+    return site.target_name
 
 
 def inventory(root=".") -> dict:
-    """{'sites': {site: {kind, label}}, 'fetch_sites': {site: point},
-    'put_sites': {site: point}, 'points': sorted point names} over the
-    port's source, sites keyed ``relpath:lineno``. A copy whose point is
-    passed in a variable declares the point literals its module passes
-    as ``point=`` or gives a ``point`` parameter as its default (a
-    list)."""
-    root = Path(root).resolve()
-    sites, fetch_sites, put_sites = {}, {}, {}
-    for path in sorted((root / PORT).rglob("*.py")):
-        rel = path.relative_to(root).as_posix()
-        if rel == f"{PORT}/utils/devtrace.py":
-            continue
-        tree = ast.parse(path.read_text(encoding="utf-8"), filename=rel)
-        literals = _point_literals(tree)
-        for node in ast.walk(tree):
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
-                for dec in node.decorator_list:
-                    if _devtrace_name(dec) == "traced":
-                        sites[f"{rel}:{dec.lineno}"] = {
-                            "kind": "program", "label": node.name}
-                continue
-            if not isinstance(node, ast.Call):
-                continue
-            name = _devtrace_name(node.func)
-            if name is None:
-                continue
-            site = f"{rel}:{node.lineno}"
-            if name in ("fetch", "to_device"):
-                point = ""
-                for kw in node.keywords:
-                    if kw.arg == "point" and isinstance(kw.value,
-                                                        ast.Constant):
-                        point = kw.value.value
-                    elif kw.arg == "point":
-                        point = literals
-                (fetch_sites if name == "fetch" else put_sites)[site] = point
-            else:
-                label = ast.unparse(node.args[0]) if node.args else ""
-                sites[site] = {"kind": _KINDS[name], "label": label}
-    points = set()
-    for v in list(fetch_sites.values()) + list(put_sites.values()):
-        points.update([v] if isinstance(v, str) else v)
-    points = sorted(points)
-    return {"sites": sites, "fetch_sites": fetch_sites,
-            "put_sites": put_sites, "points": points}
-
-
-def _point_literals(tree) -> list:
-    """The point names a module hands on: ``point="..."`` keywords of
-    its calls to its own functions and the defaults of parameters named
-    ``point``."""
-    out = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Call) and not _devtrace_name(node.func):
-            for kw in node.keywords:
-                if kw.arg == "point" and isinstance(kw.value, ast.Constant):
-                    out.add(kw.value.value)
-        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            a = node.args
-            named = a.posonlyargs + a.args
-            for arg, d in zip(named[len(named) - len(a.defaults):],
-                              a.defaults):
-                if arg.arg == "point" and isinstance(d, ast.Constant):
-                    out.add(d.value)
-            for arg, d in zip(a.kwonlyargs, a.kw_defaults):
-                if arg.arg == "point" and isinstance(d, ast.Constant):
-                    out.add(d.value)
-    out.discard("")
-    return sorted(out)
+    """{'sites': {site: {kind, label, warm_bounded}}, 'fetch_sites':
+    {site: point}, 'put_sites': {site: point}, 'points': sorted point
+    names, 'hot_funcs': n} of the port's model, sites keyed
+    ``relpath:lineno``. A copy whose point is passed in a variable
+    declares the point literals its module passes as ``point=`` or gives
+    a ``point`` parameter as its default (a list)."""
+    tm, _ = models(root)
+    warm = tm.known_warm()
+    sites = {sid: {"kind": s.kind, "label": _label(s),
+                   "warm_bounded": sid in warm}
+             for sid, s in sorted(tm.sites.items())}
+    points = sorted(tm.points() | tm.points(puts=True))
+    return {"sites": sites, "fetch_sites": dict(tm.fetch_sites),
+            "put_sites": dict(tm.put_sites), "points": points,
+            "hot_funcs": len(tm.hot_funcs)}
 
 
 def _declared_point(static_point, point: str) -> bool:
@@ -131,7 +95,8 @@ def build(root=".", dynamic=None, warm=None) -> dict:
     inv = inventory(root)
     out = dict(inv, dynamic_sites={}, dynamic_fetches={}, dynamic_puts={},
                syncs={}, declared_syncs=0, unknown_sites=[],
-               unknown_fetches=[], new_signatures=[], serve_syncs=[])
+               unknown_fetches=[], new_signatures=[], serve_syncs=[],
+               unbounded_growth=[], sync_verdicts={}, unknown_syncs=[])
     if not dynamic:
         return out
     out.update(dynamic_sites=dynamic["sites"],
@@ -155,11 +120,26 @@ def build(root=".", dynamic=None, warm=None) -> dict:
             if new:
                 out["new_signatures"].append(
                     f"{site}: {len(new)} signature(s) after the warm-up")
+    for site, rec in sorted(dynamic["sites"].items()):
+        static = inv["sites"].get(site)
+        if static is not None and rec.get("compiles", 0) > 1 \
+                and not static["warm_bounded"]:
+            out["unbounded_growth"].append(
+                f"{site}: {rec['compiles']} signatures at a site whose "
+                "inputs the model cannot prove bounded")
+    tm, _ = models(root)
     for site, rec in sorted(out["syncs"].items()):
         if rec.get("serve", 0):
             out["serve_syncs"].append(
                 f"{site}: {rec['serve']} undeclared sync(s) under a serve "
                 "dispatch")
+        verdict = tm.sync_verdict(site) if site.startswith(PORT) \
+            else "cold"
+        out["sync_verdicts"][site] = verdict
+        if verdict == "unknown":
+            out["unknown_syncs"].append(
+                f"{site}: {rec['count']} undeclared sync(s) on the hot "
+                "path that the model neither flags nor suppresses")
     return out
 
 
@@ -196,7 +176,7 @@ def to_text(graph: dict) -> str:
                          f"{rec.get('serve', 0)}, in a program "
                          f"{rec.get('in_program', 0)})")
     for key in ("unknown_sites", "unknown_fetches", "new_signatures",
-                "serve_syncs"):
+                "serve_syncs", "unbounded_growth", "unknown_syncs"):
         for item in graph[key]:
             lines.append(f"{key.upper().replace('_', '-')}: {item}")
     return "\n".join(lines)
@@ -204,7 +184,8 @@ def to_text(graph: dict) -> str:
 
 def failures(graph: dict) -> list:
     return (graph["unknown_sites"] + graph["unknown_fetches"]
-            + graph["new_signatures"] + graph["serve_syncs"])
+            + graph["new_signatures"] + graph["serve_syncs"]
+            + graph["unbounded_growth"] + graph["unknown_syncs"])
 
 
 def main(argv=None) -> int:
@@ -220,8 +201,10 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None, help="write JSON here")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 on an unknown site, an undeclared copy, a "
-                         "signature new after the warm-up or an undeclared "
-                         "sync under a serve dispatch")
+                         "signature new after the warm-up, a grown site "
+                         "the model cannot bound, an undeclared sync under "
+                         "a serve dispatch or one on the hot path the "
+                         "model does not know")
     args = ap.parse_args(argv)
     dynamic = devtrace.load(args.dynamic) if args.dynamic else None
     warm = devtrace.load(args.warm) if args.warm else None
@@ -234,7 +217,7 @@ def main(argv=None) -> int:
     print(to_text(graph))
     if args.check and failures(graph):
         print("devmap: CHECK FAILED: a site, copy, signature or sync "
-              "outside the declared model", file=sys.stderr)
+              "outside the static model", file=sys.stderr)
         return 1
     return 0
 

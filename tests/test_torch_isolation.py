@@ -26,6 +26,7 @@
 ``ml_dtypes`` is poisoned beside jax: the card machine need not have it.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -779,3 +780,61 @@ def test_multihost_runs_with_jax_poisoned(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert (tmp_path / "m_part-0").exists()
     assert (tmp_path / "m_part-1").exists()
+
+
+def test_analyzer_and_its_cli_run_with_jax_poisoned(tmp_path):
+    """The port's analyzer (difacto_tpu_torch/analysis) and its CLI run
+    where jax, the JAX package and ml_dtypes cannot be imported, and the
+    analyzer itself imports no torch either (stdlib ``ast`` only): the
+    card machine runs it in chip_smoke.py's phase 22. Over the port it
+    reports 0 findings in every output format, writes the committed lock
+    graph, and devmap's and collmap's static halves build from it."""
+    code = textwrap.dedent(f"""
+        import contextlib, io, json, runpy, sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        root = {_ROOT!r}
+        rcs = {{}}
+        for fmt in ("text", "json", "sarif", "github"):
+            sys.argv = ["difacto-lint", "difacto_tpu_torch", "--root",
+                        root, "--baseline", "none", "--format", fmt]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    runpy.run_module("difacto_tpu_torch.analysis",
+                                     run_name="__main__")
+                except SystemExit as e:
+                    rcs[fmt] = e.code
+            if fmt == "json":
+                counts = json.loads(buf.getvalue())["counts"]
+        assert "torch" not in sys.modules, "the analyzer imported torch"
+        from difacto_tpu_torch.analysis.cli import lock_graph
+        with open(root + "/difacto_tpu_torch/utils/lockorder.json") as f:
+            assert json.load(f) == lock_graph(root)
+        from difacto_tpu_torch.tools import collmap, devmap
+        inv = devmap.inventory(root)
+        graph = collmap.build(root, None)
+        bad = [m for m in sys.modules if m.split(".")[0]
+               in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
+        assert not bad, bad
+        print(json.dumps({{"rcs": rcs, "counts": counts,
+                          "sites": len(inv["sites"]),
+                          "collective_sites": len(
+                              graph["collective_sites"])}}))
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["rcs"] == {"text": 0, "json": 0, "sarif": 0, "github": 0}
+    assert got["counts"]["active"] == 0 and got["counts"]["files"] >= 100
+    assert got["sites"] >= 16 and got["collective_sites"] > 0

@@ -5,9 +5,11 @@ tracing (utils/locktrace.py, utils/shared.py) against its static model.
   reports 0 findings, and the port's static lock-order graph is
   cycle-free.
 - ``difacto_tpu_torch/utils/lockorder.json`` is that static model as the
-  card machine reads it (it has no jax, so ``chip_smoke.py`` cannot run
-  the analyzer): it must equal the analyzer's output. Rewrite it with
-  ``PYTHONPATH=. python tests/test_torch_lint.py`` after moving a lock.
+  card machine reads it: it must equal the JAX analyzer's output and the
+  port's own analyzer's (``difacto_tpu_torch/analysis``, which writes
+  it). Rewrite it with ``python -m difacto_tpu_torch.analysis
+  --write-lockorder`` after moving a lock (``PYTHONPATH=. python
+  tests/test_torch_lint.py`` runs the same).
 - The port's locktrace records, dumps, loads and stays raw when disabled,
   and its race tracer runs Eraser's state machine (counterparts of
   tests/test_lint.py's tracer tests); both dump at exit; the batcher
@@ -96,7 +98,18 @@ def test_static_lock_graph_is_cycle_free_and_committed(model):
     committed = json.loads(LOCKORDER.read_text())
     assert committed == model, \
         "lockorder.json is stale: rewrite it with " \
-        "`PYTHONPATH=. python tests/test_torch_lint.py`"
+        "`python -m difacto_tpu_torch.analysis --write-lockorder`"
+
+
+def test_port_analyzer_writes_the_committed_lock_graph(model):
+    """The port's own analyzer produces the committed graph, and it is
+    the JAX analyzer's."""
+    from difacto_tpu_torch.analysis.cli import lock_graph
+    port = lock_graph(REPO_ROOT)
+    assert port == model
+    assert json.loads(LOCKORDER.read_text()) == port, \
+        "lockorder.json is stale: rewrite it with " \
+        "`python -m difacto_tpu_torch.analysis --write-lockorder`"
 
 
 def test_every_port_lock_comes_from_the_factories():
@@ -414,5 +427,5 @@ def test_traced_epoch_and_served_window(model, tmp_path):
 
 
 if __name__ == "__main__":
-    LOCKORDER.write_text(json.dumps(static_model(), indent=1) + "\n")
-    print(f"wrote {LOCKORDER.relative_to(REPO_ROOT)}")
+    from difacto_tpu_torch.analysis.cli import main
+    sys.exit(main(["--write-lockorder", "--root", str(REPO_ROOT)]))
