@@ -22,10 +22,16 @@ their plain PyTorch versions. Phases:
 
 1. the card's name and power limit; build the kernels with nvcc, one
    thread (and one nvcc) per source, all started together, and the
-   native parsers with g++ beside them;
+   native parsers with g++ beside them; with them each ``--parent``
+   tree's ``gather_rows.cu`` and ``scatter_epilogue.cu``;
 2. the gather kernel against ``gather_rows_ref`` on the card, byte for
    byte: full-width fp32, bf16 and int8 containers, u_cap 8 / 12288 /
-   49152 with out-of-bounds pad lanes, and an all-OOB slot vector;
+   49152 with out-of-bounds pad lanes, and an all-OOB slot vector; then,
+   in each container, rows of 16, 48, 128, 256, 512 and 1,040 bytes (1,
+   3, 8, 16, 32 and 65 vectors) at the edges of the kernel's tiles and
+   persistent grid (u of 1, a pass and a tile less one, exact and plus
+   one, and one past the grid's depths: its stride + 1), an all-OOB
+   vector, and ``out=`` as a slice at an offset inside a larger output;
 3. ``task=pred``: write a seeded checkpoint with ``SlotStore.save``, open
    it with ``open_serving_store(device="cuda")``, score >= 20,000 rows in
    ``batch_size`` windows through the CLI's pred loop, check them against
@@ -37,7 +43,11 @@ their plain PyTorch versions. Phases:
 5. the gather's device time (torch.profiler) at the main path's own slot
    vectors, its bound, the plain version's time and one
    ``torch.index_select`` as a yardstick; the same in seeded bf16 and
-   int8 tables of the main path's geometry;
+   int8 tables of the main path's geometry. In each, with ``--parent
+   DIR``, each tree's ``gather_rows.cu`` is timed in turns with this
+   tree's kernel on the same slot vectors (parents, this, this, parents),
+   and both again on 8-row vectors (5 real rows, 3 pads), the floor
+   beside each bound;
 6. the scatter kernel against ``fm_update_rows_ref`` / ``scatter_rows_ref``
    on the card, byte for byte, epilogue on and off: fp32, bf16, int8 and
    fp8 containers; the in-pad layout, the appended layout with its gap
@@ -71,9 +81,9 @@ their plain PyTorch versions. Phases:
    bf16, int8 and fp8 tables of the same shape. With ``--parent DIR`` (a
    checkout of another commit, e.g. unpacked with ``git archive`` under
    the ignored ``difacto_tpu_torch/_build/``), that tree's
-   ``scatter_epilogue.cu`` is built beside this one and both are timed
-   in turns on the same inputs (parent, this, this, parent); the flag
-   may be given more than once, each tree named by its directory;
+   ``scatter_epilogue.cu`` (phase 1) is timed in turns with this one on
+   the same inputs (parent, this, this, parent); the flag may be given
+   more than once, each tree named by its directory;
 9. ``task=train`` at the JAX package's defaults on the dictionary store
    at the full width of examples/criteo_dict.conf (no ``hash_capacity``,
    ``device_cache_mb`` 2048, ``shuffle`` 10, flat: ``mesh_dp=1
@@ -287,8 +297,11 @@ their plain PyTorch versions. Phases:
     L-BFGS at ``mesh_fs=4`` (linear and FM with V) at the goldens, each
     beside its flat run. (f) ``capacity_scaling_report`` at fs 1, 2 and
     4 at the conf's geometry (the fs=4 leg is its 4,194,304-row table at
-    V_dim 16, batches of 1,000 rows of 39 features, 50 timed steps). (g) each shard's gather and push device time at (a)'s staged slot
-    vectors, beside the flat kernel's on the same vectors.
+    V_dim 16, batches of 1,000 rows of 39 features, 50 timed steps).
+    (g) each shard's gather and push device time at (a)'s staged slot
+    vectors, beside the flat kernel's on the same vectors; with
+    ``--parent DIR`` each tree's ``gather_rows.cu`` is timed in turns
+    with this tree's on the shards', the routed and the flat pulls.
 20. multi-host training, run right after phase 19: ``launch.py -n 2``
     (unedited) starts two ranks of the port's CLI entry point on the one
     card, ``DIFACTO_TORCH_VIRTUAL_DEVICES=4`` each, so the conf's 2 x 4
@@ -494,9 +507,10 @@ def reference_margins(text: bytes, arrays: dict, hash_capacity: int = 0,
 
 # ------------------------------------------------------------ phases
 def phase_card(parents: list, work: str):
-    """The card's name and power limit; every kernel built at once, and
-    the ``scatter_epilogue.cu`` of each tree in ``parents``: returns the
-    nvidia-smi line and {tree name: its launch function}."""
+    """The card's name and power limit; every kernel built at once, with
+    the ``scatter_epilogue.cu`` and ``gather_rows.cu`` of each tree in
+    ``parents``: returns the nvidia-smi line and {"scatter": {tree: its
+    launch function}, "gather": {tree: its launch function}}."""
     import ctypes
     import torch
     smi = subprocess.run(
@@ -516,32 +530,46 @@ def phase_card(parents: list, work: str):
     if len(names) != len(parents) or set(names) & {"kernel"}:
         raise ValueError(f"--parent trees need distinct directory names "
                          f"other than 'kernel': {parents}")
+    # (route, tree) -> its source, built beside this tree's own libraries
+    extra = {}
+    for n, d in names.items():
+        extra[("scatter", n)] = Path(d) / KERNELS["scatter_epilogue"]
+        extra[("gather", n)] = Path(d) / KERNELS["gather_rows"]
+
+    def so(route, n):
+        return Path(work) / f"{n}_{route}.so"
+
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNELS) + len(names) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + len(extra) + 1) as pool:
         builds = [pool.submit(build.library, name) for name in KERNELS]
         builds.append(pool.submit(native.get_lib))
-        others = {n: pool.submit(
-            build.compile_source, Path(d) / KERNELS["scatter_epilogue"],
-            Path(work) / f"{n}_scatter_epilogue.so")
-            for n, d in names.items()}
+        others = {key: pool.submit(build.compile_source, src, so(*key))
+                  for key, src in extra.items()}
         for b in builds:
             b.result()
-        logs = {n: f.result() for n, f in others.items()}
+        logs = {f"{n} {route}": f.result()
+                for (route, n), f in others.items()}
     log(f"phase 1 ok: kernels (and the native parsers, g++) built in "
         f"{time.monotonic() - t0:.2f} s"
-        + (f" (and the scatter_epilogue.cu of {', '.join(names)})"
-           if names else ""))
+        + (f" (and the scatter_epilogue.cu and gather_rows.cu of "
+           f"{', '.join(names)})" if names else ""))
     logs.update((name, build.build_log(name)) for name in KERNELS)
-    fns = {}
     for n, text in logs.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas {n}: " + ln.strip())
-        if n in names:
-            fn = ctypes.CDLL(str(Path(work) / f"{n}_scatter_epilogue.so")
-                             ).difacto_scatter_epilogue
-            fn.argtypes, fn.restype = fused.SCATTER_ARGTYPES, ctypes.c_int
-            fns[n] = fn
+    fns = {"scatter": {}, "gather": {}}
+    for route, n in extra:
+        lib = ctypes.CDLL(str(so(route, n)))
+        if route == "scatter":
+            fn = lib.difacto_scatter_epilogue
+            fn.argtypes = fused.SCATTER_ARGTYPES
+        else:
+            fn = lib.difacto_gather_rows      # as ops/fused._gather_fn
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
+                + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[route][n] = fn
     return line, fns
 
 
@@ -585,9 +613,91 @@ def phase_kernel_vs_plain(C: int) -> float:
                 raise AssertionError(f"gather kernel != plain on {name} "
                                      f"u_cap={u}")
         del table
+        n = gather_edge_cases(fused.gather_rows, dt, bits, gen, dev)
+        log(f"  {name}: rows of {', '.join(map(str, GATHER_ROW_BYTES))} "
+            f"bytes at the tiles' and the grid's edges, all-OOB vectors and "
+            f"out= slices: {n} cases bit-exact")
     torch.cuda.empty_cache()
     log("phase 2 ok: gather kernel bit-exact with its plain version")
     return worst
+
+
+# row sizes of the gather's edge cases: 1, 3, 8, 16, 32 and 65 vectors
+GATHER_ROW_BYTES = (16, 48, 128, 256, 512, 1040)
+
+
+def gather_resident_warps() -> tuple:
+    """The warps that csrc/gather_rows.cu's kernels with R = 1, 2 and 4
+    rows in flight keep on the current card at once, as its launch reads
+    them from the occupancy API."""
+    import ctypes
+    from difacto_tpu_torch.ops import build
+    warps = (ctypes.c_int64 * 3)()
+    rc = build.library("gather_rows").difacto_gather_resident_warps(warps)
+    if rc != 0:
+        raise RuntimeError(f"difacto_gather_resident_warps: CUDA error {rc}")
+    return tuple(warps)
+
+
+def gather_edges(row_bytes: int, warps: tuple) -> list:
+    """Slot counts at the edges of csrc/gather_rows.cu's tiles and
+    persistent grid: 1; a warp's pass of P = 32 / min(32, row_bytes / 16)
+    rows and a 4-pass tile, each less one, exact and plus one; one past
+    the tiles of P << k rows that the ``warps`` (resident warps at R = 1,
+    2, 4) hold, where the launch deepens R from 1 and from 2 and, at R =
+    4, the grid's stride + 1, where the warps loop."""
+    P = 32 // min(32, row_bytes // 16)
+    return sorted({1, P - 1, P, P + 1, 4 * P - 1, 4 * P, 4 * P + 1}
+                  .union(w * (P << k) + 1 for k, w in enumerate(warps))
+                  - {0})
+
+
+def gather_edge_cases(gather, dt, bits, gen, dev, C: int = 4096,
+                      rows: tuple = GATHER_ROW_BYTES) -> int:
+    """``gather`` against ``gather_rows_ref`` byte for byte on [C, W] tables
+    of every row size in ``rows``: random slots with OOB lanes on both
+    sides at every ``gather_edges`` count, an all-OOB vector, and two
+    vectors written through ``out=`` into a slice at an offset inside a
+    larger output whose other rows must stay as they were. Returns the
+    number of cases; raises on the first that differs."""
+    import torch
+    from difacto_tpu_torch.ops import fused
+    info = torch.iinfo(bits)
+    # the plain version on the CPU has no grid: small stand-ins there
+    warps = gather_resident_warps() if dev.type == "cuda" else (8, 8, 8)
+    n = 0
+    for rb in rows:
+        W = rb // torch.tensor([], dtype=dt).element_size()
+        table = torch.randint(info.min, info.max, (C, W), dtype=bits,
+                              generator=gen, device=dev).view(dt)
+        vecs = [torch.randint(-3, C + 3, (u,), dtype=torch.int32,
+                              generator=gen, device=dev)
+                for u in gather_edges(rb, warps)]
+        vecs.append(torch.full((300,), C, dtype=torch.int32, device=dev))
+        for s in vecs:
+            got = gather(table, s)
+            sync()
+            if not torch.equal(got.view(torch.uint8),
+                               fused.gather_rows_ref(table, s).view(
+                                   torch.uint8)):
+                raise AssertionError(f"gather kernel != plain on {dt} rows "
+                                     f"of {rb} bytes, u={s.numel()}")
+            n += 1
+        for s in vecs[-1], vecs[-2]:
+            u = s.numel()
+            big = torch.randint(info.min, info.max, (u + 200, W), dtype=bits,
+                                generator=gen, device=dev).view(dt)
+            want = big.clone()
+            want[100:100 + u] = fused.gather_rows_ref(table, s)
+            gather(table, s, big[100:100 + u])
+            sync()
+            if not torch.equal(big.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"gather kernel into out= at row 100 "
+                                     f"!= plain on {dt} rows of {rb} "
+                                     f"bytes, u={u}")
+            n += 1
+        del table, vecs
+    return n
 
 
 def phase_pred(work: str, kwargs: list, uparam, arrays: dict, text: bytes):
@@ -770,24 +880,45 @@ def device_ms_turns(cands, rounds: int = 5) -> dict:
     return got
 
 
-def with_fn(fn, wrapper):
-    """The scatter ``wrapper`` launching library function ``fn`` (another
-    tree's build) instead of this tree's."""
+def with_fn(fn, wrapper, attr: str = "_scatter_fn"):
+    """``wrapper`` (of ops/fused.py) launching library function ``fn``
+    (another tree's build) instead of this tree's: ``attr`` names the
+    library lookup the wrapper calls, ``_scatter_fn`` or ``_gather_fn``."""
     from difacto_tpu_torch.ops import fused
 
     def run(*args):
-        saved = fused._scatter_fn
-        fused._scatter_fn = lambda: fn
+        saved = getattr(fused, attr)
+        setattr(fused, attr, lambda: fn)
         try:
             return wrapper(*args)
         finally:
-            fused._scatter_fn = saved
+            setattr(fused, attr, saved)
     return run
 
 
-def phase_measure(store, windows) -> dict:
+def gather_turns(others: dict, wrapper, args: list) -> tuple:
+    """``wrapper`` (a function that launches the gather through
+    ops/fused.py) over ``args``, timed in turns with each of ``others``
+    ({tree: its gather library function}) launched in this tree's place:
+    parents, this, this, parents. Returns ({name: mean ms}, the turns as
+    text); this tree's kernel is named "kernel"."""
+    cands = [(n, with_fn(fn, wrapper, "_gather_fn"), args)
+             for n, fn in others.items()] + [("kernel", wrapper, args)]
+    turns = device_ms_turns(cands)
+    return ({n: float(np.mean(v)) for n, v in turns.items()},
+            ", ".join(f"{n} {'/'.join(f'{v:.5f}' for v in turns[n])}"
+                      for n, *_ in cands))
+
+
+def phase_measure(store, windows, others: dict) -> dict:
     """The kernel at the main path's own slot vectors (one per pred
-    window, cycled so that repeats see the cache as the stream does)."""
+    window, cycled so that repeats see the cache as the stream does), on
+    the fp32 table and on seeded bf16 and int8 tables of its geometry;
+    ``others`` ({tree: launch function}, the parents' kernels) timed in
+    turns with this tree's, and each of them on 8-row vectors, the
+    floor. Returns the fp32 numbers
+    of the kernels line."""
+    import dataclasses
     import torch
     from difacto_tpu_torch.data.localizer import compact
     from difacto_tpu_torch.ops import fused
@@ -795,68 +926,63 @@ def phase_measure(store, windows) -> dict:
     from difacto_tpu_torch.store.local import pad_slots_oob
     table = store.state.VVg
     C, W = table.shape
-    row_bytes = W * table.element_size()
     real_slots = []
     for sub in windows:
         _, uniq, _ = compact(sub)
         real_slots.append(np.unique(store.map_keys(uniq)).astype(np.int32))
     # the executor's sticky cap: the bucket of the largest window
     u_cap = bucket(max(len(s) for s in real_slots))
-    vecs = [(table, torch.from_numpy(pad_slots_oob(s, u_cap, C)).to(DEV))
+    vecs = [torch.from_numpy(pad_slots_oob(s, u_cap, C)).to(DEV)
             for s in real_slots]
-    prefixes = [(table, torch.from_numpy(s).to(DEV)) for s in real_slots]
+    prefixes = [torch.from_numpy(s).to(DEV) for s in real_slots]
+    # the floor: 5 real rows and 3 pads, as phase 2's smallest vector
+    floor = [torch.from_numpy(pad_slots_oob(s[:5], 8, C)).to(DEV)
+             for s in real_slots]
+    real = float(np.mean([len(s) for s in real_slots]))
+
     def library(t, s):
         return torch.index_select(t, 0, s)
 
-    ms, plain_ms, library_ms = (
-        device_ms(fn, args) for fn, args in (
-            (fused.gather_rows_cuda, vecs), (fused.gather_rows_ref, vecs),
-            (library, prefixes)))
-    for t, s in vecs[:4]:
-        # lint: ok(torch-shard-kernel) the kernel against its plain
-        # version, beside the main path: a check, not a dispatch
-        if not torch.equal(fused.gather_rows_cuda(t, s).view(torch.uint8),
-                           fused.gather_rows_ref(t, s).view(torch.uint8)):
-            raise AssertionError("kernel != plain on a main-path vector")
-    real = float(np.mean([len(s) for s in real_slots]))
-    moved = real * row_bytes + u_cap * row_bytes + 4 * u_cap
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"  gather at the main path's shape: table [{C}, {W}] "
-        f"{table.dtype}, u_cap {u_cap}, {real:.0f} real rows on average: "
-        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select "
-        f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms "
-        f"({moved / 1e6:.2f} MB at 3.35 TB/s) -> "
-        f"{bound_ms / ms:.1%} of the bound")
-    # the same slot vectors into bf16 and int8 tables of the main path's
-    # geometry (their layout at this capacity), seeded
-    import dataclasses
-    for kind in ("bf16", "int8"):
-        param = dataclasses.replace(store.param, slot_dtype=kind)
-        tab = _seeded_table(param, C, SEED + 10)
+    def turns_of(args):
+        return gather_turns(others, fused.gather_rows_cuda, args)
+
+    for kind in ("fp32", "bf16", "int8"):
+        if kind == "fp32":
+            tab = table
+        else:   # the same slot vectors into a seeded table of this kind
+            param = dataclasses.replace(store.param, slot_dtype=kind)
+            tab = _seeded_table(param, C, SEED + 10)
+        kv = [(tab, s) for s in vecs]
+        ms, order = turns_of(kv)
+        floor_ms, floor_order = turns_of([(tab, s) for s in floor])
+        plain_ms = device_ms(fused.gather_rows_ref, kv)
+        library_ms = device_ms(library, [(tab, s) for s in prefixes])
+        for t, s in kv[:4]:
+            # lint: ok(torch-shard-kernel) the kernel against its plain
+            # version, beside the main path: a check, not a dispatch
+            if not torch.equal(fused.gather_rows_cuda(t, s).view(torch.uint8),
+                               fused.gather_rows_ref(t, s).view(torch.uint8)):
+                raise AssertionError(f"kernel != plain on a main-path "
+                                     f"vector, {kind} table")
         rb = tab.shape[1] * tab.element_size()
-        kv = [(tab, s) for _, s in vecs]
-        kp = [(tab, s) for _, s in prefixes]
-        k_ms, k_plain, k_lib = (device_ms(fn, args) for fn, args in (
-            (fused.gather_rows_cuda, kv), (fused.gather_rows_ref, kv),
-            (library, kp)))
-        for t, s in kv[:2]:
-            if not torch.equal(
-                    # lint: ok(torch-shard-kernel) a check beside the path
-                    fused.gather_rows_cuda(t, s).view(torch.uint8),
-                    fused.gather_rows_ref(t, s).view(torch.uint8)):
-                raise AssertionError(f"kernel != plain on a {kind} table")
-        k_moved = real * rb + u_cap * rb + 4 * u_cap
-        k_bound = k_moved / HBM_BYTES_PER_S * 1e3
+        moved = real * rb + u_cap * rb + 4 * u_cap
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
         log(f"  gather, {kind} table [{C}, {tab.shape[1]}] {tab.dtype}, "
-            f"u_cap {u_cap}: kernel {k_ms:.5f} ms, plain {k_plain:.5f} ms, "
-            f"index_select {k_lib:.5f} ms, bound {k_bound:.5f} ms "
-            f"({k_moved / 1e6:.2f} MB) -> {k_bound / k_ms:.1%} of the bound")
-        del tab, kv, kp
+            f"u_cap {u_cap}, {real:.0f} real rows on average: kernel "
+            f"{ms['kernel']:.5f} ms (in turns: {order} ms), plain "
+            f"{plain_ms:.5f} ms, index_select {library_ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms ({moved / 1e6:.2f} MB at 3.35 TB/s) -> "
+            f"{bound_ms / ms['kernel']:.1%} of the bound; the floor, 8 "
+            f"rows: kernel {floor_ms['kernel']:.5f} ms (in turns: "
+            f"{floor_order} ms)")
+        if kind == "fp32":      # the main path's table: the kernels line
+            main = {"ms": ms["kernel"], "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms}
+        del tab, kv
         torch.cuda.empty_cache()
     profile_predict(store, windows[:5])
     log("phase 5 ok: measured")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "u_cap": u_cap}
+    return main
 
 
 def profile_predict(store, windows) -> None:
@@ -4813,10 +4939,12 @@ def _mesh_runs(kw: list, what: str, model: str = "") -> dict:
             "wall": wall}
 
 
-def _shard_times(ln, staged, table_flat) -> dict:
+def _shard_times(ln, staged, table_flat, others: dict) -> dict:
     """Phase 19 (g): each shard's gather and push device time at the main
     path's own slot vectors (the mesh run's staged batches), beside the
-    flat kernel's on the same vectors and the whole routed pull/push."""
+    flat kernel's on the same vectors and the whole routed pull/push; the
+    gathers in turns with ``others`` ({tree: its gather library function},
+    the ``--parent`` trees')."""
     import torch
     from difacto_tpu_torch.learners.sgd import K_TRAINING  # noqa: F401
     from difacto_tpu_torch.losses import FMParams
@@ -4845,12 +4973,14 @@ def _shard_times(ln, staged, table_flat) -> dict:
                                 pred, xv)
         items.append((ss, rows, gw.contiguous(), gV.contiguous(), vm))
     sync()
-    out = {"gather_flat": device_ms(
-        fused.gather_rows_cuda, [(table_flat, ss.slots)
-                                 for ss, *_ in items]),
-        "gather_routed": device_ms(
-            lambda ss: sharded.sharded_gather(shards, ss),
-            [(ss,) for ss, *_ in items]),
+    g_flat, t_flat = gather_turns(others, fused.gather_rows_cuda,
+                                  [(table_flat, ss.slots)
+                                   for ss, *_ in items])
+    g_routed, t_routed = gather_turns(
+        others, lambda ss: sharded.sharded_gather(shards, ss),
+        [(ss,) for ss, *_ in items])
+    out = {"gather_flat": g_flat["kernel"],
+        "gather_routed": g_routed["kernel"],
         "push_flat": device_ms(
             fused.fm_update_rows_cuda,
             [(table_flat, ss.slots, r, gw, gV, vm, epi)
@@ -4858,7 +4988,8 @@ def _shard_times(ln, staged, table_flat) -> dict:
         "push_routed": device_ms(
             lambda ss, r, gw, gV, vm: sharded.sharded_push(
                 shards, ss, r, gw, gV, vm, epi, plain), items),
-        "gather_shard": [], "push_shard": [], "lanes": []}
+        "gather_shard": [], "push_shard": [], "lanes": [],
+        "turns": [f"flat: {t_flat}", f"routed: {t_routed}"]}
     for f in range(store.fs_count):
         g_args, p_args, lanes = [], [], []
         for ss, r, gw, gV, vm in items:
@@ -4870,7 +5001,10 @@ def _shard_times(ln, staged, table_flat) -> dict:
             p_args.append((view, ss.local[a:b], r[a:b], gw[a:b], gV[a:b],
                            vm[a:b], epi))
             lanes.append(b - a)
-        out["gather_shard"].append(device_ms(fused.gather_rows_cuda, g_args))
+        g_shard, t_shard = gather_turns(others, fused.gather_rows_cuda,
+                                        g_args)
+        out["gather_shard"].append(g_shard["kernel"])
+        out["turns"].append(f"shard {f}: {t_shard}")
         out["push_shard"].append(device_ms(fused.fm_update_rows_cuda,
                                            p_args))
         out["lanes"].append(float(np.mean(lanes)))
@@ -4882,6 +5016,7 @@ def _shard_times(ln, staged, table_flat) -> dict:
         f"{t * 1e3:.2f}" for t in out["gather_shard"])
         + f" us; routed pull {out['gather_routed'] * 1e3:.2f} us; the flat "
         f"kernel on the same vector {out['gather_flat'] * 1e3:.2f} us")
+    log("      the gathers in turns (ms): " + "; ".join(out["turns"]))
     log("      push per shard " + ", ".join(
         f"{t * 1e3:.2f}" for t in out["push_shard"])
         + f" us; routed push {out['push_routed'] * 1e3:.2f} us; the flat "
@@ -4892,14 +5027,15 @@ def _shard_times(ln, staged, table_flat) -> dict:
 
 
 def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
-               smi: str) -> dict:
+               smi: str, gathers: dict) -> dict:
     """Phase 19: the examples' (dp, fs) mesh on the card, under
     ``DIFACTO_TORCH_VIRTUAL_DEVICES=8``. (a) examples/criteo_hashed.conf
     as written (2 x 4) on phase 7's rows; (b) 1 x 4 and ``mesh_force`` at
     1 x 1 against phase 7's table; (c) the sharded model scored by
     task=pred and task=serve; (d) examples/criteo_dict.conf on its mesh;
     (e) BCD at ``mesh_dp=4`` and L-BFGS at ``mesh_fs=4``; (f) the capacity
-    scaling report; (g) the shard launches' device times."""
+    scaling report; (g) the shard launches' device times, the gathers in
+    turns with ``gathers`` ({tree: its gather library function})."""
     import torch
     from difacto_tpu_torch.__main__ import run_pred
     from difacto_tpu_torch.config import parse_config_file
@@ -4969,7 +5105,8 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
         out["step"] = step
         out["loss"] = loss
         # (g) on the same staged batches (the pushes write the table)
-        out["shards"] = _shard_times(ln, staged, tr["bits"].clone())
+        out["shards"] = _shard_times(ln, staged, tr["bits"].clone(),
+                                     gathers)
         del ln, a, staged
         gc.collect()
         torch.cuda.empty_cache()
@@ -6232,9 +6369,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR", action="append", default=[],
                     help="a checkout of another commit whose "
-                         "scatter_epilogue.cu phase 8 times, and whose "
-                         "learner phase 12 runs at the defaults, in turns "
-                         "with this tree's (may be given more than once)")
+                         "gather_rows.cu phase 5 and scatter_epilogue.cu "
+                         "phase 8 time, and whose learner phase 12 runs "
+                         "at the defaults, in turns with this tree's (may "
+                         "be given more than once)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -6257,7 +6395,7 @@ def main(argv=None) -> int:
     T_START = time.monotonic()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        smi, parent_fns = phase_card(args.parent, work)
+        smi, kernel_fns = phase_card(args.parent, work)
         mesh_conf = parse_config_file(CONF)
         if DEV == "cpu":        # a rehearsal's table: the CPU holds less
             mesh_conf.append(("hash_capacity", "8192"))
@@ -6281,17 +6419,19 @@ def main(argv=None) -> int:
         store, lines, pred_launches, windows = phase_pred(
             work, conf, uparam, arrays, text)
         serve_launches = phase_serve(store, lines, text, batch)
-        g = phase_measure(store, windows)
+        g = phase_measure(store, windows, kernel_fns["gather"])
         del store, arrays
         gc.collect()
         torch.cuda.empty_cache()
         scatter_err = phase_scatter_vs_plain(uparam)
         tr = phase_train(work, conf, uparam)
-        m = phase_measure_train(tr["learner"], tr["data_in"], parent_fns)
+        m = phase_measure_train(tr["learner"], tr["data_in"],
+                                kernel_fns["scatter"])
         del tr["learner"]
         gc.collect()
         torch.cuda.empty_cache()
-        t19 = phase_mesh(work, mesh_conf, uparam, tr, m, smi)
+        t19 = phase_mesh(work, mesh_conf, uparam, tr, m, smi,
+                         kernel_fns["gather"])
         del tr["bits"]
         gc.collect()
         torch.cuda.empty_cache()

@@ -53,21 +53,37 @@ def _slots(C, real, u, dev):
 @pytest.mark.parametrize("bits,dt", [(torch.int32, torch.float32),
                                      (torch.int16, torch.bfloat16),
                                      (torch.int8, torch.int8)])
-@pytest.mark.parametrize("width", [128, 256])
-def test_kernel_matches_plain_bytes(cuda, bits, dt, width):
+@pytest.mark.parametrize("row_bytes", [16, 48, 128, 256, 512, 1024, 1040])
+def test_kernel_matches_plain_bytes(cuda, bits, dt, row_bytes):
+    """Rows of 1, 3, 8, 16, 32, 64 and 65 vectors: sorted slots with OOB
+    pads, then chip_smoke's edge cases (slot counts at the kernel's tiles
+    and at its resident warps' edges, read from the library, with OOB
+    lanes on both sides; an all-OOB vector; ``out=`` as a slice at an
+    offset inside a larger output whose other rows stay as they were);
+    byte for byte, one launch each."""
+    from chip_smoke import gather_edge_cases
     g = torch.Generator(device=cuda).manual_seed(0)
     info = torch.iinfo(bits)
-    table = torch.randint(info.min, info.max, (4096, width), dtype=bits,
+    C = 4096
+    W = row_bytes // torch.tensor([], dtype=dt).element_size()
+    table = torch.randint(info.min, info.max, (C, W), dtype=bits,
                           generator=g, device=cuda).view(dt)
-    for real, u in (([0, 3, 77, 4095], 8), ([], 12), (range(0, 4096, 3),
-                                                      1536)):
-        slots = _slots(4096, list(real), u, cuda)
+    for real, u in (([0, 3, 77, 4095], 8), ([], 12), (range(0, C, 3), 1536)):
+        slots = _slots(C, list(real), u, cuda)
         before = fused.gather_rows_cuda.launches
         got = fused.gather_rows(table, slots)
         torch.cuda.synchronize()
         assert fused.gather_rows_cuda.launches == before + 1
         want = fused.gather_rows_ref(table, slots)
-        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), u
+
+    def gather(t, s, out=None):
+        before = fused.gather_rows_cuda.launches
+        got = fused.gather_rows(t, s, out)
+        assert fused.gather_rows_cuda.launches == before + 1
+        return got
+
+    assert gather_edge_cases(gather, dt, bits, g, cuda, C, (row_bytes,)) > 10
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
