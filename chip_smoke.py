@@ -301,7 +301,13 @@ their plain PyTorch versions. Phases:
     (g) each shard's gather and push device time at (a)'s staged slot
     vectors, beside the flat kernel's on the same vectors; with
     ``--parent DIR`` each tree's ``gather_rows.cu`` is timed in turns
-    with this tree's on the shards', the routed and the flat pulls.
+    with this tree's on the shards', the routed and the flat pulls. (h)
+    (a)'s table placed: each logical device's bytes read from its
+    shard's own allocations (4,194,304 / 4 rows each at full width), no
+    other tensor of the table's rows on the card, the peak allocated over
+    run (a) beside the table's bytes, and the bytes copied between
+    logical devices per replayed step (utils/collscan, kind
+    ``device_copy``) with that step's busy time.
 20. multi-host training, run right after phase 19: ``launch.py -n 2``
     (unedited) starts two ranks of the port's CLI entry point on the one
     card, ``DIFACTO_TORCH_VIRTUAL_DEVICES=4`` each, so the conf's 2 x 4
@@ -319,8 +325,8 @@ their plain PyTorch versions. Phases:
     idle, the data-plane gathers' share) beside phase 19's; each rank's
     routed gather and push against their plain versions at its own staged
     slot vectors; the card's memory.used with both replicas alive; a
-    repeat run leaves (a)'s table. (b) ``--bounded-delay 1`` and ``4``:
-    (a)'s table bit for bit and a non-zero ``push_delay_batches``. (c)
+    repeat run leaves (a)'s table. (b) ``--bounded-delay 4``: (a)'s table
+    bit for bit and a non-zero ``push_delay_batches``. (c)
     ``--max-restarts 1`` with heartbeats: rank 1 SIGKILLed mid-epoch 1,
     launch.py relaunches one rank (``mesh_dp`` follows the rank count),
     which resumes from ``_iter-0`` and finishes; the seconds to recover.
@@ -357,7 +363,10 @@ their plain PyTorch versions. Phases:
     its lock graph equals ``utils/lockorder.json``; (c) ``devmap --check``
     over phase 21's dumps of the serve dispatch, the train run and both
     ranks, and ``collmap --check`` over both ranks' scans, each merged
-    with the static model (dynamic within static).
+    with the static model (dynamic within static); (d) the port's
+    ``lockmap --check`` over phase 18 (d)'s lock dump: no dynamic-only
+    edge, no cycle; (e) the port's ``obs_report`` over phase 12 (e)'s
+    ``metrics_path`` JSONL, one line each.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -1129,14 +1138,24 @@ def _count_batches(p, data_in: str, data_val: str, epochs: int):
 
 def _h2d_copies(fn) -> tuple:
     """(host-to-device copies, device events) the card recorded while
-    ``fn()`` ran, from torch.profiler."""
+    ``fn()`` ran, from torch.profiler. As in :func:`_profile`, marker
+    kernels lead and end the profile (the card's profiler now and then
+    misses the first kernels after it starts) and are left out."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.002)
         fn()
         sync()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and "spin_kernel" not in e.name]
     h2d = [e for e in ev if "HtoD" in e.name]
     if h2d:
         ops = {e.key: e.count for e in prof.key_averages()
@@ -4577,6 +4596,18 @@ def traced_run(spec_path: str) -> None:
     try:
         with ServeClient(srv.host, srv.port) as c:
             window = c.predict(rows[:1000])
+        # the burst's first batch waits until a row has been shed (60 s
+        # at most): a scorer faster than the connection's parser never
+        # fills the queue, so without the wait the burst sheds only on a
+        # slow enough host
+        plain, t_end = srv.batcher.predict_fn, time.monotonic() + 60.0
+
+        def held(blk):
+            while srv.batcher.stats.shed_rate() == 0 \
+                    and time.monotonic() < t_end:
+                time.sleep(0.001)
+            return plain(blk)
+        srv.batcher.predict_fn = held
         with ServeClient(srv.host, srv.port) as c:
             burst = c.predict(rows[:2000] * 4)
     finally:
@@ -4905,6 +4936,13 @@ def _routed_runs():
     return tally, restore
 
 
+def _host_table(state):
+    """A state's whole fused table on the host (a mesh's shards copied
+    in shard order), for comparisons."""
+    from difacto_tpu_torch.parallel.sharded import host_state
+    return host_state(state).VVg
+
+
 def _bits_same(a, b) -> bool:
     import torch
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
@@ -4950,13 +4988,12 @@ def _shard_times(ln, staged, table_flat, others: dict) -> dict:
     from difacto_tpu_torch.losses import FMParams
     from difacto_tpu_torch.ops import fused
     from difacto_tpu_torch.ops.batch import unpack_panel
-    from difacto_tpu_torch.parallel import sharded, state_sharding
+    from difacto_tpu_torch.parallel import sharded
     from difacto_tpu_torch.updaters.sgd_updater import (epilogue_spec,
                                                         row_epilogue)
     store, loss = ln.store, ln.loss
     C = store.state.capacity
-    table = store.state.VVg
-    shards = state_sharding(store.mesh)(table)
+    shards = [s.VVg for s in store.state.shards]
     epi = epilogue_spec(store.param, C)
     plain = functools.partial(row_epilogue, store.param, C)
     items = []
@@ -4996,10 +5033,10 @@ def _shard_times(ln, staged, table_flat, others: dict) -> dict:
             a, b = ss.offsets[f], ss.offsets[f + 1]
             if b == a:
                 continue
-            view = shards[f]
-            g_args.append((view, ss.local[a:b]))
-            p_args.append((view, ss.local[a:b], r[a:b], gw[a:b], gV[a:b],
-                           vm[a:b], epi))
+            table, dev = shards[f], shards[f].device
+            g_args.append((table, ss.local[f]))
+            p_args.append((table, ss.local[f], *(
+                t[a:b].to(dev) for t in (r, gw, gV, vm)), epi))
             lanes.append(b - a)
         g_shard, t_shard = gather_turns(others, fused.gather_rows_cuda,
                                         g_args)
@@ -5026,6 +5063,83 @@ def _shard_times(ln, staged, table_flat, others: dict) -> dict:
     return out
 
 
+def _moved_per_step(replayed, staged) -> dict:
+    """The copies between logical devices of the replayed ``staged``
+    steps, recorded by utils/collscan (kind ``device_copy``), per step."""
+    from difacto_tpu_torch.utils import collscan
+    old = os.environ.get("DIFACTO_HLOSCAN")
+    os.environ["DIFACTO_HLOSCAN"] = "1"
+    collscan.reset()
+    try:
+        for st in staged:
+            replayed(st)
+        sync()
+        progs = collscan.programs()
+    finally:
+        if old is None:
+            os.environ.pop("DIFACTO_HLOSCAN", None)
+        else:
+            os.environ["DIFACTO_HLOSCAN"] = old
+        collscan.reset()
+    moves = [c for rec in progs.values() for c in rec["collectives"]
+             if c["kind"] == "device_copy"]
+    others = [c for rec in progs.values() for c in rec["collectives"]
+              if c["kind"] != "device_copy"]
+    n = len(staged)
+    return {"copies": sum(c["count"] for c in moves) / n,
+            "bytes": sum(c["count"] * c["bytes"] for c in moves) / n,
+            "table_axis": sum(c["table_axis"] for c in moves),
+            "other_collectives": len(others)}
+
+
+def _mesh_placement(ln, staged, replayed, peak: int, held, step,
+                    flat_step) -> dict:
+    """Phase 19 (h), on run (a)'s learner: each logical device's table
+    bytes read from its shard's allocations, no tensor of the table's
+    rows on the card but those the smoke holds (``held``: phase 7's flat
+    table, (a)'s host copy), the run's peak allocated beside the table's
+    bytes, and the bytes copied between logical devices per replayed
+    step (utils/collscan)."""
+    import torch
+    from difacto_tpu_torch.updaters.sgd_updater import state_bytes
+    store = ln.store
+    st = store.state
+    C, fs = st.capacity, store.fs_count
+    per_dev = store.device_bytes()
+    total = state_bytes(store.param, C)
+    width = st.shards[0].VVg.shape[1]
+    if per_dev != [total // fs] * fs or st.rows != C // fs:
+        raise AssertionError(f"(h) shard bytes {per_dev}, rows {st.rows}; "
+                             f"want {total // fs} and {C // fs} each")
+    keep = {t.untyped_storage().data_ptr() for t in held}
+    gc.collect()
+    whole = [tuple(t.shape) for t in gc.get_objects()
+             if isinstance(t, torch.Tensor) and t.dim() and t.shape[0] == C
+             and t.device == st.devices[0]
+             and t.untyped_storage().data_ptr() not in keep]
+    if whole:
+        raise AssertionError(f"(h) tensors of the table's {C} rows: "
+                             f"{whole}")
+    moved = _moved_per_step(replayed, staged)
+    if moved["table_axis"] or moved["other_collectives"] \
+            or not moved["copies"]:
+        raise AssertionError(f"(h) the moves between logical devices: "
+                             f"{moved}")
+    log(f"  (h) run (a)'s table: {fs} shards of {C // fs} rows x {width} "
+        f"lanes, each its own allocation of {per_dev[0]} B on its logical "
+        f"device ({total} B in all), no tensor of {C} rows on the card "
+        f"but phase 7's flat table; peak allocated over run (a) "
+        f"{peak} B above its start, {peak / total:.3f} x the table's "
+        f"bytes; a replayed step copies {moved['bytes']:.0f} B in "
+        f"{moved['copies']:.1f} copies between logical devices "
+        f"(utils/collscan, kind device_copy, none table-axis); its busy "
+        f"time {step['busy_ms']:.3f} ms (phase 8's flat step "
+        f"{flat_step['busy_ms']:.3f} ms)")
+    return {"bytes_per_device": per_dev, "rows": C // fs, "width": width,
+            "table_bytes": total, "peak": peak, "moved": moved,
+            "busy_ms": step["busy_ms"]}
+
+
 def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
                smi: str, gathers: dict) -> dict:
     """Phase 19: the examples' (dp, fs) mesh on the card, under
@@ -5035,7 +5149,9 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
     task=pred and task=serve; (d) examples/criteo_dict.conf on its mesh;
     (e) BCD at ``mesh_dp=4`` and L-BFGS at ``mesh_fs=4``; (f) the capacity
     scaling report; (g) the shard launches' device times, the gathers in
-    turns with ``gathers`` ({tree: its gather library function})."""
+    turns with ``gathers`` ({tree: its gather library function}); (h)
+    (a)'s placement: each shard its own allocation, the run's peak and
+    the copies between logical devices per replayed step."""
     import torch
     from difacto_tpu_torch.__main__ import run_pred
     from difacto_tpu_torch.config import parse_config_file
@@ -5060,9 +5176,14 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
             out["launches"][c] += launches[c]
 
     with _virtual_devices():
-        # (a) the conf as written
+        # (a) the conf as written; (h) reads the peak above this base
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated() if DEV == "cuda" else 0
         model = os.path.join(work, "mesh_model")
         a = _mesh_runs(kw, "(a)", model)
+        peak = (torch.cuda.max_memory_allocated() - base_alloc
+                if DEV == "cuda" else 0)
         ln = a["ln"]
         if ln.mesh.shape != {"dp": 2, "fs": 4} or ln.store.fs_count != 4:
             raise AssertionError(f"(a) ran on {ln.mesh}, not the conf's 2 x 4")
@@ -5093,7 +5214,7 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
             ln._dispatch_staged(K_TRAINING, st, False, pending)
             return pending[-1][1]
 
-        first = ln.store.state.VVg.clone()
+        first = _host_table(ln.store.state)
         step = profile_steps(replayed, staged, "(a) mesh 2 x 4 replayed")
         flat = m["steps"]["replayed"]
         log(f"  (a) the mesh's replayed step beside phase 8's flat one: wall "
@@ -5104,6 +5225,8 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
             f"{step['kernels']:.0f} vs {flat['kernels']:.0f}")
         out["step"] = step
         out["loss"] = loss
+        out["placement"] = _mesh_placement(ln, staged, replayed, peak,
+                                           (tr["bits"], first), step, flat)
         # (g) on the same staged batches (the pushes write the table)
         out["shards"] = _shard_times(ln, staged, tr["bits"].clone(),
                                      gathers)
@@ -5111,7 +5234,7 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
         gc.collect()
         torch.cuda.empty_cache()
         again = _mesh_runs(kw, "(a) repeat")
-        if not _bits_same(again["ln"].store.state.VVg, first):
+        if not _bits_same(_host_table(again["ln"].store.state), first):
             raise AssertionError("(a) a repeat run left another table")
         log("  (a) repeat run: the table bit for bit")
         del again, first
@@ -5125,7 +5248,8 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
                             [("mesh_dp", "1"), ("mesh_fs", "1"),
                              ("mesh_force", "1")])):
             b = _mesh_runs(kw + over, f"(b) {name}")
-            if not _bits_same(b["ln"].store.state.VVg, tr["bits"]):
+            if not _bits_same(_host_table(b["ln"].store.state),
+                              tr["bits"].cpu()):
                 raise AssertionError(f"(b) {name}: not phase 7's table")
             log(f"  (b) {name}: phase 7's table bit for bit, launches "
                 f"{b['launches']}")
@@ -5207,7 +5331,8 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
             raise AssertionError(f"(d) ran on {dl.mesh}")
         if not grown or any(c % 4 for c in grown):
             raise AssertionError(f"(d) growths {grown}")
-        if not (_bits_same(dl.store.state.VVg, d2["ln"].store.state.VVg)
+        if not (_bits_same(_host_table(dl.store.state),
+                           _host_table(d2["ln"].store.state))
                 and np.array_equal(dl.store._keys, d2["ln"].store._keys)):
             raise AssertionError("(d) a repeat run left another table")
         d_info = dl.device_cache_info()
@@ -5293,13 +5418,18 @@ def phase_mesh(work: str, mesh_conf: list, uparam, tr: dict, m: dict,
         if rep["legs"][-1]["hash_capacity"] != C:
             raise AssertionError(f"(f) the fs=4 leg is not the conf's "
                                  f"table: {rep['legs'][-1]}")
+        if any(x["table_bytes_per_device"]
+               != x["table_bytes_total"] // x["fs"] for x in rep["legs"]):
+            raise AssertionError(f"(f) bytes per device are not total // "
+                                 f"fs: {rep['legs']}")
         log(f"  (f) capacity_scaling_report ({smi}; V_dim {k}, "
             f"{rep['config']['batch']} x {rep['config']['nnz_per_row']} "
-            f"nonzeros, {rep['config']['steps']} timed steps; every shard "
-            "on the one card): " + "; ".join(
+            f"nonzeros, {rep['config']['steps']} timed steps; each shard "
+            "its own allocation, all on the one card): " + "; ".join(
             f"fs {x['fs']}: {x['hash_capacity']} rows, "
             f"{x['table_bytes_per_shard']} B/shard, "
-            f"{x['table_bytes_per_device']} B on the card, "
+            f"{x['table_bytes_per_device']} B per logical device "
+            "(total // fs, from the allocations), "
             f"{x['examples_per_sec']:.0f} ex/s, {x['step_ms']} ms/step"
             for x in rep["legs"])
             + f"; capacity x{rep['capacity_scaling']}, throughput retained "
@@ -5353,7 +5483,7 @@ def _rank_checks(ln, staged) -> dict:
     import torch
     from difacto_tpu_torch.losses import FMParams
     from difacto_tpu_torch.ops.batch import unpack_panel
-    from difacto_tpu_torch.parallel import sharded, state_sharding
+    from difacto_tpu_torch.parallel import sharded
     from difacto_tpu_torch.updaters.sgd_updater import (epilogue_spec,
                                                         row_epilogue)
     store = ln.store
@@ -5361,7 +5491,12 @@ def _rank_checks(ln, staged) -> dict:
     C = store.state.capacity
     epi = epilogue_spec(store.param, C)
     plain = functools.partial(row_epilogue, store.param, C)
-    place = state_sharding(store.mesh)
+
+    def tables():
+        return [s.VVg for s in store.state.shards]
+
+    def copies():
+        return [t.clone() for t in tables()]
     g_err = p_err = 0.0
     for st in staged:
         batch, slots, _ = unpack_panel(st.i32, st.f32, st.b_cap, st.d2,
@@ -5369,7 +5504,7 @@ def _rank_checks(ln, staged) -> dict:
         ci, cl, cv = st.chunks
         batch = batch._replace(chunk_idx=ci, chunk_lane=cl, chunk_vals=cv)
         ss = sharded.ShardedSlots(slots, st.route[1], st.route[0])
-        shards = place(store.state.VVg)
+        shards = tables()
         got = sharded.sharded_gather(shards, ss)
         ref = sharded.sharded_gather_ref(shards, ss)
         if not _bits_same(got, ref):
@@ -5380,12 +5515,13 @@ def _rank_checks(ln, staged) -> dict:
         pred, xv = loss.predict_xv(FMParams(w=w, V=V, v_mask=vm), batch)
         gw, gV = loss.calc_grad(FMParams(w=w, V=V, v_mask=vm), batch, pred,
                                 xv)
-        a, b = store.state.VVg.clone(), store.state.VVg.clone()
-        sharded.sharded_push(place(a), ss, rows, gw.contiguous(),
+        a, b = copies(), copies()
+        sharded.sharded_push(a, ss, rows, gw.contiguous(),
                              gV.contiguous(), vm, epi, plain)
-        sharded.sharded_push_ref(place(b), ss, rows, gw.contiguous(),
+        sharded.sharded_push_ref(b, ss, rows, gw.contiguous(),
                                  gV.contiguous(), vm, plain)
         sync()
+        a, b = (torch.cat([t.cpu() for t in x]) for x in (a, b))
         if not _bits_same(a, b):
             p_err = max(p_err, float((a - b).abs().max()))
             raise AssertionError(f"phase 20: the routed push differs from "
@@ -5466,9 +5602,9 @@ def rank_cli(spec_path: str) -> int:
                 print(f"rank 1: SIGKILL at data-plane gather {n[0]}",
                       flush=True)
                 with open(spec["out"] + "-killed", "w") as f:
-                    # lint: ok(wall-clock) the kill's timestamp, read by
-                    # the parent process
-                    f.write(repr(time.time()))
+                    # the kill's time on the host's monotonic clock, the
+                    # clock of the relaunched rank's t_start
+                    f.write(repr(time.monotonic()))
                 os.kill(os.getpid(), signal.SIGKILL)
             return real_gather(self, t)
 
@@ -5501,7 +5637,7 @@ def rank_cli(spec_path: str) -> int:
             backend=multihost.BACKEND)
         if spec.get("digest"):
             out["digest"] = hashlib.sha256(
-                ln.store.state.VVg.cpu().numpy()).hexdigest()
+                _host_table(ln.store.state).numpy()).hexdigest()
         if spec.get("scan"):
             # phase 21 (d): the collective scan of this rank's run
             from difacto_tpu_torch.utils import collscan, devtrace
@@ -5618,7 +5754,7 @@ def phase_multihost(work: str, tr: dict, t19: dict, smi: str) -> dict:
     equal to its routed shard runs; a replayed step profiled on
     both ranks beside phase 19's; the kernels against their plain versions
     on each rank; a repeat run gives (a)'s table bit for bit. (b)
-    ``--bounded-delay 1`` and ``4``: (a)'s table bit for bit, the window's
+    ``--bounded-delay 4``: (a)'s table bit for bit, the window's
     delay histogram non-zero. (c) ``--max-restarts 1`` with heartbeats:
     rank 1 SIGKILLed mid-epoch 1; one rank relaunches, resumes from
     ``_iter-0`` and finishes; the seconds to recover. (d) BCD and L-BFGS
@@ -5755,8 +5891,8 @@ def phase_multihost(work: str, tr: dict, t19: dict, smi: str) -> dict:
         raise AssertionError("(a) a repeat run left another table")
     log("  (a) repeat run: the table bit for bit")
 
-    # (b) bounded delay
-    for tau in (1, 4):
+    # (b) bounded delay: the deeper window only (phase 19 (h) pays for it)
+    for tau in (4,):
         b, _, b_wall = _launch_ranks(
             work, f"b{tau}", base, ["--bounded-delay", str(tau)],
             digest=True)
@@ -5978,7 +6114,7 @@ def _p21_train(spec: dict) -> dict:
                       for r in d_final["sites"].values()
                       if r["kind"] == "program" and r["calls"]})
     # after the dump: the digest's copy is the smoke's, not the run's
-    out["digest"] = hashlib.sha256(ln.store.state.VVg.cpu().numpy()
+    out["digest"] = hashlib.sha256(_host_table(ln.store.state).numpy()
                                    ).hexdigest()
     return out
 
@@ -6232,12 +6368,19 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
     for r in ranks:
         path = os.path.join(work, f"mh_scan-{r['rank']}-scan.json")
         doc = collscan.load(path)
-        progs = doc["programs"]
+        # the cross-process collectives, and apart from them the copies
+        # between the rank's logical devices (kind device_copy)
+        progs, moves = ({s: dict(rec, collectives=[
+            c for c in rec["collectives"]
+            if (c["kind"] == "device_copy") == want])
+            for s, rec in doc["programs"].items()}
+            for want in (False, True))
         tot = collscan.totals(progs)
         plane = r["plane"]
-        if doc["rows"] != int(rows) or collscan.violations(progs):
+        if doc["rows"] != int(rows) \
+                or collscan.violations(doc["programs"]):
             raise AssertionError(f"phase 21 (d) rank {r['rank']}: "
-                                 f"{collscan.violations(progs)}")
+                                 f"{collscan.violations(doc['programs'])}")
         if tot != {"calls": plane["calls"], "bytes": plane["bytes_out"]}:
             raise AssertionError(f"phase 21 (d) rank {r['rank']}: scan "
                                  f"{tot}, data plane {plane}")
@@ -6257,7 +6400,10 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
             f"step ({n} steps): "
             f"{collscan.totals(progs, site=r['train_site'])['bytes'] / n:.0f}"
             f" B a step, its partials {part['shape']} {part['dtype']} "
-            f"{part['bytes']} B; 0 table-axis at {rows} rows; peak above "
+            f"{part['bytes']} B; between its logical devices "
+            f"{collscan.totals(moves)['calls']} copies, "
+            f"{collscan.totals(moves)['bytes']} B; 0 table-axis at {rows} "
+            f"rows; peak above "
             f"entry per program "
             f"{ {p['label'] or s: p['peak_temp_bytes'] for s, p in progs.items() if p['traced']} }"
             f"; store {doc['store']}; collmap --check 0")
@@ -6268,6 +6414,50 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
 
 
 # ------------------------------------------------------------- phase 22
+def _p22_tools(work: str, root: str) -> None:
+    """Phase 22 (d) and (e): the port's lockmap and obs_report, the root
+    tools' counterparts, over what phases 18 and 12 left in ``work``."""
+    import contextlib
+    import io
+    # (d) the port's lockmap over phase 18 (d)'s lock dump
+    from difacto_tpu_torch.tools import lockmap, obs_report
+    locks = os.path.join(work, "traced", "locks.json")
+    out = os.path.join(work, "lockmap.json")
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = lockmap.main(["--root", root, "--dynamic", locks, "--check",
+                           "--json", out])
+    lm_s = time.monotonic() - t0
+    with open(out) as f:
+        lm = json.load(f)
+    if rc != 0 or lm["dynamic_only"] or lm["cycles"] \
+            or not lm["dynamic_edges"]:
+        raise AssertionError(f"phase 22 (d): lockmap --check exited {rc}: "
+                             f"dynamic-only {lm['dynamic_only']}, cycles "
+                             f"{lm['cycles']}")
+    log(f"  (d) python -m difacto_tpu_torch.tools.lockmap --check over "
+        f"phase 18 (d)'s dump: rc 0, {len(lm['dynamic_edges'])} observed "
+        f"edges ({len(lm['confirmed'])} confirmed, 0 dynamic-only), 0 "
+        f"cycles, {len(lm['guarded_by'])} GuardedBy fields, {lm_s:.2f} s")
+    # (e) the port's obs_report over phase 12 (e)'s metrics_path JSONL
+    metrics = os.path.join(work, "stream_e.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_report.main(["--metrics", metrics])
+    text = buf.getvalue()
+    sections = [x.strip("= ").split(" (")[0] for x in text.splitlines()
+                if x.startswith("== ")]
+    if rc != 0 or "streamed stage table" not in sections:
+        raise AssertionError(f"phase 22 (e): obs_report exited {rc}: "
+                             f"{text[:500]}")
+    stage = [x.split() for x in text.splitlines()
+             if x.startswith("  step ")]
+    log(f"  (e) python -m difacto_tpu_torch.tools.obs_report over phase 12 "
+        f"(e)'s metrics_path: rc 0, {len(text.splitlines())} lines, "
+        f"sections {sections}; the step stage {' '.join(stage[0][1:])}"
+        if stage else f"  (e) obs_report: rc 0, sections {sections}")
+
+
 def phase_analyzer(work: str, smi: str) -> dict:
     """Phase 22: the port's own analyzer where the port runs (the card
     machine has no jax). (a) ``python -m difacto_tpu_torch.analysis``
@@ -6279,7 +6469,9 @@ def phase_analyzer(work: str, smi: str) -> dict:
     warm-up dump) and of both ranks' runs, and ``collmap --check`` over
     both ranks' scans, each merged with the static model: dynamic within
     static (no unknown site, copy, collective, grown unbounded signature
-    or unknown hot-path sync)."""
+    or unknown hot-path sync). (d) ``lockmap --check`` over phase 18
+    (d)'s lock dump: no dynamic-only edge, no cycle. (e) ``obs_report``
+    over phase 12 (e)'s ``metrics_path`` JSONL."""
     import collections
     import contextlib
     import io
@@ -6357,6 +6549,7 @@ def phase_analyzer(work: str, smi: str) -> dict:
     log(f"  (c) devmap --check over the serve, train and two rank dumps "
         f"and collmap --check over the two scans: 0 each; the observed "
         f"undeclared syncs by the model's verdict: {verdicts}")
+    _p22_tools(work, root)
     dt = time.monotonic() - t22
     log(f"phase 22 ok in {dt:.1f} s: the port's analyzer on the card "
         f"machine ({smi})")

@@ -37,7 +37,8 @@ Three rules, all cross-file:
 The runtime half is utils/collscan.py (``DIFACTO_HLOSCAN=1``); ``python
 -m difacto_tpu_torch.tools.collmap --check`` merges its dumps with this
 model: every collective must be recorded at a site the model knows (a
-traced program, or a call that reaches a collective).
+traced program, or a call that reaches a collective or the moves between
+a mesh's logical devices, parallel/mesh.device_copy).
 
 Blind spots, as in JAX: table provenance is name-based and one
 assignment hop deep; collectives reached through dynamic dispatch are
@@ -130,6 +131,15 @@ def _is_dist_collective(cn: str) -> bool:
     return tail in COLLECTIVES and head in _DIST_HEADS
 
 
+# the one move between a mesh's logical devices (parallel/mesh.py): the
+# collective scan records its bytes, so its call sites are known sites
+_DEVICE_COPY = "device_copy"
+
+
+def _is_recorded_move(cn: str) -> bool:
+    return _is_dist_collective(cn) or _last(cn) == _DEVICE_COPY
+
+
 class ShardModel:
     """The whole-program sharding-flow model. Built once per Project
     (cached — the three rules, collmap and the gates share it)."""
@@ -167,7 +177,7 @@ class ShardModel:
                 continue
             for n in ast.walk(fi.node):
                 if isinstance(n, ast.Call) and (
-                        _is_dist_collective(call_name(n))
+                        _is_recorded_move(call_name(n))
                         or any(_is_dist_collective(dotted(a))
                                for a in n.args)):
                     funcs.add(qual)

@@ -241,7 +241,7 @@ class _Staged(NamedTuple):
     binary: bool
     nrows: int
     chunks: Optional[tuple] = None
-    route: Optional[tuple] = None   # (offsets, local slots) under a mesh
+    route: Optional[tuple] = None   # (offsets, shard local slots): mesh
 
     @property
     def slots_offset(self) -> int:
@@ -1421,12 +1421,15 @@ class SGDLearner(Learner):
         route = None
         if self.mesh is not None and payload.layout in ("panel", "coo"):
             # the slot vector's shard runs, from its host copy: the fs + 1
-            # offsets stay on the host, the local slots ride to the card
-            from ..parallel.sharded import plan_slots
+            # offsets stay on the host, each shard's local slots ride to
+            # its own device
+            from ..parallel.sharded import place_local, plan_slots
             offsets, local = plan_slots(
                 payload.i32[off:off + payload.u_cap],
                 capacity or self.store.state.capacity, self.store.fs_count)
-            route = (offsets, to_dev(local))
+            route = (offsets, place_local(
+                offsets, local, self.store.shard_devices,
+                lambda a, d: devtrace.to_device(a, d, point="sgd.stage")))
         out = _DevPayload(*payload._replace(
             i32=to_dev(payload.i32), f32=to_dev(payload.f32),
             chunks=None if payload.chunks is None
@@ -1497,7 +1500,7 @@ class SGDLearner(Learner):
             nbytes = i32.nbytes + f32.nbytes + sum(
                 t.nbytes for t in chunks or () if t is not None)
             if payload.route is not None:
-                nbytes += payload.route[1].nbytes
+                nbytes += sum(t.nbytes for t in payload.route[1])
             cache.add(part, staged, nbytes,
                       capacity=self.store.state.capacity)
 

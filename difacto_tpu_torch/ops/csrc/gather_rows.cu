@@ -140,16 +140,25 @@ const Kernel kKernels[kDepths] = {&gather_rows_kernel<1>,
 // of shallow ones on the H100 (PERF.md).
 constexpr int kBlocksPerSM = 4;
 
+// Devices whose figures each host thread keeps (ids past it are refused).
+constexpr int kMaxDevices = 64;
+
 // Warps each kernel keeps on the card at once (its resident blocks per SM,
 // from its registers, at most kBlocksPerSM, times the SMs), cached per
-// host thread and device.
+// host thread and device, so launches that alternate between the shards'
+// cards never query again.
 cudaError_t resident_warps(int64_t out[kDepths]) {
-  thread_local int cached_dev = -1;
-  thread_local int64_t cached[kDepths];
+  struct Entry {
+    bool known = false;
+    int64_t warps[kDepths];
+  };
+  thread_local Entry cache[kMaxDevices];
   int id = 0;
   cudaError_t rc = cudaGetDevice(&id);
   if (rc != cudaSuccess) return rc;
-  if (cached_dev != id) {
+  if (id < 0 || id >= kMaxDevices) return cudaErrorInvalidDevice;
+  Entry& e = cache[id];
+  if (!e.known) {
     int sms = 0;
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, id);
     for (int k = 0; k < kDepths && rc == cudaSuccess; ++k) {
@@ -159,12 +168,12 @@ cudaError_t resident_warps(int64_t out[kDepths]) {
       if (rc == cudaSuccess && (blocks < 1 || sms < 1))
         rc = cudaErrorInvalidConfiguration;
       if (blocks > kBlocksPerSM) blocks = kBlocksPerSM;
-      cached[k] = static_cast<int64_t>(blocks) * sms * kWarps;
+      e.warps[k] = static_cast<int64_t>(blocks) * sms * kWarps;
     }
     if (rc != cudaSuccess) return rc;
-    cached_dev = id;
+    e.known = true;
   }
-  for (int k = 0; k < kDepths; ++k) out[k] = cached[k];
+  for (int k = 0; k < kDepths; ++k) out[k] = e.warps[k];
   return cudaSuccess;
 }
 

@@ -534,17 +534,24 @@ const void* kernel_of(bool epilogue) {
                   : reinterpret_cast<const void*>(&scatter_kernel<false>);
 }
 
+// Devices whose figures each host thread keeps (ids past it are refused).
+constexpr int kMaxDevices = 64;
+
 // The device's SM count and opt-in shared memory, and both kernels allowed
-// that much dynamic shared memory; cached per host thread and device.
+// that much dynamic shared memory on it; cached per host thread and
+// device, so launches that alternate between the shards' cards set the
+// attribute once per card.
 struct Device {
   int id = -1, sms = 0, smem_optin = 0;
 };
 
 cudaError_t current_device(Device* out) {
-  thread_local Device cached;
+  thread_local Device cache[kMaxDevices];
   int id = 0;
   cudaError_t rc = cudaGetDevice(&id);
   if (rc != cudaSuccess) return rc;
+  if (id < 0 || id >= kMaxDevices) return cudaErrorInvalidDevice;
+  Device& cached = cache[id];
   if (cached.id != id) {
     Device d;
     d.id = id;
@@ -568,17 +575,16 @@ cudaError_t current_device(Device* out) {
 cudaError_t blocks_per_sm(const Device& d, bool epilogue, int smem,
                           int* out) {
   struct Entry {
-    int dev = -1, smem = -1, blocks = 0;
+    int smem = -1, blocks = 0;
   };
-  thread_local Entry cache[2];
-  Entry& e = cache[epilogue ? 1 : 0];
-  if (e.dev != d.id || e.smem != smem) {
+  thread_local Entry cache[kMaxDevices][2];
+  Entry& e = cache[d.id][epilogue ? 1 : 0];
+  if (e.smem != smem) {
     int blocks = 0;
     const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kernel_of(epilogue), kThreads, smem);
     if (rc != cudaSuccess) return rc;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
-    e.dev = d.id;
     e.smem = smem;
     e.blocks = blocks;
   }

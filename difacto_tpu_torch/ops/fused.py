@@ -221,9 +221,12 @@ def gather_rows_cuda(table: torch.Tensor, slots: torch.Tensor,
                          f"{table.dtype} tensor on {table.device}")
     if u == 0:
         return out
-    rc = _gather_fn()(table.data_ptr(), slots.data_ptr(), out.data_ptr(),
-                      table.shape[0], u, row_bytes,
-                      torch.cuda.current_stream(table.device).cuda_stream)
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(table.device):
+        rc = _gather_fn()(table.data_ptr(), slots.data_ptr(),
+                          out.data_ptr(), table.shape[0], u, row_bytes,
+                          torch.cuda.current_stream(
+                              table.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{rc}")
@@ -355,13 +358,15 @@ def _launch_scatter(table, slots, rows, row_bytes, gw=None, gV=None,
         return
     hyper = (ctypes.c_float * 8)(*(epi.hyper if epi else (0.0,) * 8))
     k, h, off = (epi.k, epi.h, epi.off) if epi else (0, 0, 0)
-    rc = _scatter_fn()(
-        table.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-        gw.data_ptr() if epi else None, gV.data_ptr() if epi else None,
-        vmask.data_ptr() if epi else None, table.shape[0], u, row_bytes,
-        k, h, off, _CONTAINER[epi.kind] if epi else 0, 1 if epi else 0,
-        ctypes.cast(hyper, ctypes.c_void_p),
-        torch.cuda.current_stream(table.device).cuda_stream)
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(table.device):
+        rc = _scatter_fn()(
+            table.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+            gw.data_ptr() if epi else None, gV.data_ptr() if epi else None,
+            vmask.data_ptr() if epi else None, table.shape[0], u,
+            row_bytes, k, h, off, _CONTAINER[epi.kind] if epi else 0,
+            1 if epi else 0, ctypes.cast(hyper, ctypes.c_void_p),
+            torch.cuda.current_stream(table.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_epilogue kernel launch failed: CUDA "
                            f"error {rc}")

@@ -8,10 +8,12 @@ over a ``(1, fs)`` mesh, runs the port's train step (step.make_step_fns:
 the sharded gather, the FM forward and backward, the sharded FTRL/AdaGrad
 push) on a synthetic COO batch of uniform slot draws, and reports its
 examples per second beside the bytes of each shard and of the device.
-The port's mesh lies on one device (parallel/mesh.make_mesh), which holds
-every shard: ``table_bytes_per_device`` is the whole table and grows with
-fs, and the throughput is the cost of a larger table routed over fs key
-ranges.
+Each logical device of the mesh holds one shard, in allocations of its
+own (parallel/sharded.ShardedState): ``table_bytes_per_device`` is read
+from those allocations and is the JAX report's ``total // fs``, so it
+stays flat as fs grows; the throughput is the cost of a larger table
+routed over fs key ranges (on one card, every logical device shares its
+memory and its time).
 
 ``bounded_delay_report`` (the JAX report's counterpart) drives the same
 real fs-sharded train step through the windowed pipeline of multi-host
@@ -59,10 +61,10 @@ def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
         if fs > n_dev:
             continue
         cap = base_capacity * fs
-        param, train_step, state, b, slots = _synthetic_step(
+        param, train_step, store, b, slots = _synthetic_step(
             fs, base_capacity, V_dim, batch, nnz_per_row, v_dtype,
             slot_dtype, dev, rng)
-        state, objv, _ = train_step(state, b, slots)   # warm
+        state, objv, _ = train_step(store.state, b, slots)   # warm
         fence(objv)
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -70,15 +72,16 @@ def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
         fence(objv)
         dt = time.perf_counter() - t0
         total = state_bytes(param, cap)
+        per_device = max(store.device_bytes())
         legs.append({
             "fs": fs, "hash_capacity": cap,
             "table_bytes_total": int(total),
             "table_bytes_per_shard": int(total // fs),
-            # every shard is on the mesh's one device
-            "table_bytes_per_device": int(total),
+            # one shard per logical device, read from its allocations
+            "table_bytes_per_device": int(per_device),
             "examples_per_sec": round(steps * batch / dt, 1),
             "step_ms": round(dt / steps * 1e3, 3)})
-        del state
+        del state, store
     out = {"metric": "multichip_capacity_scaling", "n_devices": n_dev,
            "config": {"base_capacity": base_capacity, "V_dim": V_dim,
                       "batch": batch, "nnz_per_row": nnz_per_row,
@@ -101,7 +104,7 @@ def capacity_scaling_report(fs_values: Optional[Sequence[int]] = None,
 def _synthetic_step(fs: int, base_capacity: int, V_dim: int, batch: int,
                     nnz_per_row: int, v_dtype: str, slot_dtype: str, dev,
                     rng):
-    """(param, train_step, state, batch, slots) of a ``base_capacity *
+    """(param, train_step, store, batch, slots) of a ``base_capacity *
     fs``-row hashed table sharded over a (1, fs) mesh and a synthetic COO
     batch of uniform slot draws from ``rng``."""
     import numpy as np
@@ -138,7 +141,7 @@ def _synthetic_step(fs: int, base_capacity: int, V_dim: int, batch: int,
         index=idx, value=None)
     b = pad_batch(blk, num_uniq=u_cap, batch_cap=batch,
                   nnz_cap=batch * nnz_per_row, device=dev)
-    return param, train_step, store.state, b, slots
+    return param, train_step, store, b, slots
 
 
 def bounded_delay_report(hosts_values: Sequence[int] = (1, 2, 4),
@@ -172,9 +175,10 @@ def bounded_delay_report(hosts_values: Sequence[int] = (1, 2, 4),
     dev = resolve_device(device)
     n_dev = len(logical_devices(dev)[0])
     fs = min(fs, n_dev)
-    _, step, state, b, slots = _synthetic_step(
+    _, step, store, b, slots = _synthetic_step(
         fs, base_capacity, V_dim, batch, nnz_per_row, v_dtype, slot_dtype,
         dev, np.random.RandomState(seed))
+    state = store.state
 
     def fence(objv):
         return float(devtrace.fetch(objv, point="capacity.fence",

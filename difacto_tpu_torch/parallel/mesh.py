@@ -4,24 +4,29 @@ port.
 
 - ``fs`` (feature shards): the slot table's capacity axis is cut into
   ``fs`` contiguous key ranges, the analog of ps-lite's key-range server
-  sharding (src/store/kvstore_dist.h:90-118). Shard ``i`` owns the slots
-  ``[i * C / fs, (i + 1) * C / fs)``; every pull and push of a batch is
-  routed to the shards its sorted slot vector touches
-  (parallel/sharded.py), one kernel launch per non-empty range.
+  sharding (src/store/kvstore_dist.h:90-118). Shard ``f`` owns the slots
+  ``[f * C / fs, (f + 1) * C / fs)`` and lives on ``devices[0][f]``, one
+  allocation of its own per state leaf (parallel/sharded.ShardedState);
+  every pull and push of a batch is routed to the shards its sorted slot
+  vector touches (parallel/sharded.py), one kernel launch per non-empty
+  range, on the shard's device.
 - ``dp`` (data parallel): each batch's leading axes are cut into ``dp``
   equal blocks, the analog of DiFacto's data-parallel workers; each
   block's per-slot gradient partials are summed in dp order, one push
   per shard (step.py). The step is synchronous, as the JAX package's is.
+  The batch, the pulled rows, the loss and the dp partials live on the
+  home device ``devices[0][0]``.
 
 Devices come from :func:`~difacto_tpu_torch.utils.platform.mesh_devices`:
 the visible cards, or the CPU, each repeated
 ``DIFACTO_TORCH_VIRTUAL_DEVICES`` times, so the 2 x 4 mesh of the example
 configs runs on one card (its eight logical devices all on that card) as
-the JAX package's tests run it on eight virtual CPU devices. In one
-process a mesh lies on one physical device: the table is one tensor
-there and each shard and each batch block is a view of it. A mesh over
-several cards of one process raises (placing each shard on its own card
-is a ROADMAP.md follow-up).
+the JAX package's tests run it on eight virtual CPU devices, and on four
+cards shard ``f`` sits on card ``f``. A logical device is a placement of
+its own whatever card it maps to: every shard is its own allocation, and
+every move between logical devices is an explicit copy through
+:func:`device_copy`, so one card (or the CPU) runs the code a host of
+several cards runs.
 
 Across processes (parallel/multihost.py, launch.py) the dp axis spans
 them, host-major, as in the JAX package (mesh.py:53-65): process ``r``
@@ -40,15 +45,18 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..utils import collscan
+
 DP_AXIS = "dp"
 FS_AXIS = "fs"
 
 
 class Mesh:
-    """A ``dp x fs`` grid of logical devices. ``devices[d][f]`` (each a
-    ``torch.device``, all the same physical one) are this process's rows
-    of the grid: its dp blocks ``dp_local``, a range of the global dp
-    axis (all of it in one process)."""
+    """A ``dp x fs`` grid of logical devices. ``devices[d][f]`` (each the
+    ``torch.device`` of the physical device it maps to) are this
+    process's rows of the grid: its dp blocks ``dp_local``, a range of
+    the global dp axis (all of it in one process). Shard ``f`` of the
+    table lives on ``devices[0][f]``."""
 
     def __init__(self, devices: Sequence[Sequence[torch.device]],
                  dp: Optional[int] = None, dp_lo: int = 0):
@@ -67,14 +75,19 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        """This process's one physical device of the mesh: its replica of
-        the table, its batch blocks and its steps live there."""
+        """The mesh's home device, ``devices[0][0]``: the batch, the
+        pulled rows, the loss, the dp partials and shard 0 live there."""
         return self.devices[0][0]
+
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        """The device of each fs shard, in shard order."""
+        return list(self.devices[0])
 
     def __repr__(self) -> str:
         return (f"Mesh(dp={self.dp}, fs={self.fs}, dp_local="
-                f"[{self.dp_local.start}, {self.dp_local.stop}), on "
-                f"{self.home})")
+                f"[{self.dp_local.start}, {self.dp_local.stop}), shards on "
+                f"{', '.join(str(d) for d in self.devices[0])})")
 
 
 def make_mesh(dp: int = 1, fs: int = 1,
@@ -84,7 +97,9 @@ def make_mesh(dp: int = 1, fs: int = 1,
     ``device``'s kind (utils/platform.mesh_devices) or of ``devices``.
     Axis sizes must be powers of two: every sharded dimension (the table
     capacity, the batch buckets) is padded to a power of two or 1.5 times
-    one, so only power-of-two axes divide them evenly.
+    one, so only power-of-two axes divide them evenly. ``devices`` may
+    name distinct physical devices (``cuda:0`` .. ``cuda:3``: shard ``f``
+    on card ``f``) or repeat one; nothing is allocated here.
 
     Across processes the JAX package's rules hold (mesh.py:53-65 and its
     learner's sgd.py:473-478): the mesh uses every logical device of
@@ -123,13 +138,7 @@ def make_mesh(dp: int = 1, fs: int = 1,
         devices = mesh_devices(n, device)
     if len(devices) < n:
         raise ValueError(f"need {n} devices, have {len(devices)}")
-    devices = list(devices)[:n]
-    if len(set(devices)) > 1:
-        raise NotImplementedError(
-            f"a mesh over {len(set(devices))} physical devices is not "
-            "ported yet (ROADMAP.md: the mesh on several cards, each "
-            "shard on its own card); set DIFACTO_TORCH_VIRTUAL_DEVICES to "
-            "put the mesh on one card")
+    devices = [torch.device(d) for d in list(devices)[:n]]
     return Mesh([devices[d * fs:(d + 1) * fs] for d in range(dp_local)],
                 dp=dp, dp_lo=process_index() * dp_local)
 
@@ -166,12 +175,53 @@ def fs_shard_bounds(capacity: int, fs: int):
 
 
 # ------------------------------------------------------------ placement
+def _stream_of(device: torch.device):
+    return torch.cuda.current_stream(device) if device.type == "cuda" \
+        else None
+
+
+def device_copy(x: torch.Tensor, device=None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The one move between logical devices: a copy of ``x`` into ``out``
+    (or into a new tensor on ``device``). It always copies, also when both
+    logical devices map to one card, so that one card and the CPU run the
+    code of a host of several cards. On cards it is ordered against the
+    kernels of both devices' current streams with events, without a host
+    sync: the copy runs on the source's current stream once the
+    destination's stream has reached it, and the destination's stream
+    waits for the copy (one stream, as on one card, orders it by itself).
+    With ``DIFACTO_HLOSCAN=1`` the bytes it moves are recorded through
+    utils/collscan (kind ``device_copy``), never as a table-axis
+    collective."""
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    src, dst = _stream_of(x.device), _stream_of(out.device)
+    if src is None or dst is None or src == dst:
+        out.copy_(x)
+    else:
+        ready = torch.cuda.Event()
+        ready.record(dst)
+        src.wait_event(ready)
+        with torch.cuda.device(x.device), torch.cuda.stream(src):
+            out.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(src)
+        dst.wait_event(done)
+    if collscan.enabled():
+        collscan.record_collective("device_copy", x.shape, x.dtype,
+                                   x.numel() * x.element_size(), 1,
+                                   skip_files=(__file__,))
+    return out
+
+
 def state_sharding(mesh: Mesh):
     """The table's placement (JAX: ``P('fs', None)`` on every state
     leaf): a function of a [C, ...] tensor to its fs key-range shards,
-    views of it (the mesh lies on one device)."""
+    shard ``f`` copied (:func:`device_copy`) into an allocation of its
+    own on ``mesh.devices[0][f]``."""
     def place(x: torch.Tensor) -> list:
-        return [x[lo:hi] for lo, hi in fs_shard_bounds(x.shape[0], mesh.fs)]
+        return [device_copy(x[lo:hi], dev) for (lo, hi), dev in zip(
+            fs_shard_bounds(x.shape[0], mesh.fs), mesh.shard_devices)]
     return place
 
 

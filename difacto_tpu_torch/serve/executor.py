@@ -157,6 +157,10 @@ class PredictExecutor:
                 "swap keeps the store functions, so a geometry change "
                 "must go through the blue/green executor swap "
                 "(serve/reload.py, requires a server-attached reloader)")
+        # every shard device's work on the new table is done before the
+        # swap: a predict on the new store may launch on any of them
+        for dev in {t.device for t in store.state if t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
         with self._mu:
             # lint: ok(data-race) atomic reference swap (hot-reload commit):
             # predict and warm_bucket read self.store once per batch

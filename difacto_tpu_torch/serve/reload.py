@@ -44,24 +44,33 @@ log = logging.getLogger("difacto_tpu_torch")
 
 
 def _open_on_side_stream(target: str, kwargs, device):
-    """``open_serving_store(fallback=False)`` with its device work on a
-    side stream of ``device`` (the current stream on the CPU); returns
-    once the new table is complete."""
+    """``open_serving_store(fallback=False)`` with its device work on side
+    streams (the current stream on the CPU): one on every visible card,
+    since a sharded table may put its key-range shards on any of them;
+    returns once the new table is complete on every card."""
+    import contextlib
+
     import torch
 
     from .model import open_serving_store
     if device.type != "cuda":
         return open_serving_store(target, kwargs, fallback=False,
                                   device=device)
-    side = torch.cuda.Stream(device=device)
-    consumer = torch.cuda.default_stream(device)
-    with torch.cuda.stream(side):
+    sides = [torch.cuda.Stream(device=torch.device("cuda", i))
+             for i in range(torch.cuda.device_count())]
+    with contextlib.ExitStack() as stack:
+        for side in sides:
+            stack.enter_context(torch.cuda.stream(side))
+        # entering a stream makes its card current: the store's own
+        # device is current while it is built
+        stack.enter_context(torch.cuda.device(device))
         out = open_serving_store(target, kwargs, fallback=False,
                                  device=device)
-    side.synchronize()
+    for side in sides:
+        side.synchronize()
     for t in out[0].state:
         if t.is_cuda:
-            t.record_stream(consumer)
+            t.record_stream(torch.cuda.default_stream(t.device))
     return out
 
 

@@ -41,18 +41,28 @@ def _empty_cols(device: torch.device) -> dict:
                 v_live=torch.zeros(0, dtype=torch.bool, device=device))
 
 
-def state_to_numpy(param: SGDUpdaterParam, state: SGDState,
-                   keys=LOGICAL) -> dict:
-    """Host numpy view of the logical columns ``keys`` of ``state``."""
-    w, z, sg, cnt, live = scal_cols(param, state)
+def state_to_numpy(param: SGDUpdaterParam, state, keys=LOGICAL,
+                   capacity: Optional[int] = None) -> dict:
+    """Host numpy view of the logical columns ``keys`` of ``state``; a
+    parallel.sharded.ShardedState's shards come to the host one by one,
+    in shard order. ``capacity`` (default the state's) is the logical
+    table's whose row layout the rows have (a shard passes the whole
+    table's)."""
+    from ..parallel.sharded import ShardedState
+    if isinstance(state, ShardedState):
+        parts = [state_to_numpy(param, s, keys, state.capacity)
+                 for s in state.shards]
+        return {f: np.concatenate([p[f] for p in parts]) for f in keys}
+    capacity = capacity or state.capacity
+    w, z, sg, cnt, live = scal_cols(param, state, capacity)
     cols = {"w": w, "z": z, "sqrt_g": sg, "cnt": cnt, "v_live": live}
     if "V" in keys or "Vg" in keys:
         if param.V_dim == 0:
             cols["V"] = cols["Vg"] = state.VVg
         elif quantized(param):
-            cols["V"], cols["Vg"] = emb_cols_f32(param, state)
+            cols["V"], cols["Vg"] = emb_cols_f32(param, state, capacity)
         else:
-            k, h, _, _ = row_layout(param, state.capacity)
+            k, h, _, _ = row_layout(param, capacity)
             cols["V"], cols["Vg"] = state.VVg[:, :k], state.VVg[:, h:h + k]
     # lint: ok(torch-host-sync) the table's columns leave once per save
     # or shard report (a run's end), never per step
@@ -66,10 +76,13 @@ def state_to_numpy(param: SGDUpdaterParam, state: SGDState,
 def state_from_numpy(param: SGDUpdaterParam, arrays: dict,
                      device="cuda",
                      init: Optional[Callable[[int], SGDState]] = None,
-                     min_capacity: Optional[int] = None) -> SGDState:
+                     min_capacity: Optional[int] = None,
+                     capacity: Optional[int] = None) -> SGDState:
     """Device state from logical numpy columns (fused rows for V_dim > 0,
-    the flat columns for V_dim == 0); absent columns are zero, capacity
-    is the row count of ``w``.
+    the flat columns for V_dim == 0); absent columns are zero, the row
+    count is that of ``w``. ``capacity`` (default the row count) is the
+    logical table's whose row layout the rows take: a key-range shard's
+    rows pass the whole table's.
 
     With ``keys`` in ``arrays`` (a dictionary model, rows in key order),
     the capacity is ``min_capacity`` (default ``init_capacity``) doubled
@@ -88,7 +101,8 @@ def state_from_numpy(param: SGDUpdaterParam, arrays: dict,
             if f in cols and np.size(a):
                 cols[f][1:n + 1] = a
         arrays = cols
-    cap = int(np.asarray(arrays["w"]).shape[0])
+    n_rows = int(np.asarray(arrays["w"]).shape[0])
+    cap = capacity or n_rows
     k = param.V_dim
 
     def col(name, shape, dtype=torch.float32):
@@ -96,14 +110,14 @@ def state_from_numpy(param: SGDUpdaterParam, arrays: dict,
             return torch.zeros(shape, dtype=dtype, device=dev)
         return torch.as_tensor(np.asarray(arrays[name])).to(dev, dtype)
 
-    w, z, sg, cnt = (col(n, (cap,)) for n in ("w", "z", "sqrt_g", "cnt"))
-    live = col("v_live", (cap,), torch.bool)
+    w, z, sg, cnt = (col(n, (n_rows,)) for n in ("w", "z", "sqrt_g", "cnt"))
+    live = col("v_live", (n_rows,), torch.bool)
     if k == 0:
         return SGDState(w=w, z=z, sqrt_g=sg, cnt=cnt, v_live=live,
-                        VVg=torch.zeros((cap, 0), dtype=torch.float32,
+                        VVg=torch.zeros((n_rows, 0), dtype=torch.float32,
                                         device=dev))
-    T = build_rows(param, cap, col("V", (cap, k)), col("Vg", (cap, k)),
-                   w, z, sg, cnt, live)
+    T = build_rows(param, cap, col("V", (n_rows, k)),
+                   col("Vg", (n_rows, k)), w, z, sg, cnt, live)
     return SGDState(VVg=T, **_empty_cols(dev))
 
 
@@ -147,7 +161,6 @@ def read_sharded_columns(path: str, fs_count: int, capacity: int,
     (state_from_numpy makes absent columns zero)."""
     from ..parallel.mesh import fs_shard_bounds
     from ..utils import manifest as mft
-    from ..utils import stream
     try:
         bounds = fs_shard_bounds(capacity, fs_count)
     except ValueError as e:
@@ -162,31 +175,49 @@ def read_sharded_columns(path: str, fs_count: int, capacity: int,
                    sqrt_g=np.zeros(capacity, np.float32),
                    Vg=np.zeros((capacity, V_dim), np.float32))
     for i, (lo, hi) in enumerate(bounds):
-        sp = fs_shard_path(path, i, fs_count)
-        try:
-            sctx = (mft.open_verified(sp, require_manifest=True,
-                                      fault_point="ckpt.read") if verify
-                    else stream.load_npz(sp, fault_point="ckpt.read"))
-        except FileNotFoundError as e:
-            raise mft.CheckpointCorrupt(
-                path, f"shard member {sp!r} is missing (torn or "
-                      f"partially pruned {fs_count}-shard save)") from e
-        with sctx as sz:
-            if (int(sz["hash_capacity"]) != capacity
-                    or int(sz["fs_count"]) != fs_count
-                    or int(sz["row_lo"]) != lo
-                    or int(sz["row_hi"]) != hi):
-                raise mft.CheckpointCorrupt(
-                    sp, f"shard geometry disagrees with its stub "
-                        f"(expected rows [{lo}, {hi}) of {capacity} over "
-                        f"{fs_count} shards)")
-            for k in loaded:
-                if k in sz.files:
-                    a = sz[k]
-                    if np.asarray(a).shape[0] != hi - lo:
-                        raise mft.CheckpointCorrupt(
-                            sp, f"array {k!r} has {np.asarray(a).shape[0]} "
-                                f"rows, shard owns {hi - lo}")
-                    arr[k][lo:hi] = a
-            getattr(sz, "finish", lambda: None)()
+        for k, a in read_shard_member(path, i, fs_count, capacity, loaded,
+                                      verify).items():
+            arr[k][lo:hi] = a
     return arr
+
+
+def read_shard_member(path: str, i: int, fs_count: int, capacity: int,
+                      loaded, verify: bool = True) -> dict:
+    """The columns ``loaded`` of member ``i`` of a per-key-range
+    checkpoint (rows ``[i * C/n, (i + 1) * C/n)``), digest-verified unless
+    ``verify`` is off; a missing member or a geometry that disagrees with
+    the stub raises ``CheckpointCorrupt``. A store of the same ``fs``
+    loads each member straight into its shard."""
+    from ..parallel.mesh import fs_shard_bounds
+    from ..utils import manifest as mft
+    from ..utils import stream
+    lo, hi = fs_shard_bounds(capacity, fs_count)[i]
+    sp = fs_shard_path(path, i, fs_count)
+    try:
+        sctx = (mft.open_verified(sp, require_manifest=True,
+                                  fault_point="ckpt.read") if verify
+                else stream.load_npz(sp, fault_point="ckpt.read"))
+    except FileNotFoundError as e:
+        raise mft.CheckpointCorrupt(
+            path, f"shard member {sp!r} is missing (torn or "
+                  f"partially pruned {fs_count}-shard save)") from e
+    out = {}
+    with sctx as sz:
+        if (int(sz["hash_capacity"]) != capacity
+                or int(sz["fs_count"]) != fs_count
+                or int(sz["row_lo"]) != lo
+                or int(sz["row_hi"]) != hi):
+            raise mft.CheckpointCorrupt(
+                sp, f"shard geometry disagrees with its stub "
+                    f"(expected rows [{lo}, {hi}) of {capacity} over "
+                    f"{fs_count} shards)")
+        for k in loaded:
+            if k in sz.files:
+                a = sz[k]
+                if np.asarray(a).shape[0] != hi - lo:
+                    raise mft.CheckpointCorrupt(
+                        sp, f"array {k!r} has {np.asarray(a).shape[0]} "
+                            f"rows, shard owns {hi - lo}")
+                out[k] = a
+        getattr(sz, "finish", lambda: None)()
+    return out

@@ -45,14 +45,22 @@ a tier) or resets the lowest-count rows at epoch ends
 same gather and scatter kernels.
 
 Under a ``(dp, fs)`` mesh (parallel/mesh.py, ``mesh=``) the table is cut
-into ``fs`` contiguous key-range shards: the fused table stays one tensor
-on the mesh's one device and each shard is a view of its rows; the
-batch's pulls and pushes run one kernel launch per
-shard run (parallel/sharded.py) on the slots :meth:`shard_slots` routes.
-``save`` then writes per-key-range members ``<path>_fs-<i>-of-<n>`` and
-the array-free stub last, and a load takes any layout into any ``fs``,
-as the JAX store does. The cold tier and the write-ahead log refuse a
-mesh with the JAX package's errors.
+into ``fs`` contiguous key-range shards: with ``fs > 1`` the state is a
+parallel.sharded.ShardedState whose shard ``f`` holds rows ``[f * C/fs,
+(f + 1) * C/fs)`` of every leaf in allocations of its own on the mesh's
+``devices[0][f]``, and no tensor holds the whole table. Its rows are
+made there (updaters/sgd_updater.init_rows, or the slices of a given
+init provider's table), a doubling moves rows between shards
+(``grow_sharded``), the batch's pulls and pushes run one kernel launch
+per shard run on the shard's device (parallel/sharded.py) on the slots
+:meth:`shard_slots` routes, and evaluation sums the shards' partials in
+shard order. ``save`` then writes per-key-range members
+``<path>_fs-<i>-of-<n>`` (each from its shard) and the array-free stub
+last; a load of ``fs`` members fills each shard from its member, and any
+other layout loads into any ``fs``, as the JAX store does. The
+per-device figures of :meth:`capacity_stats` are read from the shards'
+allocations. The cold tier and the write-ahead log refuse a mesh with
+the JAX package's errors.
 """
 
 from __future__ import annotations
@@ -64,18 +72,43 @@ import torch
 
 from ..base import FEAID_DTYPE, reverse_bytes
 from ..updaters.sgd_updater import (TRASH_SLOT, SGDState, SGDUpdaterParam,
-                                    grow_state, init_state, make_fns)
+                                    grow_sharded, grow_state, init_rows,
+                                    init_state, make_fns)
 from ..utils import manifest as mft
 from ..utils import stream
 from ..utils.platform import resolve_device
-from .convert import (fs_shard_path, read_sharded_columns,
-                      state_from_numpy, state_to_numpy)
+from .convert import (fs_shard_path, read_shard_member,
+                      read_sharded_columns, state_from_numpy,
+                      state_to_numpy)
 from .slots import hash_slots, pad_slots_oob  # noqa: F401
 
 # the KV API's value-type channels (include/difacto/store.h:33-35)
 K_FEACOUNT = 1
 K_WEIGHT = 2
 K_GRADIENT = 3
+
+
+def collision_stats(ids: np.ndarray, hash_capacity: int) -> dict:
+    """Hashed-store collision accounting for a set of distinct feature ids
+    (the JAX store's ``collision_stats``, the same keys): the reference's
+    distributed SGD keys the model by exact 64-bit id, so no two features
+    alias; the hashed store trades that for a fixed capacity.
+    ``collided_frac`` is the fraction of distinct ids that share their slot
+    with at least one other id (their gradients merge for good);
+    tools/collision_study.py measures what that costs in AUC."""
+    ids = np.unique(np.asarray(ids, dtype=FEAID_DTYPE))
+    slots = hash_slots(reverse_bytes(ids), hash_capacity)
+    n = len(ids)
+    # O(n): a bincount over the table would allocate O(hash_capacity)
+    _, occ = np.unique(slots, return_counts=True)
+    collided = n - int((occ == 1).sum())
+    return {
+        "n_ids": n,
+        "hash_capacity": hash_capacity,
+        "load_factor": round(n / max(hash_capacity - 1, 1), 4),
+        "slots_used": len(occ),
+        "collided_frac": round(collided / max(n, 1), 4),
+    }
 
 
 class SlotStore:
@@ -101,6 +134,7 @@ class SlotStore:
         self.read_only = read_only
         self.fns = make_fns(param, mesh)
         self.hashed = param.hash_capacity > 0
+        self._provider = init
         self._init = init if init is not None else (
             lambda capacity: init_state(param, capacity, self.device))
         self._keys = np.empty(0, dtype=FEAID_DTYPE)
@@ -135,7 +169,7 @@ class SlotStore:
             # keeps the capacity divisible (grow_to checks again)
             from ..parallel import validate_fs_capacity
             validate_fs_capacity(cap, self.fs_count)
-        self.state: SGDState = self._init(cap)
+        self.state = self._fresh(cap)
         self.tier = None
         if tiered:
             from ..capacity.tier import ColdTier
@@ -149,16 +183,56 @@ class SlotStore:
         from ..parallel import fs_size
         return fs_size(self.mesh)
 
+    @property
+    def shard_devices(self) -> list:
+        """The device of each key-range shard, in shard order (the one
+        device without a mesh)."""
+        return [self.device] if self.mesh is None \
+            else self.mesh.shard_devices
+
     def shard_slots(self, slots: torch.Tensor, host_slots: np.ndarray,
                     capacity: int):
         """The slot argument of ``self.fns`` for a batch: ``slots`` itself
         without a mesh; under one, a parallel.sharded.ShardedSlots routed
         on the host copy ``host_slots`` over a ``capacity``-row table (the
-        one the batch was padded for)."""
+        one the batch was padded for), each shard's local slots on its
+        device."""
         if self.mesh is None:
             return slots
         from ..parallel import sharded
-        return sharded.route(slots, host_slots, capacity, self.fs_count)
+        return sharded.route(slots, host_slots, capacity, self.fs_count,
+                             self.shard_devices)
+
+    def _fresh_rows(self, capacity: int, lo: int, hi: int,
+                    device: torch.device, memo: Optional[dict] = None
+                    ) -> SGDState:
+        """Rows ``[lo, hi)`` of a fresh ``capacity``-row table on
+        ``device``: drawn there (updaters/sgd_updater.init_rows), or cut
+        from the init provider's table (``memo`` keeps one per
+        capacity)."""
+        if self._provider is None:
+            return init_rows(self.param, capacity, lo, hi, device)
+        from ..parallel.mesh import device_copy
+        memo = {} if memo is None else memo
+        if capacity not in memo:
+            memo[capacity] = self._provider(capacity)
+        return SGDState(*(device_copy(t[lo:hi], device)
+                          for t in memo[capacity]))
+
+    def _fresh(self, capacity: int):
+        """A fresh table of ``capacity`` rows: the init provider's, or
+        under ``fs > 1`` a ShardedState whose every shard's rows are made
+        on its device."""
+        if self.fs_count == 1:
+            return self._init(capacity)
+        from ..parallel import fs_shard_bounds
+        from ..parallel.sharded import ShardedState
+        memo: dict = {}
+        return ShardedState([
+            self._fresh_rows(capacity, lo, hi, dev, memo)
+            for (lo, hi), dev in zip(fs_shard_bounds(capacity,
+                                                     self.fs_count),
+                                     self.shard_devices)])
 
     # ------------------------------------------------------------- keys
     @property
@@ -248,6 +322,12 @@ class SlotStore:
             if self.fs_count > 1:
                 from ..parallel import validate_fs_capacity
                 validate_fs_capacity(capacity, self.fs_count)
+                memo: dict = {}
+                self.state = grow_sharded(
+                    self.param, self.state, capacity,
+                    lambda c, lo, hi, dev: self._fresh_rows(c, lo, hi, dev,
+                                                            memo))
+                return
             self.state = grow_state(self.param, self.state, capacity,
                                     self._init)
 
@@ -398,36 +478,57 @@ class SlotStore:
         """Reset the scalars of the given sorted device rows to virgin
         (w = z = sqrt_g = cnt = 0, live False): the eviction without a
         tier. Fused rows take one gather and one scatter (the kernels on
-        the card) with the V halves and the quant scales carried."""
+        the card) with the V halves and the quant scales carried; under a
+        mesh each shard resets its own rows on its device."""
         n = len(victims)
         if n == 0:
             return 0
-        st = self.state
+        from ..parallel.sharded import shard_states
+        for st, lo, hi in shard_states(self.state):
+            v = victims[(victims >= lo) & (victims < hi)] - lo
+            if len(v):
+                self._reset_shard_rows(st, v, hi - lo)
+        return n
+
+    def _reset_shard_rows(self, st: SGDState, victims: np.ndarray,
+                          n_rows: int) -> None:
+        """:meth:`_reset_rows` of one ``n_rows``-row table (a shard, or
+        the whole table), ``victims`` its local rows."""
+        dev = st.VVg.device
         if self.param.V_dim == 0:
-            vj = torch.from_numpy(victims.astype(np.int64)).to(self.device)
+            vj = torch.from_numpy(victims.astype(np.int64)).to(dev)
             for col in (st.w, st.z, st.sqrt_g, st.cnt):
                 col[vj] = 0.0
             st.v_live[vj] = False
-            return n
+            return
         from ..ops import fused
         from ..ops.batch import bucket
         from ..updaters.sgd_updater import pack_scal, row_layout, scal_f32
-        _, _, _, off = row_layout(self.param, st.capacity)
-        sl = self.pad_slots(victims.astype(np.int32), bucket(n))
+        _, _, _, off = row_layout(self.param, self.state.capacity)
+        sl = torch.from_numpy(pad_slots_oob(
+            victims.astype(np.int32), bucket(len(victims)), n_rows)).to(dev)
         rows = fused.gather_rows(st.VVg, sl)
         f = scal_f32(rows[:, off:])
         zero = torch.zeros(rows.shape[0], dtype=torch.float32,
-                           device=rows.device)
+                           device=dev)
         scal = pack_scal(zero, zero, zero, zero, zero.to(torch.bool),
                          rows.dtype, scale_V=f[:, 5], scale_Vg=f[:, 6])
         out = torch.cat([rows[:, :off], scal], dim=1)
-        self.state = st._replace(VVg=fused.scatter_rows(st.VVg, sl, out))
-        return n
+        fused.scatter_rows(st.VVg, sl, out)
+
+    def device_bytes(self) -> list:
+        """Bytes each key-range shard's allocations hold on its device, in
+        shard order (one entry without a mesh): read from the tensors."""
+        from ..parallel.sharded import shard_states
+        return [sum(t.numel() * t.element_size() for t in st)
+                for st, _, _ in shard_states(self.state)]
 
     def capacity_stats(self) -> dict:
         """Effective-capacity accounting of the levers: logical rows
         against what an fp32, untiered table of the same device bytes
-        would hold."""
+        would hold. Under a mesh each logical device holds one shard, so
+        the per-device figures are the JAX store's ``total // fs`` and
+        ``logical // fs``, read from the shards' allocations."""
         import dataclasses
         from ..updaters.sgd_updater import state_bytes
         dev_rows = self.state.capacity
@@ -437,15 +538,12 @@ class SlotStore:
                                    V_dtype="float32", cold_tier_rows=0)
         base_bpr = state_bytes(base, dev_rows) / max(dev_rows, 1)
         baseline_rows = bytes_total / max(base_bpr, 1e-9)
-        # a mesh lies on one device (parallel/mesh.make_mesh), which holds
-        # every shard: the per-device figures are the whole table's, not
-        # the JAX store's total / fs
         out = {
             "slot_dtype": self.param.slot_dtype,
             "logical_rows": logical,
             "device_rows": dev_rows,
-            "table_bytes_per_device": bytes_total,
-            "effective_rows_per_device": logical,
+            "table_bytes_per_device": max(self.device_bytes()),
+            "effective_rows_per_device": logical // self.fs_count,
             "capacity_multiplier": round(logical / max(baseline_rows,
                                                        1e-9), 3),
         }
@@ -456,21 +554,20 @@ class SlotStore:
     def shard_stats(self) -> list:
         """Per-key-range shard occupancy: [{shard, row_lo, row_hi, rows,
         occupancy, table_bytes}] with ``rows`` the non-zero w of the
-        shard's range and ``table_bytes`` the bytes of the shard's rows
-        (state_bytes / fs; every shard is on the mesh's one device). Reads
-        the w column to the host: cold paths only."""
+        shard's range and ``table_bytes`` the bytes of the shard's
+        allocations on its device. Reads the w column to the host: cold
+        paths only."""
         from ..parallel import fs_shard_bounds
-        from ..updaters.sgd_updater import state_bytes
         w = self._state_np(("w",))["w"]
         cap, fs = self.state.capacity, self.fs_count
-        per_shard = state_bytes(self.param, cap) // fs
+        per_shard = self.device_bytes()
         out = []
         for i, (lo, hi) in enumerate(fs_shard_bounds(cap, fs)):
             rows = int((w[lo:hi] != 0).sum())
             out.append({"shard": i, "row_lo": lo, "row_hi": hi,
                         "rows": rows,
                         "occupancy": round(rows / max(hi - lo, 1), 6),
-                        "table_bytes": per_shard})
+                        "table_bytes": per_shard[i]})
         return out
 
     def publish_shard_stats(self) -> list:
@@ -620,11 +717,22 @@ class SlotStore:
         generation, so a save torn between members leaves no stub
         manifest and reads as incomplete, never as half a table."""
         from ..parallel import fs_shard_bounds
+        from ..parallel.sharded import ShardedState
         cap = self.param.hash_capacity
         bounds = fs_shard_bounds(cap, shards)
-        st = self._logical_np(saved)
+        if isinstance(self.state, ShardedState) and shards == self.fs_count:
+            # each member from its own shard, one at a time on the host
+            def member(i):
+                return state_to_numpy(self.param, self.state.shards[i],
+                                      saved, cap)
+        else:
+            st = self._logical_np(saved)
+
+            def member(i):
+                lo, hi = bounds[i]
+                return {k: st[k][lo:hi] for k in saved}
         gen = mft.next_generation(path)
-        n = int((st["w"] != 0).sum())
+        n = 0
         geom = dict(hash_capacity=np.array(cap),
                     V_dim=np.array(self.param.V_dim),
                     save_aux=np.array(save_aux),
@@ -633,16 +741,17 @@ class SlotStore:
                     cold_tier_rows=np.array(self.param.cold_tier_rows),
                     fs_count=np.array(shards))
         for i, (lo, hi) in enumerate(bounds):
-            man = {"learner": "sgd",
-                   "rows": int((st["w"][lo:hi] != 0).sum()),
+            cols = member(i)
+            rows = int((cols["w"] != 0).sum())
+            n += rows
+            man = {"learner": "sgd", "rows": rows,
                    "save_aux": bool(save_aux), "generation": gen,
                    "fs_shard": i, "fs_count": shards}
             if epoch is not None:
                 man["epoch"] = int(epoch)
             stream.save_npz(fs_shard_path(path, i, shards), manifest=man,
                             fault_point="ckpt.write", row_lo=np.array(lo),
-                            row_hi=np.array(hi), **geom,
-                            **{k: st[k][lo:hi] for k in saved})
+                            row_hi=np.array(hi), **geom, **cols)
         man = {"learner": "sgd", "rows": n, "save_aux": bool(save_aux),
                "generation": gen, "fs_count": shards}
         if epoch is not None:
@@ -691,6 +800,10 @@ class SlotStore:
                 arr = {key: z[key] for key in loaded + ("keys",)
                        if key in z.files}
             z.finish()  # digest sweep BEFORE the state commits
+        if sharded and fs_count == self.fs_count > 1:
+            # member i straight into shard i, on its device, each verified
+            # before anything commits
+            return self._load_members(path, loaded)
         if sharded:
             # per-key-range stub: the table lives in its members, each
             # verified before anything commits (store/convert.py)
@@ -711,9 +824,12 @@ class SlotStore:
             return int((np.asarray(arr["w"]) != 0).sum())
         keys = np.asarray(arr["keys"], dtype=FEAID_DTYPE)
         n = len(keys)
-        self.state = state_from_numpy(self.param, arr, self.device,
-                                      init=self._init,
-                                      min_capacity=self.state.capacity)
+        if self.fs_count > 1:
+            self.state = self._dict_shards(arr, n)
+        else:
+            self.state = state_from_numpy(self.param, arr, self.device,
+                                          init=self._init,
+                                          min_capacity=self.state.capacity)
         self._keys = keys
         self._slots = np.arange(1, n + 1, dtype=np.int64)
         self._next_slot = n + 1
@@ -725,6 +841,9 @@ class SlotStore:
         prefix [0, D) on the device and the tail into the host tier
         (capacity/tier.load_cold), so checkpoints cross tier settings both
         ways."""
+        if self.fs_count > 1:
+            self.state = self._placed(arr, self.param.hash_capacity)
+            return
         if self.tier is None:
             self.state = state_from_numpy(self.param, arr, self.device)
             return
@@ -741,6 +860,61 @@ class SlotStore:
                 "Vg": np.zeros((cap, k), np.float32)}
         full.update(arr)
         self.tier.load_cold(full)
+
+    def _placed(self, arr: dict, capacity: int):
+        """A ShardedState of logical host columns ``[capacity]``: each
+        shard's rows built on its device."""
+        from ..parallel import fs_shard_bounds
+        from ..parallel.sharded import ShardedState
+        return ShardedState([
+            state_from_numpy(self.param,
+                             {f: np.asarray(a)[lo:hi]
+                              for f, a in arr.items()},
+                             dev, capacity=capacity)
+            for (lo, hi), dev in zip(fs_shard_bounds(capacity,
+                                                     self.fs_count),
+                                     self.shard_devices)])
+
+    def _load_members(self, path: str, loaded) -> int:
+        """A per-key-range checkpoint of this store's ``fs``: member ``i``
+        verified and built into shard ``i`` on its device, one member on
+        the host at a time; the shards commit together."""
+        from ..parallel.sharded import ShardedState
+        cap = self.param.hash_capacity
+        shards, n = [], 0
+        for i, dev in enumerate(self.shard_devices):
+            cols = read_shard_member(path, i, self.fs_count, cap, loaded)
+            n += int((np.asarray(cols["w"]) != 0).sum()) if "w" in cols \
+                else 0
+            shards.append(state_from_numpy(self.param, cols, dev,
+                                           capacity=cap))
+        self.state = ShardedState(shards)
+        return n
+
+    def _dict_shards(self, arr: dict, n: int):
+        """The sharded dictionary load: the capacity doubled from the live
+        one until n + 1 rows fit, the keys' rows at slots 1..n and every
+        other row a fresh table's, each shard built on its device (the
+        round trip through the logical columns is the flat load's, so
+        both give one table bit for bit)."""
+        from ..parallel import fs_shard_bounds
+        from ..parallel.sharded import ShardedState
+        cap = self.capacity_for(n + 1)
+        memo: dict = {}
+        shards = []
+        for (lo, hi), dev in zip(fs_shard_bounds(cap, self.fs_count),
+                                 self.shard_devices):
+            cols = {f: a.copy() for f, a in state_to_numpy(
+                self.param, self._fresh_rows(cap, lo, hi, dev, memo),
+                capacity=cap).items()}
+            a, b = max(lo, 1), min(hi, n + 1)
+            if a < b:
+                for f, v in arr.items():
+                    if f in cols and np.size(v):
+                        cols[f][a - lo:b - lo] = np.asarray(v)[a - 1:b - 1]
+            shards.append(state_from_numpy(self.param, cols, dev,
+                                           capacity=cap))
+        return ShardedState(shards)
 
     def dump(self, path: str, dump_aux: bool = False,
              need_reverse: bool = True) -> int:

@@ -217,19 +217,23 @@ def unpack_scal(lanes: torch.Tensor):
     return f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4] > 0
 
 
-def scal_cols(param: SGDUpdaterParam, state: SGDState):
+def scal_cols(param: SGDUpdaterParam, state: SGDState,
+              capacity: Optional[int] = None):
     """(w, z, sqrt_g, cnt, v_live) as full-table columns, layout-free —
-    the checkpoint view (a full-table pass: cold paths only)."""
+    the checkpoint view (a full-table pass: cold paths only). ``capacity``
+    (default the state's) is the logical table's whose row layout the
+    rows have: a shard's rows pass the whole table's."""
     if param.V_dim == 0:
         return state.w, state.z, state.sqrt_g, state.cnt, state.v_live
-    _, _, _, off = row_layout(param, state.capacity)
+    _, _, _, off = row_layout(param, capacity or state.capacity)
     return unpack_scal(state.VVg[:, off:])
 
 
-def emb_cols_f32(param: SGDUpdaterParam, state: SGDState):
+def emb_cols_f32(param: SGDUpdaterParam, state: SGDState,
+                 capacity: Optional[int] = None):
     """Full-table logical f32 (V, Vg) columns, dequantized for 8-bit
-    rows (cold paths only)."""
-    k, h, _, off = row_layout(param, state.capacity)
+    rows (cold paths only); ``capacity`` as in :func:`scal_cols`."""
+    k, h, _, off = row_layout(param, capacity or state.capacity)
     V, Vg = state.VVg[:, :k], state.VVg[:, h:h + k]
     if not quantized(param):
         return V.to(torch.float32), Vg.to(torch.float32)
@@ -238,11 +242,21 @@ def emb_cols_f32(param: SGDUpdaterParam, state: SGDState):
             fused.dequant_half(Vg, f[:, 6], param.slot_dtype))
 
 
-def set_all_live(param: SGDUpdaterParam, state: SGDState) -> SGDState:
-    """Activate every embedding row."""
+def set_all_live(param: SGDUpdaterParam, state):
+    """Activate every embedding row (of every shard of a
+    parallel.sharded.ShardedState, each on its device)."""
+    from ..parallel.sharded import ShardedState
+    if isinstance(state, ShardedState):
+        return ShardedState([_set_all_live(param, s, state.capacity)
+                             for s in state.shards])
+    return _set_all_live(param, state, state.capacity)
+
+
+def _set_all_live(param: SGDUpdaterParam, state: SGDState,
+                  capacity: int) -> SGDState:
     if param.V_dim == 0:
         return state._replace(v_live=torch.ones_like(state.v_live))
-    _, _, _, off = row_layout(param, state.capacity)
+    _, _, _, off = row_layout(param, capacity)
     f = scal_f32(state.VVg[:, off:])
     scal = pack_scal(f[:, 0], f[:, 1], f[:, 2], f[:, 3],
                      torch.ones_like(f[:, 0], dtype=torch.bool),
@@ -275,36 +289,86 @@ def build_rows(param: SGDUpdaterParam, capacity: int, V, Vg,
     return torch.cat([halves, gap, scal], dim=1)
 
 
-def init_state(param: SGDUpdaterParam, capacity: int,
-               device: torch.device) -> SGDState:
-    """A fresh table: zero scalars, V drawn uniform in
-    ±V_init_scale/2 from a torch generator seeded with ``param.seed``
-    (the JAX package draws from jax.random; the two never share bits)."""
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` of uint32 values held in int64, in two 16-bit
+    halves of ``c`` so no product leaves int64."""
+    return (x * (c & 0xFFFF)
+            + (((x * (c >> 16)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift-multiply, two rounds) of uint32
+    values held in int64: the same bits on every device."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+# rows of V drawn per pass of init_V_rows (bounds its int64 temporaries)
+_INIT_CHUNK = 1 << 16
+
+
+def init_V_rows(param: SGDUpdaterParam, lo: int, hi: int,
+                device: torch.device) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the initial V, f32 ``[hi - lo, V_dim]``:
+    entry ``(r, j)`` is uniform in ±V_init_scale/2 from a counter hash of
+    ``(seed, r, j)``, so a row's draw depends on the seed and its index
+    only, never on how the table is cut into shards or on the device (the
+    JAX package draws from jax.random; the two never share bits)."""
+    k = param.V_dim
+    seed = int(param.seed) & 0xFFFFFFFF
+    out = torch.empty((hi - lo, k), dtype=torch.float32, device=device)
+    col = torch.arange(k, dtype=torch.int64, device=device)[None, :]
+    for a in range(lo, hi, _INIT_CHUNK):
+        b = min(a + _INIT_CHUNK, hi)
+        r = torch.arange(a, b, dtype=torch.int64, device=device)[:, None]
+        x = _mix32(_mix32((r & 0xFFFFFFFF) ^ seed) ^ (r >> 32))
+        x = _mix32(x ^ _mix32(col ^ 0x9E3779B9))
+        u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+        out[a - lo:b - lo] = (u - 0.5) * _f32(param.V_init_scale, u)
+    return out
+
+
+def init_rows(param: SGDUpdaterParam, capacity: int, lo: int, hi: int,
+              device: torch.device) -> SGDState:
+    """Rows ``[lo, hi)`` of a fresh ``capacity``-row table, in that
+    capacity's row layout, on ``device``: zero scalars and V from
+    :func:`init_V_rows`. A key-range shard of a mesh allocates its rows
+    here, on its own device, and every cut of the table into shards gives
+    the whole table's rows bit for bit."""
     empty = torch.zeros(0, dtype=torch.float32, device=device)
+    n = hi - lo
     k = param.V_dim
     if k == 0:
         def zeros():
-            return torch.zeros(capacity, dtype=torch.float32, device=device)
+            return torch.zeros(n, dtype=torch.float32, device=device)
         return SGDState(w=zeros(), z=zeros(), sqrt_g=zeros(), cnt=zeros(),
-                        VVg=torch.zeros((capacity, 0), dtype=torch.float32,
+                        VVg=torch.zeros((n, 0), dtype=torch.float32,
                                         device=device),
-                        v_live=torch.zeros(capacity, dtype=torch.bool,
+                        v_live=torch.zeros(n, dtype=torch.bool,
                                            device=device))
-    gen = torch.Generator(device=device).manual_seed(param.seed)
-    V = (torch.rand((capacity, k), generator=gen, dtype=torch.float32,
-                    device=device) - 0.5) * param.V_init_scale
+    V = init_V_rows(param, lo, hi, device)
     if quantized(param):
-        zcol = torch.zeros(capacity, dtype=torch.float32, device=device)
+        zcol = torch.zeros(n, dtype=torch.float32, device=device)
         T = build_rows(param, capacity, V, torch.zeros_like(V), zcol, zcol,
                        zcol, zcol, zcol.to(torch.bool))
     else:
         # all-zero scalar lanes encode (0, 0, 0, 0, live=False)
         _, _, Wx, _ = row_layout(param, capacity)
-        T = torch.zeros((capacity, Wx), dtype=v_dtype(param), device=device)
+        T = torch.zeros((n, Wx), dtype=v_dtype(param), device=device)
         T[:, :k] = V.to(T.dtype)
     return SGDState(w=empty, z=empty.clone(), sqrt_g=empty.clone(),
                     cnt=empty.clone(), VVg=T,
                     v_live=torch.zeros(0, dtype=torch.bool, device=device))
+
+
+def init_state(param: SGDUpdaterParam, capacity: int,
+               device: torch.device) -> SGDState:
+    """A fresh table: zero scalars, V uniform in ±V_init_scale/2 from the
+    counter hash of :func:`init_V_rows` seeded with ``param.seed``."""
+    return init_rows(param, capacity, 0, capacity, device)
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -442,6 +506,55 @@ def grow_state(param: SGDUpdaterParam, state: SGDState, new_capacity: int,
     return SGDState(*(torch.cat([a, b[old:]]) for a, b in zip(state, ext)))
 
 
+def grow_sharded(param: SGDUpdaterParam, state, new_capacity: int,
+                 fresh) -> "ShardedState":
+    """:func:`grow_state` of a parallel.sharded.ShardedState: shard ``g``
+    of the new table owns rows ``[g * C'/fs, (g + 1) * C'/fs)``, so a
+    doubling moves rows between shards. Each new shard is one allocation
+    on its device, cut from the old shards' rows it now owns (re-laid out
+    at the new capacity's layout on the old shard's device when the
+    growth crosses ``pad_v_rows_max_mb``, then copied over by
+    parallel/mesh.device_copy unless the old shard is the new one's) and
+    the fresh rows ``fresh(new_capacity, lo, hi, device)`` past the old
+    capacity. Every row of the old table lands once, at its slot."""
+    from ..parallel.mesh import device_copy
+    from ..parallel.sharded import ShardedState
+    old = state.capacity
+    if new_capacity <= old:
+        return state
+    fs, r_old = state.fs, state.rows
+    r_new = new_capacity // fs
+    relaid = param.V_dim and row_layout(param, old) != row_layout(
+        param, new_capacity)
+    devices = state.devices
+    olds = []
+    for s in state.shards:
+        if relaid:
+            _, _, _, off = row_layout(param, old)
+            w, z, sg, cnt, live = unpack_scal(s.VVg[:, off:])
+            Vf, Vgf = emb_cols_f32(param, s, old)
+            s = s._replace(VVg=build_rows(param, new_capacity, Vf, Vgf, w,
+                                          z, sg, cnt, live))
+        olds.append(s)
+    shards = []
+    for g in range(fs):
+        lo, hi, dev = g * r_new, (g + 1) * r_new, devices[g]
+        parts = []
+        for f in range(fs):
+            a, b = max(lo, f * r_old), min(hi, (f + 1) * r_old)
+            if a >= b:
+                continue
+            piece = SGDState(*(t[a - f * r_old:b - f * r_old]
+                               for t in olds[f]))
+            parts.append(piece if f == g else SGDState(
+                *(device_copy(t, dev) for t in piece)))
+        if hi > old:
+            parts.append(fresh(new_capacity, max(lo, old), hi, dev))
+        shards.append(SGDState(*(torch.cat([p[i] for p in parts])
+                                 for i in range(len(SGDState._fields)))))
+    return ShardedState(shards)
+
+
 def make_fns(param: SGDUpdaterParam, mesh=None):
     """The updater functions with the params baked in: a namespace of
     ``pull_rows``, ``rows_to_params``, ``get_rows`` (the pull),
@@ -450,40 +563,57 @@ def make_fns(param: SGDUpdaterParam, mesh=None):
     threads its one gather from the pull to the push (the JAX package's
     ``fns.fused`` path), so no flag selects it.
 
-    ``slots`` is a device slot vector, or under an fs-sharded mesh a
-    :class:`~difacto_tpu_torch.parallel.sharded.ShardedSlots`: then the
-    fused gathers and scatters run once per non-empty key-range shard of
-    ``mesh`` (parallel/sharded.py) over the shards of the table they are
-    handed. The flat ``V_dim=0`` columns take plain gathers and scatters
-    of the global slots either way."""
+    ``slots`` is a device slot vector, or under a mesh a
+    :class:`~difacto_tpu_torch.parallel.sharded.ShardedSlots`: then every
+    gather and scatter, of the fused rows and of the flat ``V_dim=0``
+    columns alike, runs once per non-empty key-range shard run, on the
+    shard's device (parallel/sharded.py), over the shards of the state
+    (a :class:`~difacto_tpu_torch.parallel.sharded.ShardedState` under
+    ``fs > 1``; one whole table at ``fs = 1``), with the pulled rows on the
+    home device. ``evaluate`` sums each shard's partials in shard order.
+    ``mesh`` is accepted for the JAX signature; the state carries its
+    placement."""
     from ..parallel import sharded
-    from ..parallel.mesh import state_sharding
-    shards = None if mesh is None else state_sharding(mesh)
+    from ..parallel.mesh import device_copy
 
     has_V = param.V_dim > 0
     thr = param.V_threshold
 
-    def _flat(slots):
-        return slots.slots if isinstance(slots, sharded.ShardedSlots) \
-            else slots
+    def _parts(state) -> list:
+        return [s for s, _, _ in sharded.shard_states(state)]
 
-    def _gather(VVg: torch.Tensor, slots) -> torch.Tensor:
-        if isinstance(slots, sharded.ShardedSlots):
-            return sharded.sharded_gather(shards(VVg), slots)
-        return fused.gather_rows(VVg, slots)
+    def _tables(state) -> list:
+        return [s.VVg for s in _parts(state)]
 
-    def _scatter(VVg: torch.Tensor, slots, rows) -> torch.Tensor:
+    def _gather(state, slots) -> torch.Tensor:
         if isinstance(slots, sharded.ShardedSlots):
-            sharded.sharded_scatter(shards(VVg), slots, rows)
-            return VVg
-        return fused.scatter_rows(VVg, slots, rows)
+            return sharded.sharded_gather(_tables(state), slots)
+        return fused.gather_rows(state.VVg, slots)
+
+    def _scatter(state, slots, rows):
+        if isinstance(slots, sharded.ShardedSlots):
+            sharded.sharded_scatter(_tables(state), slots, rows)
+            return state
+        return state._replace(VVg=fused.scatter_rows(state.VVg, slots,
+                                                     rows))
+
+    def _flat_runs(state, slots, *lanes):
+        """(shard state, slots, lanes) of each shard run of a flat-table
+        update: the whole table and its slots without a mesh."""
+        if not isinstance(slots, sharded.ShardedSlots):
+            yield state, slots, lanes
+            return
+        parts = _parts(state)
+        for f, local, got in sharded.shard_runs(
+                slots, [s.w.device for s in parts], *lanes):
+            yield parts[f], local, got
 
     def pull_rows(state: SGDState, slots: torch.Tensor) -> torch.Tensor:
         """ONE full fused-row gather of the batch's sorted-unique
         OOB-padded slots (ops/fused.gather_rows: the CUDA kernel on the
         card; one launch per shard run under a mesh). V keeps its
         container dtype."""
-        return _gather(state.VVg, slots)
+        return _gather(state, slots)
 
     def rows_to_params(state: SGDState, rows: torch.Tensor):
         """(w, V, v_mask) views of gathered fused rows; 8-bit rows
@@ -503,32 +633,40 @@ def make_fns(param: SGDUpdaterParam, mesh=None):
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                             Optional[torch.Tensor]]:
         """Pull [w, V, v_mask] rows for the batch's slots (Get)."""
-        if not has_V:
-            return _gather_flat(state.w, _flat(slots)), None, None
-        return rows_to_params(state, pull_rows(state, slots))
+        if has_V:
+            return rows_to_params(state, pull_rows(state, slots))
+        if not isinstance(slots, sharded.ShardedSlots):
+            return _gather_flat(state.w, slots), None, None
+        parts = _parts(state)
+        out = torch.empty(slots.slots.shape[0], dtype=torch.float32,
+                          device=parts[0].w.device)
+
+        def one(f, local, o):
+            w = _gather_flat(parts[f].w, local)
+            return w if o is None else o.copy_(w)
+        return sharded.gather_home(slots, out, one), None, None
 
     def apply_count(state: SGDState, slots: torch.Tensor,
                     counts: torch.Tensor) -> SGDState:
         """kFeaCount push (Update, sgd_updater.cc:64-75): one gather, the
         count and lazy-V update of the scalar lanes (scale lanes carried),
         one scatter with the kernel's epilogue off. The flat table adds
-        the counts to its cnt column."""
+        the counts to its cnt column, shard by shard under a mesh."""
         if not has_V:
-            slots = _flat(slots)
-            _scatter_flat(state.cnt, slots,
-                          _gather_flat(state.cnt, slots) + counts)
+            for sh, sl, (c,) in _flat_runs(state, slots, counts):
+                _scatter_flat(sh.cnt, sl, _gather_flat(sh.cnt, sl) + c)
             return state
         _, _, _, off = row_layout(param, state.capacity)
-        rows = _gather(state.VVg, slots)
+        rows = _gather(state, slots)
         f = scal_f32(rows[:, off:])
         w, z, sg, cnt, live = f[:, 0], f[:, 1], f[:, 2], f[:, 3], f[:, 4] > 0
         cnt_new = cnt + counts
         # V_threshold is an integer: exact in f32 and as a Python scalar
         live_new = live | ((w != 0) & (cnt_new > float(thr)))
-        scal = pack_scal(w, z, sg, cnt_new, live_new, state.VVg.dtype,
+        scal = pack_scal(w, z, sg, cnt_new, live_new, rows.dtype,
                          scale_V=f[:, 5], scale_Vg=f[:, 6])
         out = torch.cat([rows[:, :off], scal], dim=1)
-        return state._replace(VVg=_scatter(state.VVg, slots, out))
+        return _scatter(state, slots, out)
 
     def apply_grad_rows(state: SGDState, slots: torch.Tensor,
                         rows: torch.Tensor, gw: torch.Tensor,
@@ -544,7 +682,7 @@ def make_fns(param: SGDUpdaterParam, mesh=None):
         epi = epilogue_spec(param, cap)
         epilogue = functools.partial(row_epilogue, param, cap)
         if isinstance(slots, sharded.ShardedSlots):
-            sharded.sharded_push(shards(state.VVg), slots, rows, gw, gV,
+            sharded.sharded_push(_tables(state), slots, rows, gw, gV,
                                  pull_vmask, epi, epilogue)
             return state
         return state._replace(VVg=fused.fm_update_rows(
@@ -555,37 +693,51 @@ def make_fns(param: SGDUpdaterParam, mesh=None):
                    pull_vmask: Optional[torch.Tensor]) -> SGDState:
         """kGradient push that gathers its own rows first. On the flat
         table: FTRL on the gathered w/z/sqrt_g and three plain scatters,
-        in place."""
+        in place (shard by shard, on each shard's device, under a
+        mesh)."""
         if not has_V:
-            slots = _flat(slots)
-            w_new, z_new, sg_new = ftrl_w(
-                _gather_flat(state.w, slots), _gather_flat(state.z, slots),
-                _gather_flat(state.sqrt_g, slots), gw, param.l1, param.l2,
-                param.lr, param.lr_beta)
-            for col, new in ((state.w, w_new), (state.sqrt_g, sg_new),
-                             (state.z, z_new)):
-                _scatter_flat(col, slots, new)
+            for sh, sl, (g,) in _flat_runs(state, slots, gw):
+                w_new, z_new, sg_new = ftrl_w(
+                    _gather_flat(sh.w, sl), _gather_flat(sh.z, sl),
+                    _gather_flat(sh.sqrt_g, sl), g, param.l1, param.l2,
+                    param.lr, param.lr_beta)
+                for col, new in ((sh.w, w_new), (sh.sqrt_g, sg_new),
+                                 (sh.z, z_new)):
+                    _scatter_flat(col, sl, new)
             return state
         return apply_grad_rows(state, slots, pull_rows(state, slots), gw,
                                gV, pull_vmask)
 
-    def evaluate(state: SGDState) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(penalty, nnz) over real rows as device scalars (Evaluate,
-        sgd_updater.cc:15-32); full-table column reads, once per epoch."""
-        w, _, _, _, live = scal_cols(param, state)
-        w = w.clone()
-        w[TRASH_SLOT:TRASH_SLOT + 1].zero_()     # a fill, no host copy
+    def _evaluate(state: SGDState, capacity: int, first: bool):
+        w, _, _, _, live = scal_cols(param, state, capacity)
+        if first:
+            w = w.clone()
+            w[TRASH_SLOT:TRASH_SLOT + 1].zero_()     # a fill, no host copy
         l1, l2 = _f32(param.l1, w), _f32(param.l2, w)
         penalty = torch.sum(l1 * w.abs() + 0.5 * l2 * w * w)
         nnz = torch.sum((w != 0).to(torch.float32))
         if not has_V:
             return penalty, nnz
-        live = live.clone()
-        live[TRASH_SLOT:TRASH_SLOT + 1].zero_()
-        Vcol = emb_cols_f32(param, state)[0]
+        if first:
+            live = live.clone()
+            live[TRASH_SLOT:TRASH_SLOT + 1].zero_()
+        Vcol = emb_cols_f32(param, state, capacity)[0]
         Vm = Vcol * live[:, None]
         penalty = penalty + torch.sum(0.5 * l2 * Vm * Vm)
         nnz = nnz + torch.sum(live) * param.V_dim
+        return penalty, nnz
+
+    def evaluate(state: SGDState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(penalty, nnz) over real rows as device scalars (Evaluate,
+        sgd_updater.cc:15-32); full-table column reads, once per epoch.
+        A sharded state's partials are each shard's, on its device, summed
+        on the home device in shard order."""
+        parts = _parts(state)
+        penalty, nnz = _evaluate(parts[0], state.capacity, True)
+        for s in parts[1:]:
+            p, n = _evaluate(s, state.capacity, False)
+            penalty = penalty + device_copy(p, penalty.device)
+            nnz = nnz + device_copy(n, nnz.device)
         return penalty, nnz
 
     class _NS:

@@ -82,7 +82,8 @@ def mesh_devices(n: int, device="cuda") -> list:
     ``i // repeat``. The variable is the port's counterpart of the JAX
     package's ``--xla_force_host_platform_device_count=8`` (its tests run
     every mesh on 8 virtual CPU devices): it lets a 2 x 4 mesh run on one
-    card, each shard a key range of one table on that card. With fewer
+    card, each shard a key range of its own allocations on that card, as
+    it would be on a card of its own. With fewer
     than ``n`` logical devices it raises the JAX package's "need n
     devices, have m"; it never quietly puts several shards on one device.
     A logical device that shares a physical one is logged once at INFO,

@@ -155,6 +155,19 @@ def test_port_tree_gives_both_analyzers_the_same_findings():
     assert own.active == [] and own.counts()["files"] >= 100
 
 
+def test_port_tree_lints_the_root_tool_counterparts():
+    """The counterparts of the root obs_report, lockmap and
+    collision_study, and the mesh's placement modules, are in the tree
+    the port's analyzer lints, with 0 active findings."""
+    project = tcore.Project(REPO, [PORT])
+    rels = {sf.rel for sf in project.files}
+    for mod in ("tools/obs_report.py", "tools/lockmap.py",
+                "tools/collision_study.py", "parallel/mesh.py",
+                "parallel/sharded.py"):
+        assert f"{PORT}/{mod}" in rels, mod
+    assert tcore.run_project(project).active == []
+
+
 def test_default_paths_are_the_port_and_the_smoke(capsys):
     assert tcli.DEFAULT_PATHS == [PORT, "chip_smoke.py"]
     rc = tcli.main(["--root", str(REPO), "--baseline", "none"])

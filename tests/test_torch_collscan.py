@@ -200,6 +200,18 @@ def two_rank_scan(tmp_path_factory):
     return d
 
 
+def _split(progs: dict) -> tuple:
+    """(the cross-process collectives, the moves between a rank's logical
+    devices) of a scan's programs: parallel/mesh.device_copy records its
+    bytes as kind ``device_copy``."""
+    def keep(pred):
+        return {s: dict(rec, collectives=[c for c in rec["collectives"]
+                                          if pred(c)])
+                for s, rec in progs.items()}
+    return (keep(lambda c: c["kind"] != "device_copy"),
+            keep(lambda c: c["kind"] == "device_copy"))
+
+
 @two_procs
 def test_two_ranks_record_no_table_axis_collective(two_rank_scan):
     for r in (0, 1):
@@ -207,9 +219,14 @@ def test_two_ranks_record_no_table_axis_collective(two_rank_scan):
         assert doc["rows"] == CAPACITY
         assert collscan.violations(doc["programs"]) == []
         assert doc["programs"], "the data plane issued no collective"
+        cross, moves = _split(doc["programs"])
         assert all(c["kind"] == "all_gather" and not c["table_axis"]
-                   for rec in doc["programs"].values()
+                   for rec in cross.values()
                    for c in rec["collectives"])
+        # the fs = 4 shards' runs moved between the logical devices
+        assert collscan.totals(moves)["calls"] > 0
+        assert not any(c["table_axis"] for rec in moves.values()
+                       for c in rec["collectives"])
 
 
 @two_procs
@@ -222,10 +239,11 @@ def test_two_ranks_collectives_equal_the_data_plane_counters(
         doc = collscan.load(two_rank_scan / f"clean-{r}.json")
         train = st["train_site"]
         assert doc["programs"][train]["traced"]
-        got = collscan.totals(doc["programs"], site=train)
+        cross, _ = _split(doc["programs"])
+        got = collscan.totals(cross, site=train)
         assert got == {"calls": st["calls"], "bytes": st["bytes_out"]}
         # nothing else crossed the processes: the train step is all
-        assert collscan.totals(doc["programs"]) == got
+        assert collscan.totals(cross) == got
         # 2 steps, each its two gathers: the rows and the partials
         assert st["steps"] == 2 and st["calls"] == 2 * st["steps"]
         assert doc["store"]["set"]["count"] > 0      # the key exchange

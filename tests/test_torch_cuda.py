@@ -886,6 +886,7 @@ def test_mesh_learner_on_the_card_leaves_the_flat_table(cuda, monkeypatch):
     the flat run's table bit for bit; the 2 x 4 mesh repeats bit for
     bit."""
     from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.parallel import sharded
     monkeypatch.setenv("DIFACTO_TORCH_VIRTUAL_DEVICES", "8")
     kw = [("data_in", _RCV1), ("V_dim", "2"), ("V_threshold", "2"),
           ("lr", "0.1"), ("l1", "0.1"), ("l2", "0"),
@@ -898,7 +899,7 @@ def test_mesh_learner_on_the_card_leaves_the_flat_table(cuda, monkeypatch):
         ln = SGDLearner(device="cuda")
         assert ln.init(kw + extra) == []
         ln.run()
-        return ln.store.state.VVg.view(torch.int32)
+        return sharded.host_state(ln.store.state).VVg.view(torch.int32)
 
     flat = run([])
     assert torch.equal(run([("mesh_fs", "4")]), flat)

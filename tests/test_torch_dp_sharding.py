@@ -30,6 +30,7 @@ from difacto_tpu.learners.sgd import SGDLearner as JLearner
 from difacto_tpu.updaters import sgd_updater as J
 from difacto_tpu_torch.__main__ import main as tmain
 from difacto_tpu_torch.learners.sgd import SGDLearner, SGDLearnerParam
+from difacto_tpu_torch.parallel import sharded
 from difacto_tpu_torch.store.convert import state_from_jax_table
 from difacto_tpu_torch.updaters import sgd_updater as T
 
@@ -142,7 +143,8 @@ def assert_close(got_rows, got, want_rows, want, what):
 
 
 def _saved(ln) -> np.ndarray:
-    return ln.store.state.VVg.contiguous().view(torch.int32).numpy()
+    return sharded.host_state(ln.store.state).VVg.contiguous().view(
+        torch.int32).numpy()
 
 
 @pytest.mark.parametrize("store", ["hashed", "dictionary"])

@@ -24,6 +24,7 @@ from difacto_tpu_torch.losses.fm import (FMParams, fm_grad, fm_grad_panel,
                                          fm_predict_xv,
                                          fm_predict_panel_xv)
 from difacto_tpu_torch.ops.batch import DeviceBatch, PanelBatch
+from difacto_tpu_torch.parallel import sharded
 
 from test_torch_dp_sharding import rcv1_kwargs, run_port
 
@@ -34,7 +35,8 @@ def _eight_devices(monkeypatch):
 
 
 def _bits(ln) -> np.ndarray:
-    return ln.store.state.VVg.contiguous().view(torch.int32).numpy().copy()
+    return sharded.host_state(ln.store.state).VVg.contiguous().view(
+        torch.int32).numpy().copy()
 
 
 @pytest.mark.parametrize("mesh", [[("mesh_dp", "2"), ("mesh_fs", "4")],

@@ -34,7 +34,7 @@ from difacto_tpu.parallel import make_mesh as jmake_mesh
 from difacto_tpu.store.local import SlotStore as JStore
 from difacto_tpu.updaters import sgd_updater as J
 from difacto_tpu_torch.learners.sgd import SGDLearner, SGDLearnerParam
-from difacto_tpu_torch.parallel import make_mesh
+from difacto_tpu_torch.parallel import make_mesh, sharded
 from difacto_tpu_torch.store.convert import (fs_shard_path,
                                              state_from_jax_table)
 from difacto_tpu_torch.store.local import SlotStore
@@ -91,7 +91,8 @@ def run_jax(kwargs):
 
 
 def _bits(store) -> np.ndarray:
-    return store.state.VVg.contiguous().view(torch.int32).numpy()
+    return sharded.host_state(store.state).VVg.contiguous().view(
+        torch.int32).numpy()
 
 
 def _cols(store) -> dict:
@@ -401,15 +402,17 @@ def test_shard_stats_and_gauges():
     assert sum(st["rows"] for st in stats) == int((w != 0).sum()) > 0
     per_shard = T.state_bytes(s.param, s.state.capacity) // 4
     assert all(st["table_bytes"] == per_shard for st in stats)
+    assert s.device_bytes() == [per_shard] * 4
     assert s.publish_shard_stats() == stats
     snap = REGISTRY.snapshot()["gauges"].get("store_shard_rows", {})
     got = {dict(k)["shard"]: v for k, v in snap.items()}
     for st in stats:
         assert got[str(st["shard"])] == st["rows"]
-    # the mesh's one device holds every shard: the whole table
+    # each logical device holds one shard: the JAX store's total // fs
     cs = s.capacity_stats()
-    assert cs["effective_rows_per_device"] == 2048
-    assert cs["table_bytes_per_device"] == T.state_bytes(s.param, 2048)
+    assert cs["effective_rows_per_device"] == 2048 // 4
+    assert cs["table_bytes_per_device"] == T.state_bytes(s.param,
+                                                         2048) // 4
 
 
 def test_capacity_scaling_report_legs():
@@ -421,8 +424,8 @@ def test_capacity_scaling_report_legs():
     l1, l2 = rep["legs"]
     assert l2["hash_capacity"] == 2 * l1["hash_capacity"]
     assert l2["table_bytes_per_shard"] == l1["table_bytes_per_shard"]
-    assert l2["table_bytes_per_device"] == l2["table_bytes_total"] == \
-        2 * l1["table_bytes_per_device"]
+    assert l2["table_bytes_per_device"] == l1["table_bytes_per_device"] \
+        == l2["table_bytes_total"] // 2
     assert rep["capacity_scaling"] == 2.0
     assert rep["scaling_efficiency"] == 1.0
     assert all(leg["examples_per_sec"] > 0 for leg in rep["legs"])

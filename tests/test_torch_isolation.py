@@ -838,3 +838,71 @@ def test_analyzer_and_its_cli_run_with_jax_poisoned(tmp_path):
     assert got["rcs"] == {"text": 0, "json": 0, "sarif": 0, "github": 0}
     assert got["counts"]["active"] == 0 and got["counts"]["files"] >= 100
     assert got["sites"] >= 16 and got["collective_sites"] > 0
+
+
+def test_root_tool_counterparts_run_with_jax_poisoned(tmp_path):
+    """The port's obs_report, lockmap and collision_study (the root tools'
+    counterparts, which imported the JAX package) run where jax, the JAX
+    package and ml_dtypes cannot be imported, and so does the smoke's
+    import: obs_report over a flushed metrics JSONL and a trace, lockmap
+    ``--check`` over the port with a locktrace dump of a traced run, the
+    collision study at 200 rows on the CPU."""
+    code = textwrap.dedent(f"""
+        import contextlib, io, json, sys
+
+        class Poison:
+            def find_spec(self, name, path=None, target=None):
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes"):
+                    raise ImportError(f"poisoned import: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Poison())
+        root, work = {_ROOT!r}, {str(tmp_path)!r}
+        sys.path.insert(0, root)
+        import chip_smoke  # noqa: F401
+        from difacto_tpu_torch.obs import counter, histogram
+        from difacto_tpu_torch.obs.export import MetricsFlusher
+        from difacto_tpu_torch.tools import (collision_study, lockmap,
+                                             obs_report)
+        from difacto_tpu_torch.utils import locktrace
+        counter("stage_seconds_total", "s").labels(stage="step").inc(1.5)
+        histogram("train_step_seconds", "s").observe(0.002)
+        MetricsFlusher(work + "/m.jsonl").flush()
+        with open(work + "/t.json", "w") as f:
+            json.dump({{"traceEvents": [{{"ph": "X", "name": "epoch",
+                                          "ts": 0, "dur": 5.0}}]}}, f)
+        dump = locktrace.dump(work + "/locks.json")
+        out = {{}}
+        for name, fn, argv in (
+                ("obs_report", obs_report.main,
+                 ["--metrics", work + "/m.jsonl", "--trace",
+                  work + "/t.json"]),
+                ("lockmap", lockmap.main,
+                 ["--root", root, "--dynamic", dump, "--check"]),
+                ("collision_study", collision_study.main,
+                 ["--rows", "200", "--data-dir", work + "/cs",
+                  "--batch", "100", "--epochs", "1", "--mults", "1",
+                  "--device", "cpu"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = fn(argv)
+            out[name] = [rc, buf.getvalue()]
+        bad = [m for m in sys.modules if m.split(".")[0]
+               in ("jax", "jaxlib", "difacto_tpu", "ml_dtypes")]
+        assert not bad, bad
+        print(json.dumps(out))
+    """)
+    env = dict(os.environ, PYTHONPATH=_ROOT, DIFACTO_LOCKTRACE="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert [got[k][0] for k in got] == [0, 0, 0]
+    assert "train_step_seconds" in got["obs_report"][1]
+    assert "== top spans" in got["obs_report"][1]
+    assert "0 dynamic-only" in got["lockmap"][1]
+    lines = [json.loads(x) for x in got["collision_study"][1].splitlines()
+             if x.startswith("{")]
+    assert lines[-1]["capacity_mult"] == 1.0 and "collided_frac" in lines[-1]

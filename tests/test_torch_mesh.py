@@ -66,13 +66,16 @@ def test_make_mesh_errors(monkeypatch):
 
 
 def test_mesh_over_several_cards_raises():
-    """A mesh lies on one physical device; one over several cards is a
-    follow-up and raises (no card is touched: the devices are given)."""
+    """A mesh over several cards lays shard f on card f and its dp blocks'
+    rows on the cards in order (no card is touched: the devices are
+    given); it raises only when the cards given are too few."""
     cards = [torch.device("cuda", i) for i in range(4)]
-    with pytest.raises(NotImplementedError, match="4 physical devices"):
-        tpar.make_mesh(dp=1, fs=4, devices=cards)
-    with pytest.raises(NotImplementedError, match="VIRTUAL_DEVICES"):
-        tpar.make_mesh(dp=2, fs=1, devices=cards[:2])
+    m = tpar.make_mesh(dp=1, fs=4, devices=cards)
+    assert m.shard_devices == cards and m.home == cards[0]
+    m = tpar.make_mesh(dp=2, fs=1, devices=cards[:2])
+    assert m.devices == [[cards[0]], [cards[1]]]
+    with pytest.raises(ValueError, match="need 8 devices, have 4"):
+        tpar.make_mesh(dp=2, fs=4, devices=cards)
     m = tpar.make_mesh(dp=2, fs=2, devices=[cards[0]] * 4)
     assert m.home == cards[0]
 
@@ -143,8 +146,11 @@ def test_placements_split_and_view(monkeypatch):
     x = torch.arange(32.0).view(16, 2)
     shards = tpar.state_sharding(m)(x)
     assert [s.shape[0] for s in shards] == [4, 4, 4, 4]
-    assert all(s.data_ptr() == x[4 * i].data_ptr()
-               for i, s in enumerate(shards))           # views, no copy
+    assert all(torch.equal(s, x[4 * i:4 * (i + 1)])
+               for i, s in enumerate(shards))
+    # each shard its own allocation, none of them a view of x
+    ptrs = {s.untyped_storage().data_ptr() for s in shards}
+    assert len(ptrs) == 4 and x.untyped_storage().data_ptr() not in ptrs
     blocks = tpar.put_dp_local(np.arange(8, dtype=np.float32), m)
     assert [b.tolist() for b in blocks] == [[0, 1, 2, 3], [4, 5, 6, 7]]
     with pytest.raises(ValueError, match="dp=2"):

@@ -226,6 +226,7 @@ def test_one_process_window_is_byte_identical(monkeypatch):
     return at once) and must give the τ=0 run's table byte for byte."""
     monkeypatch.setenv("DIFACTO_TORCH_VIRTUAL_DEVICES", "8")
     from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.parallel import sharded
 
     def run(tau):
         ln = SGDLearner(device="cpu")
@@ -235,7 +236,8 @@ def test_one_process_window_is_byte_identical(monkeypatch):
         ln.add_epoch_end_callback(lambda e, t, v: seen.append(t.loss))
         ln.run()
         assert ln._spmd_schedule == (tau > 0)
-        return seen, ln.store.state.VVg.numpy().tobytes()
+        return seen, sharded.host_state(
+            ln.store.state).VVg.numpy().tobytes()
 
     ref = run(0)
     for tau in (1, 4):
@@ -308,6 +310,7 @@ def _block_data():
 # ------------------------------------------------------------ the workers
 def _sgd_worker(out_dir: pathlib.Path, conf: dict) -> None:
     from difacto_tpu_torch.learners.sgd import SGDLearner, SGDLearnerParam
+    from difacto_tpu_torch.parallel import sharded
     from difacto_tpu_torch.parallel.multihost import process_index
     init = None
     if "init_npy" in conf:
@@ -324,7 +327,8 @@ def _sgd_worker(out_dir: pathlib.Path, conf: dict) -> None:
         lambda e, t, v: (seen.append(t.loss), seen_val.append(v.loss)))
     ln.run()
     rank = process_index()
-    np.save(out_dir / f"table-{rank}.npy", ln.store.state.VVg.numpy())
+    np.save(out_dir / f"table-{rank}.npy",
+            sharded.host_state(ln.store.state).VVg.numpy())
     if not ln.store.hashed:
         np.savez(out_dir / f"dict-{rank}.npz", keys=ln.store._keys,
                  slots=ln.store._slots)

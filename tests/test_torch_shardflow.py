@@ -191,8 +191,9 @@ def test_the_data_planes_collective_lines_are_known(shard_model):
 # ------------------------------------------------------------- the gate
 def planted_table_gather(ln):
     """The planted fault: a rank's whole table through the data plane."""
+    from difacto_tpu_torch.parallel import sharded
     plane = ln.loss.plane
-    table = ln.store.state.VVg
+    table = sharded.host_state(ln.store.state).VVg
     return plane.gather(table)
 
 
