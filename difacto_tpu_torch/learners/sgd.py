@@ -44,7 +44,14 @@ with optimizer state (``ckpt_interval``, ``ckpt_keep``) and
 ``auto_resume`` from the newest one that verifies, epoch-end callbacks,
 progress rows. ``self.obs`` is the run's metric registry under the JAX
 package's metric names (``stage_seconds_total{stage}`` and the rest,
-``stage_stats()``), flushed to ``metrics_path`` as JSONL.
+``stage_stats()``), flushed to ``metrics_path`` as JSONL, plus the port's
+own ``train_fetch_seconds{site=merge|report}``: the host's wait in each
+metric fetch and in each progress row's table evaluation, apart from the
+dispatch that ``train_step_seconds`` times. The learner's spans
+(obs/trace.py: ``learner.dispatch``, ``learner.fetch``,
+``learner.evaluate``, ``learner.report``, ``learner.epoch_end``,
+``step.count``; step.py's and ops/fused.py's within them) name its
+phases in a span file and under any running profiler.
 
 The capacity levers ride the same path: count-min admission on the
 producers (capacity/sketch.py), the cold tier's routing of every packed
@@ -476,6 +483,12 @@ class SGDLearner(Learner):
         self._step_h = self.obs.histogram(
             "train_step_seconds",
             "host-side dispatch+wait time of one fused device step")
+        fetch_h = self.obs.histogram(
+            "train_fetch_seconds",
+            "host seconds blocked in one metric fetch (site=merge) or in "
+            "a progress row's table evaluation (site=report)")
+        self._fetch_h = {k: fetch_h.labels(site=k)
+                         for k in ("merge", "report")}
         self._rows_c = self.obs.counter(
             "train_rows_total", "examples consumed by dispatched steps")
         self._gather_c = self.obs.counter(
@@ -600,43 +613,47 @@ class SGDLearner(Learner):
         while k < p.max_num_epochs:
             train_prog = Progress()
             self._run_epoch(k, K_TRAINING, train_prog)
-            train_prog.penalty, train_prog.nnz_w = self._eval_scalars
-            log.info("epoch[%d] training: %s, nnz(w) = %g, penalty = %g",
-                     k, train_prog.text(), train_prog.nnz_w,
-                     train_prog.penalty)
-            # occupancy eviction: at the epoch boundary only
-            n_evicted = self.store.maybe_evict()
-            if n_evicted:
-                log.info("epoch[%d] evicted %d rows under occupancy "
-                         "pressure", k, n_evicted)
-            val_prog = Progress()
-            if p.data_val:
-                self._run_epoch(k, K_VALIDATION, val_prog)
-                log.info("epoch[%d] validation: %s", k, val_prog.text())
-            for cb in self.epoch_end_callbacks:
-                cb(k, train_prog, val_prog)
-            if p.ckpt_interval > 0 and p.model_out \
-                    and (k + 1) % p.ckpt_interval == 0:
-                self._save_checkpoint(k)
-            # stop criteria (sgd_learner.cc:92-110): no zero guard on
-            # pre_loss in the reference, so the first epoch never stops
-            eps = abs(train_prog.loss - pre_loss) / pre_loss \
-                if pre_loss else float("inf")
-            if eps < p.stop_rel_objv:
-                log.info("change of loss [%g] < stop_rel_objv [%g]",
-                         eps, p.stop_rel_objv)
-                break
-            if val_prog.auc > 0:
-                eps = (val_prog.auc - pre_val_auc) / val_prog.nrows
-                if eps < p.stop_val_auc:
-                    log.info("change of val AUC [%g] < stop_val_auc [%g]",
-                             eps, p.stop_val_auc)
+            # the epoch's tail: eviction, validation, callbacks,
+            # checkpoint, stop tests
+            with trace.span("learner.epoch_end", epoch=k):
+                train_prog.penalty, train_prog.nnz_w = self._eval_scalars
+                log.info("epoch[%d] training: %s, nnz(w) = %g, "
+                         "penalty = %g", k, train_prog.text(),
+                         train_prog.nnz_w, train_prog.penalty)
+                # occupancy eviction: at the epoch boundary only
+                n_evicted = self.store.maybe_evict()
+                if n_evicted:
+                    log.info("epoch[%d] evicted %d rows under occupancy "
+                             "pressure", k, n_evicted)
+                val_prog = Progress()
+                if p.data_val:
+                    self._run_epoch(k, K_VALIDATION, val_prog)
+                    log.info("epoch[%d] validation: %s", k,
+                             val_prog.text())
+                for cb in self.epoch_end_callbacks:
+                    cb(k, train_prog, val_prog)
+                if p.ckpt_interval > 0 and p.model_out \
+                        and (k + 1) % p.ckpt_interval == 0:
+                    self._save_checkpoint(k)
+                # stop criteria (sgd_learner.cc:92-110): no zero guard on
+                # pre_loss in the reference, so the first epoch never stops
+                eps = abs(train_prog.loss - pre_loss) / pre_loss \
+                    if pre_loss else float("inf")
+                if eps < p.stop_rel_objv:
+                    log.info("change of loss [%g] < stop_rel_objv [%g]",
+                             eps, p.stop_rel_objv)
                     break
-            k += 1
-            if k >= p.max_num_epochs:
-                log.info("reached max_num_epochs %d", p.max_num_epochs)
-                break
-            pre_loss, pre_val_auc = train_prog.loss, val_prog.auc
+                if val_prog.auc > 0:
+                    eps = (val_prog.auc - pre_val_auc) / val_prog.nrows
+                    if eps < p.stop_val_auc:
+                        log.info("change of val AUC [%g] < stop_val_auc "
+                                 "[%g]", eps, p.stop_val_auc)
+                        break
+                k += 1
+                if k >= p.max_num_epochs:
+                    log.info("reached max_num_epochs %d", p.max_num_epochs)
+                    break
+                pre_loss, pre_val_auc = train_prog.loss, val_prog.auc
         if p.model_out:
             log.info("saving final model...")
             final = self._model_name(p.model_out, -1)
@@ -1553,17 +1570,18 @@ class SGDLearner(Learner):
         """Run the step of one batch already on the device, timed into the
         step stage and ``train_step_seconds``; its table row traffic goes
         to ``store_gather_bytes_total``."""
-        per_dir = gather_bytes(self.store.param, self.store.state.capacity,
-                               st.u_cap)
-        is_train = job_type == K_TRAINING
-        self._gather_c.inc(per_dir * (2 if is_train else 1))
-        t0 = time.perf_counter()
-        try:
-            self._dispatch_step(job_type, st, push_cnt, pending)
-        finally:
-            dt = time.perf_counter() - t0
-            self._stage_c["step"].inc(dt)
-            self._step_h.observe(dt)
+        with trace.span("learner.dispatch"):
+            per_dir = gather_bytes(self.store.param,
+                                   self.store.state.capacity, st.u_cap)
+            is_train = job_type == K_TRAINING
+            self._gather_c.inc(per_dir * (2 if is_train else 1))
+            t0 = time.perf_counter()
+            try:
+                self._dispatch_step(job_type, st, push_cnt, pending)
+            finally:
+                dt = time.perf_counter() - t0
+                self._stage_c["step"].inc(dt)
+                self._step_h.observe(dt)
 
     def _dispatch_step(self, job_type: int, st: _Staged, push_cnt: bool,
                        pending: list) -> None:
@@ -1599,8 +1617,9 @@ class SGDLearner(Learner):
             slots = ShardedSlots(slots, st.route[1], st.route[0])
         if job_type == K_TRAINING:
             if counts is not None:
-                self.store.state = self._apply_count(
-                    self.store.state, slots, counts)
+                with trace.span("step.count"):
+                    self.store.state = self._apply_count(
+                        self.store.state, slots, counts)
             self.store.state, objv, auc = self._train_step(
                 self.store.state, batch, slots)
         else:
@@ -1663,7 +1682,10 @@ class SGDLearner(Learner):
                      prog: Progress, point: str = "sgd.metrics") -> None:
         """The epoch-final metric fetch; a training epoch fetches the
         store's (penalty, nnz) in the same transfer."""
-        extra = self.store.evaluate_dev() if job_type == K_TRAINING else ()
+        extra = ()
+        if job_type == K_TRAINING:
+            with trace.span("learner.evaluate"):
+                extra = self.store.evaluate_dev()
         vals = self._merge_pending(pending, prog, extra=extra, point=point)
         if extra:
             self._eval_scalars = (vals[0], vals[1])
@@ -1677,18 +1699,21 @@ class SGDLearner(Learner):
         extra = list(extra)
         if not pending and not extra:
             return []
-        t0 = time.perf_counter()
-        vals = devtrace.fetch(
-            torch.stack([s.to(torch.float32) for _, o, a in pending
-                         for s in (o, a)]
-                        + [e.to(torch.float32) for e in extra]),
-            point=point)
-        vals = vals.tolist()
-        self._stage_c["step"].inc(time.perf_counter() - t0)
-        for i, (nrows, _, _) in enumerate(pending):
-            self._rows_c.inc(nrows)
-            prog.merge(Progress(nrows=nrows, loss=vals[2 * i],
-                                auc=vals[2 * i + 1]))
+        with trace.span("learner.fetch"):
+            t0 = time.perf_counter()
+            vals = devtrace.fetch(
+                torch.stack([s.to(torch.float32) for _, o, a in pending
+                             for s in (o, a)]
+                            + [e.to(torch.float32) for e in extra]),
+                point=point)
+            vals = vals.tolist()
+            dt = time.perf_counter() - t0
+            self._stage_c["step"].inc(dt)
+            self._fetch_h["merge"].observe(dt)
+            for i, (nrows, _, _) in enumerate(pending):
+                self._rows_c.inc(nrows)
+                prog.merge(Progress(nrows=nrows, loss=vals[2 * i],
+                                    auc=vals[2 * i + 1]))
         return vals[2 * len(pending):]
 
     def _report_part(self, job_type: int, before: Progress,
@@ -1697,13 +1722,16 @@ class SGDLearner(Learner):
         store's nnz(w) delta folded in."""
         if not self._part_reports(job_type):
             return
-        self._last_row_t = time.monotonic()
-        delta = Progress(nrows=prog.nrows - before.nrows,
-                         loss=prog.loss - before.loss,
-                         auc=prog.auc - before.auc)
-        _, nnz = self.store.evaluate()
-        delta.nnz_w = nnz - self._last_nnz
-        self._last_nnz = nnz
-        elapsed = time.monotonic() - self._start_time
-        self._report.prog.merge(delta)
-        print(f"{elapsed:5.0f}  {self._report.print_str()}", flush=True)
+        with trace.span("learner.report"):
+            self._last_row_t = time.monotonic()
+            delta = Progress(nrows=prog.nrows - before.nrows,
+                             loss=prog.loss - before.loss,
+                             auc=prog.auc - before.auc)
+            t0 = time.perf_counter()
+            _, nnz = self.store.evaluate()
+            self._fetch_h["report"].observe(time.perf_counter() - t0)
+            delta.nnz_w = nnz - self._last_nnz
+            self._last_nnz = nnz
+            elapsed = time.monotonic() - self._start_time
+            self._report.prog.merge(delta)
+            print(f"{elapsed:5.0f}  {self._report.print_str()}", flush=True)

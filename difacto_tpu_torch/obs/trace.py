@@ -3,43 +3,49 @@ of difacto_tpu/obs/trace.py).
 
 ``with span("consumer.dispatch", part=3):`` records one complete ("X")
 event with microsecond timestamps, its span id, its parent span id and
-the run's trace id. Timestamps come from ``time.perf_counter`` (one
-monotonic clock for every process of the machine), so events that
-producer worker processes collect line up with the parent's. A worker
+the run's trace id. ``ts`` is the realtime clock in epoch microseconds
+(``time.time_ns``), the clock ``torch.profiler`` stamps its events on,
+and one clock for every process of the machine: events that producer
+worker processes collect line up with the parent's, and a span file
+lays over a device trace of the same run. A worker
 (``DIFACTO_OBS_CHILD=1``) collects its events in memory and the pool
 ships them through its result queue (obs/proc.py); only the owning
 process writes the file. The pack span's id also rides the shared-memory
 ring's slot header (data/shm_ring.py), so a consumer span can name the
 producer span that built its batch.
 
-Tracing is off unless ``DIFACTO_TRACE=<path>`` is set or :func:`start`
-is called; an inactive span is one global read. The event buffer is
-bounded (200k events); overflow drops and counts new events.
+The span file is off unless ``DIFACTO_TRACE=<path>`` is set or
+:func:`start` is called. The event buffer is bounded (200k events);
+overflow drops and counts new events.
 
-Device time: with ``DIFACTO_TRACE_DEVICE=<logdir>`` the module also runs
-a ``torch.profiler`` session (CPU activity, and CUDA activity on a card)
-from its import to the process's exit, which exports a Chrome trace into
-``<logdir>`` (utils/profiling.py), and every span body runs inside
-``torch.profiler.record_function(name)`` and, on a card, an NVTX range of
-the same name (``torch.cuda.nvtx.range_push``/``range_pop``), so Perfetto
-and Nsight Systems show the kernels under the host spans' names. A span
-with a ``step_num`` arg also marks a profiler step
-(``ProfilerStep#<step_num>``, the counterpart of JAX's
+Device time: whenever a ``torch.profiler`` session runs in the process,
+whoever started it (``DIFACTO_TRACE_DEVICE``, a benchmark's tracer, a
+user's own ``profile()``), every span body runs inside
+``torch.profiler.record_function(name)``, so the device operations it
+launches fall under the span's name. With ``DIFACTO_TRACE_DEVICE=<logdir>``
+the module runs such a session itself (CPU activity, and CUDA activity on
+a card) from its import to the process's exit, which exports a Chrome
+trace into ``<logdir>`` (utils/profiling.py); under that session a span
+also opens an NVTX range of its name on a card
+(``torch.cuda.nvtx.range_push``/``range_pop``), so Nsight Systems shows
+the kernels under it too, and a span with a ``step_num`` arg also marks
+a profiler step (``ProfilerStep#<step_num>``, the counterpart of JAX's
 ``StepTraceAnnotation``). Without the knob the module never creates a
-profiler.
+profiler. With neither the span file nor a profiler on, a span is a
+plain check: it enters no range, allocates nothing and takes no lock.
 """
 
 from __future__ import annotations
 
 import atexit
-import contextlib
 import itertools
 import json
 import logging
 import os
+import sys
 import threading
 import time
-from typing import Iterator, List, Optional
+from typing import List, Optional
 
 from ..utils.locktrace import mutex
 
@@ -56,10 +62,6 @@ _nvtx = False             # NVTX ranges beside the record_function ranges
 _trace_id = 0
 _span_ids = itertools.count(1)
 _tls = threading.local()  # per-thread span stack
-
-
-def _now_us() -> float:
-    return time.perf_counter() * 1e6
 
 
 def active() -> bool:
@@ -137,23 +139,6 @@ def stop_device() -> Optional[str]:
         return None
 
 
-@contextlib.contextmanager
-def _annotated(name: str, args: dict) -> Iterator[None]:
-    """The span body inside a record_function range (under a
-    ``ProfilerStep#<step_num>`` range for a step span) and an NVTX range
-    of the span's name."""
-    import torch
-    with contextlib.ExitStack() as stack:
-        if "step_num" in args:
-            stack.enter_context(torch.profiler.record_function(
-                f"ProfilerStep#{args['step_num']}"))
-        stack.enter_context(torch.profiler.record_function(name))
-        if _nvtx:
-            torch.cuda.nvtx.range_push(name)
-            stack.callback(torch.cuda.nvtx.range_pop)
-        yield
-
-
 def current_span_id() -> int:
     """The innermost open span's id on this thread (0 outside any)."""
     stack = getattr(_tls, "stack", None)
@@ -193,35 +178,100 @@ def drain_events() -> List[dict]:
     return out
 
 
-@contextlib.contextmanager
-def span(name: str, **args) -> Iterator[int]:
-    """Record a complete trace event around the body; keyword args (ints
-    and strings) go into the event's ``args``. Under device tracing the
-    body runs inside ranges of the span's name."""
-    if not _active:
-        yield 0
-        return
-    stack = getattr(_tls, "stack", None)
-    if stack is None:
-        stack = _tls.stack = []
-    sid = next(_span_ids)
-    parent = stack[-1] if stack else 0
-    stack.append(sid)
-    ann = _annotated(name, args) if _prof is not None \
-        else contextlib.nullcontext()
-    t0 = _now_us()
-    try:
-        with ann:
-            yield sid
-    finally:
-        dur = _now_us() - t0
-        stack.pop()
-        _tls.last = sid
-        add_event({"name": name, "ph": "X", "ts": t0, "dur": dur,
-                   "pid": os.getpid(),
+def profiling() -> bool:
+    """Whether a torch.profiler session runs in this process, whoever
+    started it (torch's own flag; a process that never loaded the
+    profiler runs none)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class _Off:
+    """The span of a process that neither records nor profiles."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> int:
+        return 0
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """An active span: a recorded event when the span file is on, a
+    ``record_function`` range (and under this module's own session an
+    NVTX range and the step mark) when a profiler runs."""
+
+    __slots__ = ("name", "args", "record", "profiled", "sid", "parent",
+                 "ts", "t0", "ranges", "nvtx")
+
+    def __init__(self, name: str, args: dict, record: bool,
+                 profiled: bool) -> None:
+        self.name, self.args = name, args
+        self.record, self.profiled = record, profiled
+        self.sid = 0
+
+    def __enter__(self) -> int:
+        if self.record:
+            stack = getattr(_tls, "stack", None)
+            if stack is None:
+                stack = _tls.stack = []
+            self.sid = next(_span_ids)
+            self.parent = stack[-1] if stack else 0
+            stack.append(self.sid)
+        self.ts = time.time_ns()
+        self.t0 = time.perf_counter()
+        if self.profiled:
+            self._open_ranges()
+        return self.sid
+
+    def _open_ranges(self) -> None:
+        import torch
+        ranges = []
+        if _prof is not None and "step_num" in self.args:
+            ranges.append(torch.profiler.record_function(
+                f"ProfilerStep#{self.args['step_num']}"))
+        ranges.append(torch.profiler.record_function(self.name))
+        for r in ranges:
+            r.__enter__()
+        self.ranges = ranges
+        self.nvtx = _nvtx
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+
+    def __exit__(self, *exc) -> None:
+        if self.profiled:
+            if self.nvtx:
+                import torch
+                torch.cuda.nvtx.range_pop()
+            for r in reversed(self.ranges):
+                r.__exit__(*exc)
+        if not self.record:
+            return
+        dur = (time.perf_counter() - self.t0) * 1e6
+        _tls.stack.pop()
+        _tls.last = self.sid
+        add_event({"name": self.name, "ph": "X", "ts": self.ts / 1e3,
+                   "dur": dur, "pid": os.getpid(),
                    "tid": threading.get_ident() & 0xFFFFFFFF,
-                   "args": {"span_id": sid, "parent": parent,
-                            "trace_id": _trace_id, **args}})
+                   "args": {"span_id": self.sid, "parent": self.parent,
+                            "trace_id": _trace_id, **self.args}})
+
+
+def span(name: str, **args):
+    """A context manager recording a complete trace event around the
+    body; keyword args (ints and strings) go into the event's ``args``,
+    and entering it gives the span's id (0 with the span file off).
+    Under a running profiler the body runs inside ranges of the span's
+    name."""
+    record, profiled = _active, profiling()
+    if not record and not profiled:
+        return _OFF
+    return _Span(name, args, record, profiled)
 
 
 def save(path: Optional[str] = None) -> Optional[str]:

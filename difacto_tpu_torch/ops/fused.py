@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..obs import trace
 from ..utils import devtrace
 from . import build
 
@@ -163,11 +164,13 @@ def gather_rows(table: torch.Tensor, slots: torch.Tensor,
     """The fused-row gather: the CUDA kernel for a table on the card, the
     plain version for a table on the CPU. ``out`` is written in place
     when given (the sharded pull writes each shard's lanes into its
-    slice of one output, parallel/sharded.py)."""
-    if table.device.type == "cuda":
-        return gather_rows_cuda(table, slots, out)
-    if table.device.type == "cpu":
-        return gather_rows_ref(table, slots, out)
+    slice of one output, parallel/sharded.py). Each call runs in the
+    ``kernels.gather`` span (obs/trace.py)."""
+    with trace.span("kernels.gather"):
+        if table.device.type == "cuda":
+            return gather_rows_cuda(table, slots, out)
+        if table.device.type == "cpu":
+            return gather_rows_ref(table, slots, out)
     raise ValueError(f"gather_rows: unsupported device {table.device}")
 
 
@@ -294,12 +297,15 @@ def fm_update_rows(table: torch.Tensor, slots: torch.Tensor,
                    ) -> torch.Tensor:
     """The fused push, in place: the kernel, which computes the epilogue
     that ``epi`` describes, for a table on the card; the plain version,
-    which calls ``epilogue``, for a table on the CPU."""
-    if table.device.type == "cuda":
-        return fm_update_rows_cuda(table, slots, rows, gw, gV, vmask, epi)
-    if table.device.type == "cpu":
-        return fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
-                                  epilogue)
+    which calls ``epilogue``, for a table on the CPU. Each call runs in
+    the ``kernels.push`` span (obs/trace.py)."""
+    with trace.span("kernels.push"):
+        if table.device.type == "cuda":
+            return fm_update_rows_cuda(table, slots, rows, gw, gV, vmask,
+                                       epi)
+        if table.device.type == "cpu":
+            return fm_update_rows_ref(table, slots, rows, gw, gV, vmask,
+                                      epilogue)
     raise ValueError(f"fm_update_rows: unsupported device {table.device}")
 
 

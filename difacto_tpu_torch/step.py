@@ -15,6 +15,14 @@ JAX package's "off" backend does for it.
 serve/executor.py, which is what makes their scores bit-identical for the
 same rows.
 
+Each phase of a train or eval step runs in a span of its own
+(obs/trace.py): ``step.pull`` (the gather and the rows' unpack),
+``step.forward`` (the forward, the objective and the AUC),
+``step.backward`` and ``step.push``; the kernel entries' spans
+(``kernels.gather``, ``kernels.push``, ops/fused.py) lie inside the pull
+and the push. Under a running profiler each is a ``record_function``
+range, so every device operation falls under the phase that launched it.
+
 Under a ``(dp, fs)`` mesh (parallel/mesh.py) the same functions run: a
 ``slots`` argument that is a parallel.sharded.ShardedSlots makes the pull
 and the push one kernel launch per non-empty key-range shard run
@@ -36,6 +44,7 @@ import torch
 
 from .losses import FMParams, LossSpec
 from .losses.metrics import auc_times_n, auc_times_n_binned
+from .obs import trace
 
 
 def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
@@ -64,24 +73,31 @@ def make_step_fns(fns, loss: LossSpec, train_auc: str = "binned"):
         return objv, auc_fn(rows.labels, pred, rows.row_mask)
 
     def forward(state, batch, slots):
-        params, _ = pull(state, slots)
-        pred = loss.predict(params, batch)
-        objv, auc = metrics(pred, batch, auc_times_n)
+        with trace.span("step.pull"):
+            params, _ = pull(state, slots)
+        with trace.span("step.forward"):
+            pred = loss.predict(params, batch)
+            objv, auc = metrics(pred, batch, auc_times_n)
         return params, pred, objv, auc
 
     train_auc_fn = {"binned": auc_times_n_binned, "exact": auc_times_n,
                     "none": None}[train_auc]
 
     def train_step(state, batch, slots):
-        params, rows = pull(state, slots)
-        pred, xv = loss.predict_xv(params, batch)
-        objv, auc = metrics(pred, batch, train_auc_fn)
-        gw, gV = loss.calc_grad(params, batch, pred, xv)
-        if gV is None:
-            state = fns.apply_grad(state, slots, gw, None, None)
-        else:
-            state = fns.apply_grad_rows(state, slots, rows, gw.contiguous(),
-                                        gV.contiguous(), params.v_mask)
+        with trace.span("step.pull"):
+            params, rows = pull(state, slots)
+        with trace.span("step.forward"):
+            pred, xv = loss.predict_xv(params, batch)
+            objv, auc = metrics(pred, batch, train_auc_fn)
+        with trace.span("step.backward"):
+            gw, gV = loss.calc_grad(params, batch, pred, xv)
+        with trace.span("step.push"):
+            if gV is None:
+                state = fns.apply_grad(state, slots, gw, None, None)
+            else:
+                state = fns.apply_grad_rows(
+                    state, slots, rows, gw.contiguous(), gV.contiguous(),
+                    params.v_mask)
         return state, objv, auc
 
     def eval_step(state, batch, slots):

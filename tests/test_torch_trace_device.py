@@ -1,5 +1,6 @@
-"""The device annotations of the port's obs/trace.py and its profiler
-hooks (utils/profiling.py), side by side with the JAX package's
+"""The device annotations of the port's obs/trace.py under its own
+profiler session (``DIFACTO_TRACE_DEVICE``, utils/profiling.py), side by
+side with the JAX package's
 (tests/test_jaxflow.py:394-430):
 
 - with ``DIFACTO_TRACE`` and ``DIFACTO_TRACE_DEVICE`` set on the CPU, in
@@ -10,9 +11,9 @@ hooks (utils/profiling.py), side by side with the JAX package's
   body's operators inside the span's range;
 - device annotations change no result: a traced SGD epoch's table under
   them equals one without them bit for bit;
-- without the knob the module never creates a profiler;
-- ``Timer`` and ``device_trace`` (a CPU session exported as a Chrome
-  trace; a profiler that fails to start is logged and the body runs).
+- without the knob the module never creates a profiler.
+
+tests/test_torch_spans.py holds the spans under any profiler.
 """
 
 import json
@@ -26,7 +27,6 @@ import pytest
 import torch
 
 from difacto_tpu_torch.obs import trace
-from difacto_tpu_torch.utils import profiling
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RCV1 = str(REPO / "tests" / "data" / "rcv1_100.libsvm")
@@ -147,38 +147,3 @@ def test_without_the_knob_no_profiler_exists(monkeypatch):
     finally:
         trace.stop()
     assert made == [] and trace._prof is None
-
-
-def test_timer_sums_sections():
-    t = profiling.Timer()
-    for _ in range(3):
-        with t("pull"):
-            pass
-    with t("push"):
-        pass
-    assert t.count == {"pull": 3, "push": 1}
-    rep = t.report().splitlines()
-    assert len(rep) == 2 and {r.split()[0] for r in rep} == {"pull", "push"}
-
-
-def test_device_trace_exports_a_chrome_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path), cuda=False):
-        with torch.profiler.record_function("unit.range"):
-            torch.ones(4).sum()
-    (path,) = tmp_path.glob("trace-*.json")
-    names = {ev["name"] for ev in json.loads(path.read_text())[
-        "traceEvents"]}
-    assert "unit.range" in names
-
-
-def test_device_trace_failure_is_logged_not_raised(tmp_path, monkeypatch,
-                                                   caplog):
-    def broken(*a, **k):
-        raise RuntimeError("no profiler here")
-
-    monkeypatch.setattr(profiling, "start_profiler", broken)
-    ran = []
-    with profiling.device_trace(str(tmp_path)):
-        ran.append(1)
-    assert ran == [1] and "no profiler here" in caplog.text
-    assert not list(tmp_path.iterdir())
