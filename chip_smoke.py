@@ -17,8 +17,8 @@ threads and worker processes, from text and from the rec2 cache that
 task=convert writes, and of examples/criteo_dict.conf (the
 dictionary store at the JAX package's defaults), with random weights and
 synthetic Criteo rows made from a seed, and holds the CUDA kernels (the
-fused-row gather and the scatter with its FTRL/AdaGrad epilogue) against
-their plain PyTorch versions. Phases:
+fused-row gather and the scatter with its FTRL/AdaGrad epilogue, and the
+chunked FM backward) against their plain PyTorch versions. Phases:
 
 1. the card's name and power limit; build the kernels with nvcc, one
    thread (and one nvcc) per source, all started together, and the
@@ -367,6 +367,13 @@ their plain PyTorch versions. Phases:
     ``lockmap --check`` over phase 18 (d)'s lock dump: no dynamic-only
     edge, no cycle; (e) the port's ``obs_report`` over phase 12 (e)'s
     ``metrics_path`` JSONL, one line each.
+23. the chunked backward's kernel (``fm_chunk_grad.cu``, run right after
+    phase 2) at the batches of the benchmark's two cells (65,536 rows of
+    ``benchmark/traffic``'s Criteo mixes, V_dim 16 and 64, their chunked
+    layouts built on the card): three calls bit for bit, within 1e-5 of
+    each element's sum of magnitudes from its plain version, and its
+    device time beside its bytes bound and the plain version's, two
+    batches cycled.
 
 Kernel times are device time from torch.profiler: the kernels' own
 durations summed, without the host's launch gaps. A profile on the card
@@ -374,7 +381,8 @@ now and then loses device events, so a timed profile is kept only when it
 holds exactly ``rounds`` times the events of a one-pass profile.
 
 Prints the whole smoke's wall time, one JSON line of kernel numbers (the
-scatter's two routes as two entries; launches summed over the main
+scatter's two routes as two entries, the chunked backward one a cell
+with the launches of the whole process; otherwise launches summed over the main
 paths of phases 3, 4, 7, 9, 10, 12, 13, 15, 16, 17 (r), 18 (a) and
 (b), 19 (a), (c) and (d), 20 (a) on both ranks and 21 (a), (b) and (d),
 each counted from 0 just before its own run), then, as the last line,
@@ -415,6 +423,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM published HBM3 rate
 KERNELS = {                 # library: source
     "gather_rows": "difacto_tpu_torch/ops/csrc/gather_rows.cu",
     "scatter_epilogue": "difacto_tpu_torch/ops/csrc/scatter_epilogue.cu",
+    "fm_chunk_grad": "difacto_tpu_torch/ops/csrc/fm_chunk_grad.cu",
 }
 # the kernels line: entry -> (library, the TPU kernel it replaces)
 ENTRIES = {
@@ -422,6 +431,8 @@ ENTRIES = {
     "scatter_epilogue": ("scatter_epilogue", "difacto_tpu/ops/fused.py:337"),
     "scatter_epilogue_off": ("scatter_epilogue",
                              "difacto_tpu/ops/fused.py:300"),
+    "fm_chunk_grad": ("fm_chunk_grad",
+                      "none (jnp: difacto_tpu/losses/fm.py:167)"),
 }
 DEV = "cuda"                # "cpu" only in a rehearsal off the card
 T_START = 0.0
@@ -629,6 +640,123 @@ def phase_kernel_vs_plain(C: int) -> float:
     torch.cuda.empty_cache()
     log("phase 2 ok: gather kernel bit-exact with its plain version")
     return worst
+
+
+# the benchmark's two cells: (name, traffic file, V_dim, fused row lanes)
+CHUNK_GRAD_CELLS = (
+    ("fm16.replay_b65k", "benchmark/traffic/replay_b65k_kaggle.json", 16,
+     128),
+    ("fm64.replay_b65k", "benchmark/traffic/replay_b65k_1tb.json", 64, 256))
+
+
+def criteo_panel(traffic_path: str, B: int, seed: int, dev):
+    """A staged replay batch of ``B`` rows of a traffic file's mix
+    (benchmark/gen.py): each field's value is a key of its own, the lanes
+    are the keys' sorted-unique positions, a row's tokens lead its panel
+    row and its empty fields' cells trail as lane 0 with value 0, as the
+    packer lays them; with its chunked-run layout built on the card.
+    Returns (PanelBatch, u_cap)."""
+    import torch
+    from benchmark import gen
+    from difacto_tpu_torch.ops.batch import PanelBatch, panel_chunk_tokens
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           traffic_path)) as f:
+        rows = gen.make_rows(json.load(f), B, seed)
+    ni = rows["ints"].shape[1]
+    keys = np.concatenate([rows["ints"] + (np.arange(ni) << 40),
+                           rows["cats"] + (ni << 40)], axis=1)
+    full = ~rows["empty"]
+    lanes = np.zeros(keys.shape, dtype=np.int64)
+    uniq, inv = np.unique(keys[full], return_inverse=True)
+    lanes[full] = inv
+    lead = np.argsort(~full, axis=1, kind="stable")   # tokens first
+    idx = np.take_along_axis(lanes, lead, axis=1).astype(np.int32)
+    vals = np.take_along_axis(full, lead, axis=1).astype(np.float32)
+    u_cap = -(-len(uniq) // 1024) * 1024
+    t = functools.partial(torch.tensor, device=dev)
+    pb = PanelBatch(idx=t(idx), vals=t(vals), labels=None, rweight=None,
+                    row_mask=None, num_rows=t(B), num_uniq=t(len(uniq)))
+    return panel_chunk_tokens(pb, u_cap), u_cap
+
+
+def chunk_grad_bytes(pb, U: int, k: int) -> int:
+    """Bytes the chunked backward needs: chunk_idx, chunk_lane,
+    chunk_vals, p, XV, V and v_mask read once, gw and gV written once."""
+    C, L = pb.chunk_idx.shape
+    B = pb.idx.shape[0]
+    vals = 0 if pb.chunk_vals is None else C * L * 4
+    return C * L * 4 + C * 4 + vals + B * 4 + B * k * 4 \
+        + U * k * 4 + U * 4 + U * 4 + U * k * 4
+
+
+def phase_chunk_grad() -> dict:
+    """Phase 23: the chunked backward's kernel (csrc/fm_chunk_grad.cu) at
+    the benchmark cells' batches, two staged batches a cell cycled so the
+    chunk arrays come from HBM: against its plain version (within 1e-5 of
+    each element's sum of magnitudes, three calls bit for bit), its
+    device time beside its bytes bound and the plain version's. Returns
+    {cell: numbers}."""
+    import torch
+    from difacto_tpu_torch.losses import FMParams, fm
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for cell, traffic, k, lanes in CHUNK_GRAD_CELLS:
+        args = []
+        for b in range(2):
+            pb, U = criteo_panel(traffic, 65536, SEED + b, dev)
+            B = pb.idx.shape[0]
+            rows = torch.randn((U, lanes), generator=gen, device=dev) * 0.1
+            params = FMParams(
+                w=torch.zeros(U, device=dev), V=rows[:, :k],
+                v_mask=(torch.rand(U, generator=gen, device=dev)
+                        < 0.9).float())
+            sums = torch.randn((B, 1 + 2 * k), generator=gen, device=dev)
+            p = torch.randn(B, generator=gen, device=dev) * 0.3
+            args.append((params, pb, p, sums[:, 1:1 + k]))
+        params, pb, p, xv = args[0]
+        runs = [fm._fm_grad_panel_chunked(params, pb, p, xv)
+                for _ in range(3)]
+        want = fm.fm_grad_panel_chunked_ref(params, pb, p, xv)
+        cv = pb.chunk_vals
+        scale = fm.fm_grad_panel_chunked_ref(
+            params._replace(V=-params.V.abs()),
+            pb._replace(chunk_vals=None if cv is None else cv.abs()),
+            p.abs(), xv.abs())
+        sync()
+        worst = 0.0
+        for i, (g, w, sc) in enumerate(zip(runs[0], want, scale)):
+            if not all(torch.equal(r[i].view(torch.int32),
+                                   g.view(torch.int32)) for r in runs[1:]):
+                raise AssertionError(f"{cell}: the chunked backward did "
+                                     "not repeat bit for bit")
+            worst = max(worst, float(((g - w).abs()
+                                      / sc.clamp_min(1e-30)).max()))
+        if worst > 1e-5:
+            raise AssertionError(f"{cell}: kernel against plain {worst:.3g}"
+                                 " of the sum of magnitudes (limit 1e-5)")
+        C = pb.chunk_lane.shape[0]
+        lens = torch.bincount(pb.chunk_lane[pb.chunk_lane < U].long(),
+                              minlength=U)
+        nbytes = np.mean([chunk_grad_bytes(a[1], a[0].w.shape[0], k)
+                          for a in args])
+        ms = device_ms(fm._fm_grad_panel_chunked, args)
+        plain_ms = device_ms(fm.fm_grad_panel_chunked_ref, args)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[cell] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "err": worst}
+        log(f"  {cell}: B {B}, U {U}, k {k}, C {C} chunks ("
+            f"{int((pb.chunk_lane < U).sum())} real, longest lane "
+            f"{int(lens.max())}), {nbytes / 1e6:.1f} MB: kernel {ms:.4f} ms"
+            f" against its bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms; "
+            f"{worst:.3g} of the sum of magnitudes from the plain version, "
+            "3 calls bit for bit")
+        del args, runs, want, scale
+        torch.cuda.empty_cache()
+    log("phase 23 ok: the chunked backward's kernel at the benchmark's "
+        "batches")
+    return out
 
 
 # row sizes of the gather's edge cases: 1, 3, 8, 16, 32 and 65 vectors
@@ -6078,10 +6206,12 @@ def _p21_train(spec: dict) -> dict:
     walls, losses and the table's digest either way."""
     import hashlib
 
+    from difacto_tpu_torch.losses import fm
     from difacto_tpu_torch.tools import devmap
     from difacto_tpu_torch.utils import devtrace
     devtrace.reset()
     _reset_counts()
+    chunk_grad = fm.fm_chunk_grad_cuda.launches
     traced = devtrace.enabled()
     warm, final = spec["out"] + "-train-warm.json", \
         spec["out"] + "-train.json"
@@ -6093,6 +6223,7 @@ def _p21_train(spec: dict) -> dict:
     ln, progress, walls, _ = _train([tuple(x) for x in spec["kwargs"]],
                                     epoch_end=epoch_end)
     out = {"launches": _counts(), "walls": walls,
+           "chunk_grad": fm.fm_chunk_grad_cuda.launches - chunk_grad,
            "loss": [t.loss / max(t.nrows, 1) for t, _ in progress]}
     if traced:
         devtrace.dump(final)
@@ -6287,10 +6418,15 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
         raise AssertionError(f"phase 21 (b): untraced launches "
                              f"{bu['launches']}, phase 7's "
                              f"{tr['launches']}")
-    if bt["launches"] != tr["launches"] or (
-            DEV == "cuda" and bt["kernels"] != bt["launches"]):
+    # the chunked backward's kernel site counts the training steps' calls
+    sites = {**bt["launches"], "fm_chunk_grad_cuda": bt["chunk_grad"]}
+    if bt["launches"] != tr["launches"] or bt["chunk_grad"] != bu[
+            "chunk_grad"] or (DEV == "cuda" and (bt["kernels"] != sites
+                                                 or not bt["chunk_grad"])):
         raise AssertionError(f"phase 21 (b): traced launches "
-                             f"{bt['launches']} (sites {bt['kernels']}), "
+                             f"{bt['launches']} and {bt['chunk_grad']} of "
+                             f"the chunked backward (untraced "
+                             f"{bu['chunk_grad']}; sites {bt['kernels']}), "
                              f"phase 7's {tr['launches']}")
     if bt["digest"] != bu["digest"] or bt["loss"] != bu["loss"]:
         raise AssertionError("phase 21 (b): the traced run's table or "
@@ -6582,6 +6718,7 @@ def main(argv=None) -> int:
               "from the root of the repository", file=sys.stderr)
         return 2
     from difacto_tpu_torch.config import parse_config_file
+    from difacto_tpu_torch.losses import fm
     from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
 
     global T_START
@@ -6604,6 +6741,7 @@ def main(argv=None) -> int:
             f"mesh_dp={dict(mesh_conf)['mesh_dp']} "
             f"mesh_fs={dict(mesh_conf)['mesh_fs']}")
         gather_err = phase_kernel_vs_plain(C)
+        cg = phase_chunk_grad()
         t0 = time.monotonic()
         arrays = synthetic_model(C, k, SEED)
         text = synthetic_criteo(N_ROWS, SEED + 1)
@@ -6691,6 +6829,18 @@ def main(argv=None) -> int:
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]})
+        # the chunked backward, at each benchmark cell's batch; launches:
+        # every call of this process (phases 7, 9, 12 (c), 13, 15 ...);
+        # its error is relative to each element's sum of magnitudes
+        for cell, t in cg.items():
+            lib, replaces = ENTRIES["fm_chunk_grad"]
+            kernels.append({
+                "name": "fm_chunk_grad", "cell": cell, "route": "cuda",
+                "source": KERNELS[lib], "replaces": replaces,
+                "launches": fm.fm_chunk_grad_cuda.launches,
+                "max_err_of_magnitudes": t["err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "library_ms": None})
         log(f"smoke wall time {time.monotonic() - T_START:.1f} s")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

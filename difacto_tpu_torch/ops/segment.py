@@ -35,6 +35,16 @@ partials in chunk order with the same sequential ``segment_reduce`` and
 no sort, which is the order of the JAX package's sorted scatter-add.
 Neither reduction uses ``index_add_``/``scatter_add_``: their order on
 the card is not deterministic.
+
+On the card the chunked backward of an FM with embeddings on one dp
+block does not come here: losses/fm.fm_chunk_grad_cuda
+(``csrc/fm_chunk_grad.cu``) sums each chunk's tokens in slot order and
+each lane's chunks in chunk order in groups of 32 chunks counted from the
+lane's first, the groups' partials then in order, so that a skewed lane
+is summed by many threads and not walked by one as ``segment_reduce``
+walks it. A lane of at most 32 chunks keeps :func:`chunk_sum`'s order.
+:func:`chunk_sum` stays the reduction of the CPU, of dp blocks and of
+logistic loss.
 """
 
 from __future__ import annotations

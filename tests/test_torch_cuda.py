@@ -302,12 +302,184 @@ def test_chunked_backward_on_the_card_repeats(cuda, k):
         v_mask=t((rng.rand(U) < 0.7).astype(np.float32)) if k else None)
     pred = t(rng.randn(B).astype(np.float32))
     xv = fm.fm_predict_panel_xv(params, pb)[1] if k else None
+    before = fm.fm_chunk_grad_cuda.launches
     runs = [fm.fm_grad_panel(params, pb, pred, xv) for _ in range(3)]
+    # the kernel entry with embeddings; logistic loss keeps the plain one
+    assert fm.fm_chunk_grad_cuda.launches - before == (3 if k else 0)
     for gw, gV in runs[1:]:
         assert torch.equal(gw.view(torch.int32), runs[0][0].view(torch.int32))
         if k:
             assert torch.equal(gV.view(torch.int32),
                                runs[0][1].view(torch.int32))
+
+
+def _chunk_grad_case(dev, k, binary, data, vdt=torch.float32):
+    """One panel of 2,048 rows x 39 fields at U 12,288, laid out as the
+    replay cache stages it, with the edges the kernel has to take: the
+    last 6 fields empty (lane 0 holds their cells, value 0 on a valued
+    panel, ~770 chunks: many groups of S), a lane with one token, lanes
+    with none, and the trailing pad chunks. xv and V are row slices of
+    wider tensors, as on the main path (the forward's sums, the gathered
+    fused rows). ``data`` "exact": every value a small multiple of a
+    power of two, so every fp32 sum in any order is exact."""
+    from difacto_tpu_torch.losses import FMParams
+    from difacto_tpu_torch.ops.batch import PanelBatch, panel_chunk_tokens
+    rng = np.random.RandomState(8 + k)
+    B, F, U = 2048, 39, 12288
+    idx = (rng.zipf(1.2, (B, F)) % 11000).astype(np.int32)
+    idx[:, F - 6:] = 0
+    idx[5, 3] = 11500                         # a lane of one token
+    if data == "exact":
+        vals = rng.randint(0, 5, (B, F)) / 4.0
+        p = rng.randint(-8, 9, B) / 8.0
+        xv = rng.randint(-8, 9, (B, k)) / 8.0
+    else:
+        vals = rng.rand(B, F)
+        p = rng.randn(B)
+        xv = rng.randn(B, k)
+    vals[:, F - 6:] = 0.0
+    t = functools.partial(torch.tensor, device=dev)
+    pb = PanelBatch(idx=t(idx), vals=None if binary else t(vals,
+                                                          dtype=torch.float32),
+                    labels=None, rweight=None, row_mask=None, num_rows=t(B),
+                    num_uniq=t(11001))
+    pb = panel_chunk_tokens(pb, U)
+    wide = torch.zeros((B, 2 * k + 1), device=dev)
+    wide[:, 1:1 + k] = t(xv, dtype=torch.float32)
+    rows = torch.zeros((U, k + 8), dtype=vdt, device=dev)
+    rows[:, :k] = t(rng.randn(U, k), dtype=vdt)
+    params = FMParams(w=torch.zeros(U, device=dev), V=rows[:, :k],
+                      v_mask=t((rng.rand(U) < 0.7).astype(np.float32)))
+    return params, pb, t(p, dtype=torch.float32), wide[:, 1:1 + k]
+
+
+def _chunk_grad_scale(params, pb, p, xv):
+    """Per element, the sum of its terms' magnitudes (the plain version
+    over |p|, |xv|, |x| and V = -|V|): what a float32 sum's rounding
+    error scales with."""
+    from difacto_tpu_torch.losses import fm
+    cv = pb.chunk_vals
+    return fm.fm_grad_panel_chunked_ref(
+        params._replace(V=-params.V.abs()),
+        pb._replace(chunk_vals=None if cv is None else cv.abs()),
+        p.abs(), xv.abs())
+
+
+@pytest.mark.parametrize("data", ["exact", "random"])
+@pytest.mark.parametrize("binary", [True, False])
+@pytest.mark.parametrize("k", [4, 16, 64])
+def test_chunk_grad_kernel_matches_plain_and_repeats(cuda, k, binary, data):
+    """The chunked backward's kernel against its plain version on the
+    card: equal on exactly representable data (only the sums' grouping
+    differs, and every grouping is exact there); on random data within
+    1e-5 of each element's sum of magnitudes, since a lane's tokens are
+    added in another grouping (a chunk's slots in order, long lanes in
+    groups of S chunks) and each float32 sum rounds by at most about
+    2^-24 times that sum per add along its chain. Three runs equal bit
+    for bit; one launch a call."""
+    from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops import build
+    params, pb, p, xv = _chunk_grad_case(cuda, k, binary, data)
+    S = build.library("fm_chunk_grad").difacto_fm_chunk_grad_group()
+    cl = pb.chunk_lane.cpu().numpy()
+    U = params.w.shape[0]
+    lens = np.bincount(cl[cl < U], minlength=U)
+    assert lens[0] > 3 * S and (cl == U).any() and (lens == 0).any()
+    assert (pb.chunk_idx[pb.chunk_lane == 11500] < 2048).sum() == 1
+    before = fm.fm_chunk_grad_cuda.launches
+    runs = [fm._fm_grad_panel_chunked(params, pb, p, xv) for _ in range(3)]
+    assert fm.fm_chunk_grad_cuda.launches - before == 3
+    want = fm.fm_grad_panel_chunked_ref(params, pb, p, xv)
+    torch.cuda.synchronize()
+    for gw, gV in runs[1:]:
+        assert torch.equal(gw.view(torch.int32), runs[0][0].view(torch.int32))
+        assert torch.equal(gV.view(torch.int32), runs[0][1].view(torch.int32))
+    got = runs[0]
+    assert got[0].shape == (U,) and got[1].shape == (U, k)
+    assert got[0].is_contiguous() and got[1].is_contiguous()
+    if data == "exact":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        for g, w, s in zip(got, want, _chunk_grad_scale(params, pb, p, xv)):
+            assert ((g - w).abs() <= 1e-5 * s).all(), \
+                float(((g - w).abs() / s.clamp_min(1e-30)).max())
+
+
+def test_chunk_grad_kernel_takes_bf16_rows(cuda):
+    """A bf16 container's V (Vm rounded to bf16 as torch rounds V * vm):
+    equal to the plain version on exactly representable data."""
+    from difacto_tpu_torch.losses import fm
+    params, pb, p, xv = _chunk_grad_case(cuda, 16, False, "exact",
+                                         torch.bfloat16)
+    got = fm._fm_grad_panel_chunked(params, pb, p, xv)
+    want = fm.fm_grad_panel_chunked_ref(params, pb, p, xv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_chunk_grad_kernel_refuses_what_it_cannot_take(cuda):
+    from difacto_tpu_torch.losses import fm
+    params, pb, p, xv = _chunk_grad_case(cuda, 16, False, "random")
+    args = dict(p=p, xv=xv, chunk_idx=pb.chunk_idx,
+                chunk_lane=pb.chunk_lane, chunk_vals=pb.chunk_vals,
+                V=params.V, v_mask=params.v_mask)
+    ci = pb.chunk_idx
+    C = ci.shape[0]
+    bad = [
+        (TypeError, dict(p=p.double())),
+        (TypeError, dict(chunk_idx=ci.long())),
+        (TypeError, dict(V=params.V.half())),
+        (ValueError, dict(p=p.cpu())),
+        (ValueError, dict(chunk_lane=torch.stack(
+            [pb.chunk_lane, pb.chunk_lane], 1)[:, 0])),
+        (ValueError, dict(xv=xv.t().contiguous().t())),
+        (ValueError, dict(xv=xv[:, :15])),
+        (ValueError, dict(chunk_vals=pb.chunk_vals[:, :8])),
+        (ValueError, dict(v_mask=params.v_mask[:-1])),
+        (ValueError, dict(chunk_idx=ci.view(-1)[1:1 + (C - 1) * 16].view(
+            C - 1, 16), chunk_lane=pb.chunk_lane[:C - 1],
+            chunk_vals=pb.chunk_vals[:C - 1])),
+    ]
+    before = fm.fm_chunk_grad_cuda.launches
+    for err, over in bad:
+        with pytest.raises(err):
+            fm.fm_chunk_grad_cuda(**{**args, **over})
+    # V wider than a block's columns: refused, and the backward takes the
+    # plain version
+    k = fm.CHUNK_GRAD_MAX_K + 1
+    wide = params._replace(V=torch.zeros((params.V.shape[0], k),
+                                         device=cuda))
+    xw = torch.zeros((p.shape[0], k), device=cuda)
+    with pytest.raises(ValueError):
+        fm.fm_chunk_grad_cuda(**{**args, "V": wide.V, "xv": xw})
+    got = fm._fm_grad_panel_chunked(wide, pb, p, xw)
+    assert got[1].shape == (params.V.shape[0], k)
+    assert fm.fm_chunk_grad_cuda.launches == before
+
+
+def test_replay_training_launches_the_chunk_grad_kernel(cuda, criteo_file):
+    """A replayed FM run on the card: every training step, each staged
+    batch's in epoch 0 and every replay, takes the chunked backward's
+    kernel entry once; the run repeats bit for bit."""
+    from difacto_tpu_torch.learners import sgd as tsgd
+    from difacto_tpu_torch.learners.sgd import SGDLearner
+    from difacto_tpu_torch.losses import fm
+    kw = [("data_in", criteo_file), ("data_format", "criteo"),
+          ("V_dim", "4"), ("batch_size", "100"), ("hash_capacity", "4096"),
+          ("num_jobs_per_epoch", "1"), ("max_num_epochs", "3"),
+          ("stop_rel_objv", "0"), ("report_interval", "0"),
+          ("num_producers", "1"), ("producer_mode", "thread")]
+    tables = []
+    for _ in range(2):
+        ln = SGDLearner(device="cuda")
+        assert ln.init(kw) == []
+        before = fm.fm_chunk_grad_cuda.launches
+        ln.run()
+        staged = sum(len(items) for items in
+                     ln._caches[tsgd.K_TRAINING].entries.values())
+        assert staged == 15
+        assert fm.fm_chunk_grad_cuda.launches - before == 3 * staged
+        tables.append(ln.store.state.VVg.view(torch.int32).clone())
+    assert torch.equal(tables[0], tables[1])
 
 
 def test_dictionary_replay_run_repeats_and_equals_plain(cuda, tmp_path):

@@ -526,10 +526,11 @@ def test_inventory_finds_every_devtrace_call_in_the_port():
                 seen.add(f"{rel}:{i}")
     assert seen == static
     kinds = collections.Counter(r["kind"] for r in inv["sites"].values())
-    assert kinds["kernel"] == 3 and kinds["program"] >= 13
+    assert kinds["kernel"] == 4 and kinds["program"] >= 13
     labels = {r["label"] for r in inv["sites"].values()}
     assert {"gather_rows_cuda", "scatter_rows_cuda", "fm_update_rows_cuda",
-            "train_step", "eval_step", "_tile_grad", "delta_grad"} <= labels
+            "fm_chunk_grad_cuda", "train_step", "eval_step", "_tile_grad",
+            "delta_grad"} <= labels
     for point in ("serve.scores", "sgd.metrics", "sgd.spmd_metrics",
                   "bcd.grad_gh", "lbfgs.tile_metrics", "lbfgs.grad",
                   "lbfgs.linesearch", "lbfgs.val_auc", "lbfgs.nnz",

@@ -210,6 +210,38 @@ def test_chunked_backward_equals_the_unchunked_one(binary):
         assert _rel(g.numpy(), w.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("case", ["cpu", "dp2", "logit"])
+def test_chunked_backward_off_the_card_takes_the_plain_path(case,
+                                                             monkeypatch):
+    """The chunked backward's kernel entry engages only on the card with
+    embeddings, one dp block and no plane: CPU tensors, ``dp=2`` and
+    logistic loss (V None) take the plain version, and the kernel entry
+    is never called."""
+    k = 0 if case == "logit" else 8
+    tpb, _, tp, _, pred = _chunked_batch(False, seed=7, k=k)
+    xv = tfm.fm_predict_panel_xv(tp, tpb)[1]
+    dp = 2 if case == "dp2" else 1
+    plain = []
+
+    def kernel(*a, **kw):
+        raise AssertionError("the kernel entry was called off the card")
+
+    def ref(*a, **kw):
+        plain.append(a[5] if len(a) > 5 else kw.get("dp", 1))
+        return real(*a, **kw)
+    real = tfm.fm_grad_panel_chunked_ref
+    monkeypatch.setattr(tfm, "fm_chunk_grad_cuda", kernel)
+    monkeypatch.setattr(tfm, "fm_grad_panel_chunked_ref", ref)
+    pr = torch.from_numpy(pred)
+    gw, gV = tfm.fm_grad_panel(tp, tpb, pr, xv, dp=dp)
+    assert plain == [dp]
+    want = real(tp, tpb, tfm._p_vector(pr, tpb), xv, dp=dp)
+    assert (gV is None) == (want[1] is None) == (case == "logit")
+    for g, w in zip((gw, gV), want):
+        if w is not None:
+            assert torch.equal(g, w)
+
+
 def test_chunk_sum_unsorted_lanes_equal_sorted():
     """``lanes_sorted=False`` (a layout concatenated from sorted blocks)
     sums each lane's chunks in their order too: lanes interleaved, each
