@@ -680,12 +680,14 @@ def criteo_panel(traffic_path: str, B: int, seed: int, dev):
 
 
 def chunk_grad_bytes(pb, U: int, k: int) -> int:
-    """Bytes the chunked backward needs: chunk_idx, chunk_lane,
-    chunk_vals, p, XV, V and v_mask read once, gw and gV written once."""
+    """Bytes the chunked backward needs: chunk_lane, the real chunks'
+    (lane < U) chunk_idx and chunk_vals, p, XV, V and v_mask read once,
+    gw and gV written once. The trailing pad chunks' slots are not read."""
     C, L = pb.chunk_idx.shape
+    real = int((pb.chunk_lane < U).sum())
     B = pb.idx.shape[0]
-    vals = 0 if pb.chunk_vals is None else C * L * 4
-    return C * L * 4 + C * 4 + vals + B * 4 + B * k * 4 \
+    vals = 0 if pb.chunk_vals is None else real * L * 4
+    return real * L * 4 + C * 4 + vals + B * 4 + B * k * 4 \
         + U * k * 4 + U * 4 + U * 4 + U * k * 4
 
 
@@ -693,11 +695,12 @@ def phase_chunk_grad() -> dict:
     """Phase 23: the chunked backward's kernel (csrc/fm_chunk_grad.cu) at
     the benchmark cells' batches, two staged batches a cell cycled so the
     chunk arrays come from HBM: against its plain version (within 1e-5 of
-    each element's sum of magnitudes, three calls bit for bit), its
-    device time beside its bytes bound and the plain version's. Returns
-    {cell: numbers}."""
+    each element's sum of magnitudes, three calls bit for bit, each a
+    launch of the kernel entry), its device time beside its bytes bound
+    and the plain version's. Returns {cell: numbers}."""
     import torch
     from difacto_tpu_torch.losses import FMParams, fm
+    from difacto_tpu_torch.ops import fused
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -715,8 +718,14 @@ def phase_chunk_grad() -> dict:
             p = torch.randn(B, generator=gen, device=dev) * 0.3
             args.append((params, pb, p, sums[:, 1:1 + k]))
         params, pb, p, xv = args[0]
+        before = fused.fm_chunk_grad_cuda.launches
         runs = [fm._fm_grad_panel_chunked(params, pb, p, xv)
                 for _ in range(3)]
+        if fused.fm_chunk_grad_cuda.launches - before != len(runs):
+            raise AssertionError(
+                f"{cell}: {len(runs)} calls of the chunked backward "
+                f"launched its kernel entry "
+                f"{fused.fm_chunk_grad_cuda.launches - before} times")
         want = fm.fm_grad_panel_chunked_ref(params, pb, p, xv)
         cv = pb.chunk_vals
         scale = fm.fm_grad_panel_chunked_ref(
@@ -1353,7 +1362,11 @@ def _swap_plain():
     return restore
 
 
-COUNTERS = ("gather_rows_cuda", "fm_update_rows_cuda", "scatter_rows_cuda")
+# the three table kernels, which the phases hold to their batches, and the
+# chunked backward's, counted beside them from 0 on every main path
+TABLE_COUNTERS = ("gather_rows_cuda", "fm_update_rows_cuda",
+                  "scatter_rows_cuda")
+COUNTERS = TABLE_COUNTERS + ("fm_chunk_grad_cuda",)
 
 
 def _reset_counts() -> None:
@@ -1365,6 +1378,11 @@ def _reset_counts() -> None:
 def _counts() -> dict:
     from difacto_tpu_torch.ops import fused
     return {c: getattr(fused, c).launches for c in COUNTERS}
+
+
+def _table_part(launches: dict) -> dict:
+    """The table kernels' part of a launch count."""
+    return {c: launches[c] for c in TABLE_COUNTERS}
 
 
 def phase_train(work: str, conf: list, uparam) -> dict:
@@ -1403,7 +1421,7 @@ def phase_train(work: str, conf: list, uparam) -> dict:
     # push per epoch-0 batch, one gather per validation block and epoch
     want = {"gather_rows_cuda": 2 * nb + nb + 2 * val_b,
             "fm_update_rows_cuda": 2 * nb, "scatter_rows_cuda": nb}
-    if launches != want:
+    if _table_part(launches) != want:
         raise AssertionError(f"launch counts {launches}, the batches need "
                              f"{want}")
     info = ln.device_cache_info()
@@ -1438,7 +1456,7 @@ def phase_train(work: str, conf: list, uparam) -> dict:
         ln, _, _, _ = _train(kwargs)
     finally:
         restore()
-    if any(_counts().values()):
+    if any(_table_part(_counts()).values()):
         raise AssertionError("the run on the plain versions launched a "
                              "kernel")
     if not torch.equal(ln.store.state.VVg.view(torch.int32),
@@ -1734,7 +1752,7 @@ def phase_train_dict(work: str) -> dict:
     E = N_DICT_EPOCHS
     want = {"gather_rows_cuda": E * nb + nb + E * val_b,
             "fm_update_rows_cuda": E * nb, "scatter_rows_cuda": nb}
-    if launches != want:
+    if _table_part(launches) != want:
         raise AssertionError(f"launch counts {launches}, the batches need "
                              f"{want}")
     growths = _dict_growths(ln, int(start))
@@ -1787,7 +1805,7 @@ def phase_train_dict(work: str) -> dict:
         ln, _, _, _ = _train(kwargs)
     finally:
         restore()
-    if any(_counts().values()):
+    if any(_table_part(_counts()).values()):
         raise AssertionError("the run on the plain versions launched a "
                              "kernel")
     if not (torch.equal(ln.store.state.VVg.view(torch.int32),
@@ -1844,7 +1862,7 @@ def phase_layout_cross(work: str) -> dict:
     if not (cap > 2048 and before[1] == 64 and after[1] == p.V_dim):
         raise AssertionError(f"the layout did not cross: capacity {cap}, "
                              f"(k, h, Wx, off) {before} -> {after}")
-    if not all(launches.values()):
+    if not all(_table_part(launches).values()):
         raise AssertionError(f"a kernel was not launched: {launches}")
     table, keys = ln.store.state.VVg.clone(), ln.store._keys.copy()
     del ln
@@ -1885,7 +1903,7 @@ def phase_local_conf(work: str) -> None:
     if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
         raise AssertionError(f"local.conf objective per row did not fall: "
                              f"{loss}")
-    if any(_counts().values()) or ln.store.param.V_dim != 0:
+    if any(_table_part(_counts()).values()) or ln.store.param.V_dim != 0:
         raise AssertionError("the flat table launched a fused-row kernel")
     data = dict(conf)["data_in"]
     pred_out = os.path.join(work, "local_pred")
@@ -2075,7 +2093,7 @@ def phase_stream(work: str, conf: list, uparam,
         "(a) 1 thread", [("num_producers", "1"),
                          ("producer_mode", "thread"), ("has_aux", "1"),
                          ("model_out", model)])
-    if total != want:
+    if _table_part(total) != want:
         raise AssertionError(f"run (a) launches {total}, the batches need "
                              f"{want}")
     if not (np.isfinite(loss_a).all() and loss_a[1] < loss_a[0]):
@@ -2119,7 +2137,7 @@ def phase_stream(work: str, conf: list, uparam,
                               counted=False)
     finally:
         restore()
-    if any(_counts().values()):
+    if any(_table_part(_counts()).values()):
         raise AssertionError("the run on the plain versions launched a "
                              "kernel")
     if not _bits_equal(bits_d, bits_a):
@@ -2163,7 +2181,7 @@ def phase_stream(work: str, conf: list, uparam,
         for w in turns:
             log(f"  the defaults on the learner of {name}: epoch wall s "
                 f"{_epoch_walls(w)}")
-    if total != {c: 7 * v for c, v in want.items()}:
+    if _table_part(total) != {c: 7 * v for c, v in want.items()}:
         raise AssertionError(f"runs (a), (f), (b), (c) x2, (e) and (g) "
                              f"launched {total}, the batches need 7 x "
                              f"{want}")
@@ -2351,8 +2369,8 @@ def phase_cache(work: str, conf: list, uparam, text: dict) -> dict:
         got = _counts()
         want = ({"gather_rows_cuda": 3 * nb + 2 * nv,
                  "fm_update_rows_cuda": 2 * nb, "scatter_rows_cuda": nb}
-                if counted else {c: 0 for c in COUNTERS})
-        if got != want:
+                if counted else {c: 0 for c in TABLE_COUNTERS})
+        if _table_part(got) != want:
             raise AssertionError(f"run {name} launches {got}, the batches "
                                  f"need {want}")
         for c in COUNTERS:
@@ -2791,7 +2809,7 @@ def phase_batch_learners(work: str, smi: str) -> dict:
         f"start within 1e-5 ({smi})")
     log(f"    lbfgs _calc_grad pass: device events per profile {events}; "
         f"top device entries: {_top_text(top)}")
-    if any(_counts().values()):
+    if any(_table_part(_counts()).values()):
         raise AssertionError(f"the batch learners launched a kernel of the "
                              f"port: {_counts()}")
     log(f"phase 14 ok in {time.monotonic() - t_phase:.1f} s: the batch "
@@ -2967,12 +2985,12 @@ def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
                           for n, v in spent.items()})
         if counted:
             w = want(epochs, tier.calls)
-            if got != w:
+            if _table_part(got) != w:
                 raise AssertionError(f"run {name} launches {got}, the steps "
                                      f"and the tier's moves need {w}")
             for c in COUNTERS:
                 total[c] += got[c]
-        elif any(got.values()):
+        elif any(_table_part(got).values()):
             raise AssertionError(f"run {name} on the plain versions "
                                  f"launched {got}")
         log(f"  run {name}: epoch wall s {_epoch_walls(walls)}; loss/row "
@@ -3101,7 +3119,7 @@ def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
         restore_w()
     got = _counts()
     w = want(2, {}, wal_gathers=len(gathers))
-    if got != w:
+    if _table_part(got) != w:
         raise AssertionError(f"run (n) launches {got}; the steps and "
                              f"{len(gathers)} WAL flushes need {w}")
     for c in COUNTERS:
@@ -3169,7 +3187,7 @@ def phase_capacity(work: str, conf: list, uparam, ts: dict) -> dict:
         raise AssertionError(f"the recovery stamp {stamp}")
     w = want(1, {}, epoch0=False, skip=skip, wal_gathers=len(gathers),
              replayed=stamp["wal_segments"])
-    if got != w:
+    if _table_part(got) != w:
         raise AssertionError(f"the recovered run launched {got}; resuming "
                              f"epoch 1 past {skip} replayed batches needs "
                              f"{w}")
@@ -3923,7 +3941,7 @@ def phase_online(work: str, conf: list, uparam, smi: str) -> dict:
     seg0 = -(-idx[0]["rows"] // bs)
     want = {"gather_rows_cuda": st["dispatches"] + n_batches + seg0,
             "fm_update_rows_cuda": n_batches, "scatter_rows_cuda": seg0}
-    if counts != want:
+    if _table_part(counts) != want:
         raise AssertionError(f"phase 16 (q) launches {counts}, want {want}"
                              f" ({st['dispatches']} predicts, {n_batches} "
                              f"training batches, {seg0} in segment 0)")
@@ -4793,8 +4811,8 @@ def phase_faults(work: str, conf: list, bits_a, smi: str) -> dict:
     want = {"gather_rows_cuda": 2 * n, "fm_update_rows_cuda": n,
             "scatter_rows_cuda": n}
     fired = _fired("step.device") - fired0
-    if got != want or fired != 1 or stats != {"step.device": 1} \
-            or not isinstance(err, OSError):
+    if _table_part(got) != want or fired != 1 \
+            or stats != {"step.device": 1} or not isinstance(err, OSError):
         raise AssertionError(f"(a) launches {got} (want {want}), fired "
                              f"{fired}, {stats}, {type(err).__name__}")
     _step_line("a", fault=f"step.device:err@1:{n}", error=type(err).__name__,
@@ -5044,7 +5062,7 @@ def _routed_runs():
     (one per non-empty shard run of every routed gather and push); returns
     (tally, restore)."""
     from difacto_tpu_torch.parallel import sharded
-    tally = dict.fromkeys(COUNTERS, 0)
+    tally = dict.fromkeys(TABLE_COUNTERS, 0)
     saved = (sharded.sharded_gather, sharded.sharded_push,
              sharded.sharded_scatter)
 
@@ -5095,10 +5113,10 @@ def _mesh_runs(kw: list, what: str, model: str = "") -> dict:
         restore()
     wall = time.monotonic() - t0
     launches = _counts()
-    if launches != tally:
+    if _table_part(launches) != tally:
         raise AssertionError(f"{what}: launches {launches}, the shard runs "
                              f"routed {tally}")
-    if not all(launches.values()):
+    if not all(_table_part(launches).values()):
         raise AssertionError(f"{what}: a kernel never launched: {launches}")
     loss = [t.loss / t.nrows for t, _ in progress]
     return {"ln": ln, "loss": loss, "walls": walls, "launches": launches,
@@ -5906,8 +5924,8 @@ def phase_multihost(work: str, tr: dict, t19: dict, smi: str) -> dict:
                                  f"differ: {ranks}")
         for r in ranks:
             if r["tally"] is not None and (
-                    r["launches"] != r["tally"]
-                    or not all(r["launches"].values())):
+                    _table_part(r["launches"]) != r["tally"]
+                    or not all(_table_part(r["launches"]).values())):
                 raise AssertionError(
                     f"phase 20 {what}: rank {r['rank']} launches "
                     f"{r['launches']}, routed {r['tally']}")
@@ -6206,12 +6224,10 @@ def _p21_train(spec: dict) -> dict:
     walls, losses and the table's digest either way."""
     import hashlib
 
-    from difacto_tpu_torch.losses import fm
     from difacto_tpu_torch.tools import devmap
     from difacto_tpu_torch.utils import devtrace
     devtrace.reset()
     _reset_counts()
-    chunk_grad = fm.fm_chunk_grad_cuda.launches
     traced = devtrace.enabled()
     warm, final = spec["out"] + "-train-warm.json", \
         spec["out"] + "-train.json"
@@ -6223,7 +6239,6 @@ def _p21_train(spec: dict) -> dict:
     ln, progress, walls, _ = _train([tuple(x) for x in spec["kwargs"]],
                                     epoch_end=epoch_end)
     out = {"launches": _counts(), "walls": walls,
-           "chunk_grad": fm.fm_chunk_grad_cuda.launches - chunk_grad,
            "loss": [t.loss / max(t.nrows, 1) for t, _ in progress]}
     if traced:
         devtrace.dump(final)
@@ -6418,15 +6433,13 @@ def phase_tooling(work: str, conf: list, tr: dict, batch: int,
         raise AssertionError(f"phase 21 (b): untraced launches "
                              f"{bu['launches']}, phase 7's "
                              f"{tr['launches']}")
-    # the chunked backward's kernel site counts the training steps' calls
-    sites = {**bt["launches"], "fm_chunk_grad_cuda": bt["chunk_grad"]}
-    if bt["launches"] != tr["launches"] or bt["chunk_grad"] != bu[
-            "chunk_grad"] or (DEV == "cuda" and (bt["kernels"] != sites
-                                                 or not bt["chunk_grad"])):
+    # each kernel site counts what its counter counts, the chunked
+    # backward's among them (the training steps' calls)
+    if bt["launches"] != tr["launches"] or (DEV == "cuda" and (
+            bt["kernels"] != bt["launches"]
+            or not bt["launches"]["fm_chunk_grad_cuda"])):
         raise AssertionError(f"phase 21 (b): traced launches "
-                             f"{bt['launches']} and {bt['chunk_grad']} of "
-                             f"the chunked backward (untraced "
-                             f"{bu['chunk_grad']}; sites {bt['kernels']}), "
+                             f"{bt['launches']} (sites {bt['kernels']}), "
                              f"phase 7's {tr['launches']}")
     if bt["digest"] != bu["digest"] or bt["loss"] != bu["loss"]:
         raise AssertionError("phase 21 (b): the traced run's table or "
@@ -6718,7 +6731,6 @@ def main(argv=None) -> int:
               "from the root of the repository", file=sys.stderr)
         return 2
     from difacto_tpu_torch.config import parse_config_file
-    from difacto_tpu_torch.losses import fm
     from difacto_tpu_torch.updaters.sgd_updater import SGDUpdaterParam
 
     global T_START
@@ -6829,15 +6841,14 @@ def main(argv=None) -> int:
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": "bytes",
                 "library_ms": t["library_ms"]})
-        # the chunked backward, at each benchmark cell's batch; launches:
-        # every call of this process (phases 7, 9, 12 (c), 13, 15 ...);
-        # its error is relative to each element's sum of magnitudes
+        # the chunked backward, at each benchmark cell's batch; its error
+        # is relative to each element's sum of magnitudes
         for cell, t in cg.items():
             lib, replaces = ENTRIES["fm_chunk_grad"]
             kernels.append({
                 "name": "fm_chunk_grad", "cell": cell, "route": "cuda",
                 "source": KERNELS[lib], "replaces": replaces,
-                "launches": fm.fm_chunk_grad_cuda.launches,
+                "launches": tl["fm_chunk_grad_cuda"],
                 "max_err_of_magnitudes": t["err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": None})

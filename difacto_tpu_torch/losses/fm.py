@@ -27,13 +27,14 @@ fixed order, so a step gives the same bits on every run (no atomics):
   ops/batch.panel_chunk_tokens) sums each chunk's L tokens, then each
   lane's chunk partials in chunk order (ops/segment.chunk_sum). On the
   card, with embeddings (up to 510 columns), ``dp == 1`` and no
-  ``plane``, it is one hand-written kernel entry (:func:`fm_chunk_grad_cuda`,
-  ``ops/csrc/fm_chunk_grad.cu``): a chunk's L tokens in slot order, a
-  lane's chunks in chunk order in groups of S chunks (32) counted from
-  its first chunk, each group summed in order and the group partials in
-  order. A lane of at most S chunks keeps the plain order; a longer one
-  is regrouped, so the card's sums agree with the plain version's within
-  a float32 tolerance, and repeat bit for bit.
+  ``plane``, it is one hand-written kernel entry
+  (``ops/fused.fm_chunk_grad_cuda``, ``ops/csrc/fm_chunk_grad.cu``): a
+  chunk's L tokens in slot order, a lane's chunks in chunk order in
+  groups of S chunks (32) counted from its first chunk, each group
+  summed in order and the group partials in order. A lane of at most S
+  chunks keeps the plain order; a longer one is regrouped, so the card's
+  sums agree with the plain version's within a float32 tolerance, and
+  repeat bit for bit.
 
 The row reductions over the k embedding columns take their own order, and
 ``exp`` is torch's, so the port agrees with the JAX package within a
@@ -59,16 +60,14 @@ dp order.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops import build
-from ..ops.batch import CHUNK_L, DeviceBatch, PanelBatch
+from ..ops import fused
+from ..ops.batch import DeviceBatch, PanelBatch
 from ..ops.segment import (chunk_sum, lane_sum, row_sum, segment_sum, spmv,
                            spmv_t)
-from ..utils import devtrace
 
 PRED_CLAMP = 20.0
 
@@ -261,16 +260,19 @@ def _fm_grad_panel_chunked(params: FMParams, pb: PanelBatch,
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Chunked-run backward (``pb.chunk_*`` set), the JAX package's
     ``_fm_grad_panel_chunked``. On the card, with embeddings of at most
-    ``CHUNK_GRAD_MAX_K`` columns, ``dp == 1``, no ``plane`` and ascending
-    chunk lanes, the kernel entry :func:`fm_chunk_grad_cuda`; every other
-    call (the CPU, dp blocks, processes, logistic loss, wider V) takes the
-    plain version :func:`fm_grad_panel_chunked_ref`, whose dp-block sums
-    need another order than the kernel's."""
+    ``fused.CHUNK_GRAD_MAX_K`` columns, ``dp == 1`` and no ``plane``, the
+    kernel entry ``ops/fused.fm_chunk_grad_cuda``; every other call (the
+    CPU, dp blocks, processes, logistic loss, wider V) takes the plain
+    version :func:`fm_grad_panel_chunked_ref`, whose dp-block sums need
+    another order than the kernel's. A layout whose lanes do not ascend
+    (``sorted_chunks`` false, LossSpec.chunks_sorted) comes only with dp
+    blocks or a plane."""
     if (p.device.type == "cuda" and params.V is not None
-            and 0 < params.V.shape[1] <= CHUNK_GRAD_MAX_K and dp == 1
-            and plane is None and sorted_chunks):
-        return fm_chunk_grad_cuda(p, xv, pb.chunk_idx, pb.chunk_lane,
-                                  pb.chunk_vals, params.V, _vmask(params))
+            and 0 < params.V.shape[1] <= fused.CHUNK_GRAD_MAX_K and dp == 1
+            and plane is None):
+        return fused.fm_chunk_grad_cuda(p, xv, pb.chunk_idx, pb.chunk_lane,
+                                        pb.chunk_vals, params.V,
+                                        _vmask(params))
     return fm_grad_panel_chunked_ref(params, pb, p, xv, sorted_chunks, dp,
                                      plane)
 
@@ -327,119 +329,6 @@ def fm_grad_panel_chunked_ref(params: FMParams, pb: PanelBatch,
         t1, gw, xxp = red[:, :k], red[:, k], red[:, k + 1]
     gV = (t1 - xxp[:, None] * Vm) * vm[:, None]
     return gw, gV
-
-
-# difacto_fm_chunk_grad(p, xv, ldx, chunk_idx, chunk_lane, chunk_vals, V,
-# ldv, v_bf16, vmask, starts, long_lane, scratch, gw, gV, B, C, U, k,
-# stream)
-CHUNK_GRAD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
-                       + [ctypes.c_void_p])
-
-
-# the widest V the kernel sums (k + 2 columns over a block's threads)
-CHUNK_GRAD_MAX_K = 510
-
-
-def _chunk_grad_fn():
-    lib = build.library("fm_chunk_grad")
-    fn = lib.difacto_fm_chunk_grad
-    if fn.argtypes is None:
-        fn.argtypes = CHUNK_GRAD_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def fm_chunk_grad_cuda(p: torch.Tensor, xv: torch.Tensor,
-                       chunk_idx: torch.Tensor, chunk_lane: torch.Tensor,
-                       chunk_vals: Optional[torch.Tensor], V: torch.Tensor,
-                       v_mask: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``ops/csrc/fm_chunk_grad.cu`` on the current stream: the
-    chunked-run backward with embeddings, (gw f32[U], gV f32[U, k]), both
-    contiguous. Takes p f32[B], xv f32[B, k], chunk_idx i32[C, 16] (pad
-    slots ``B``), chunk_lane i32[C] (ascending; pad chunks ``>= U``),
-    chunk_vals f32[C, 16] or None (a binary panel), V f32 or bf16 [U, k]
-    and v_mask f32[U]. xv and V may be row slices of wider tensors (the
-    forward's sums, the gathered fused rows): their columns must be
-    contiguous; every other tensor must be. Checks what the kernel assumes
-    and raises on anything else; allocates the outputs and the kernel's
-    scratch, never synchronises. ``fm_chunk_grad_cuda.launches`` counts
-    the calls (three kernel launches each)."""
-    name = "fm_chunk_grad_cuda"
-    dev = p.device
-    ts = [("p", p), ("xv", xv), ("chunk_idx", chunk_idx),
-          ("chunk_lane", chunk_lane), ("V", V), ("v_mask", v_mask)]
-    if chunk_vals is not None:
-        ts.append(("chunk_vals", chunk_vals))
-    if dev.type != "cuda" or any(t.device != dev for _, t in ts):
-        raise ValueError(f"{name}: " + ", ".join(
-            f"{n} on {t.device}" for n, t in ts)
-            + "; all must be on one CUDA device")
-    want = {"p": (torch.float32,), "xv": (torch.float32,),
-            "chunk_idx": (torch.int32,), "chunk_lane": (torch.int32,),
-            "V": (torch.float32, torch.bfloat16),
-            "v_mask": (torch.float32,), "chunk_vals": (torch.float32,)}
-    for n, t in ts:
-        if t.dtype not in want[n]:
-            raise TypeError(f"{name}: {n} must be "
-                            f"{' or '.join(map(str, want[n]))}, got "
-                            f"{t.dtype}")
-    B = p.shape[0] if p.dim() == 1 else -1
-    U, k = V.shape if V.dim() == 2 else (-1, -1)
-    C = chunk_lane.shape[0] if chunk_lane.dim() == 1 else -1
-    shapes = {"p": (B,), "xv": (B, k), "chunk_idx": (C, CHUNK_L),
-              "chunk_lane": (C,), "V": (U, k), "v_mask": (U,),
-              "chunk_vals": (C, CHUNK_L)}
-    if min(B, C, U) < 0 or not 1 <= k <= CHUNK_GRAD_MAX_K or any(
-            tuple(t.shape) != shapes[n] for n, t in ts):
-        raise ValueError(f"{name}: want p [B], xv [B, k], chunk_idx and "
-                         f"chunk_vals [C, {CHUNK_L}], chunk_lane [C], V "
-                         f"[U, k] (1 <= k <= {CHUNK_GRAD_MAX_K}) and v_mask "
-                         "[U], got " + ", ".join(
-                             f"{n} {tuple(t.shape)}" for n, t in ts))
-    for n, t in ts:
-        rows = n in ("xv", "V")
-        if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
-            raise ValueError(f"{name}: {n} must be "
-                             + ("row-major with contiguous columns"
-                                if rows else "contiguous"))
-    if chunk_idx.data_ptr() % 16 or (chunk_vals is not None
-                                     and chunk_vals.data_ptr() % 16):
-        raise ValueError(f"{name}: chunk_idx and chunk_vals must be "
-                         "16-byte aligned (a chunk is four 16-byte loads)")
-    if max(B, C, U + 1) >= 2 ** 31:
-        raise ValueError(f"{name}: B {B}, C {C} and U {U} must fit int32")
-    out = torch.empty(U * (k + 1), dtype=torch.float32, device=dev)
-    gV, gw = out[:U * k].view(U, k), out[U * k:]
-    if U == 0:
-        return gw, gV
-    # the kernel's scratch: partials [C, k + 2] (f32), then starts[U + 1]
-    # and a slot for each run of its chunk groups (fewer than C; int32)
-    scratch = torch.empty(C * (k + 2) + U + 1 + C, dtype=torch.float32,
-                          device=dev)
-    work = scratch[C * (k + 2):].view(torch.int32)
-    # the library launches on the calling thread's current device
-    with torch.cuda.device(dev):
-        rc = _chunk_grad_fn()(
-            p.data_ptr(), xv.data_ptr(), xv.stride(0), chunk_idx.data_ptr(),
-            chunk_lane.data_ptr(),
-            None if chunk_vals is None else chunk_vals.data_ptr(),
-            V.data_ptr(), V.stride(0), int(V.dtype == torch.bfloat16),
-            v_mask.data_ptr(), work.data_ptr(), work[U + 1:].data_ptr(),
-            scratch.data_ptr(),
-            gw.data_ptr(), gV.data_ptr(), B, C, U, k,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fm_chunk_grad kernel launch failed: CUDA "
-                           f"error {rc}")
-    fm_chunk_grad_cuda.launches += 1
-    return gw, gV
-
-
-fm_chunk_grad_cuda.launches = 0
-fm_chunk_grad_cuda = devtrace.kernel(fm_chunk_grad_cuda)
 
 
 def fm_grad_panel(params: FMParams, pb: PanelBatch, pred: torch.Tensor,

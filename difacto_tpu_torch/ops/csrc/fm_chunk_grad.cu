@@ -61,7 +61,7 @@
 //      one's group partials to shared memory with every thread of the
 //      block, and a thread a column adds them in order; then the lane's
 //      gw and gV.
-// The wrapper (difacto_tpu_torch/losses/fm.py, fm_chunk_grad_cuda)
+// The wrapper (difacto_tpu_torch/ops/fused.py, fm_chunk_grad_cuda)
 // allocates the outputs, starts[U + 1], long_lane[ceil(C / kS)] and
 // scratch[C, k + 2]; nothing is allocated here and nothing synchronises
 // with the host. chunk_lane must ascend, as every single-card layout's
@@ -507,15 +507,15 @@ cudaError_t launch_sums(const Args& a, int tiles, cudaStream_t st) {
 
 }  // namespace
 
-// The chunk count of a group (the tests build lanes longer than several).
-extern "C" int difacto_fm_chunk_grad_group() { return kS; }
-
 extern "C" int difacto_fm_chunk_grad(
     const float* p, const float* xv, int64_t ldx, const int32_t* chunk_idx,
     const int32_t* chunk_lane, const float* chunk_vals, const void* V,
     int64_t ldv, int64_t v_bf16, const float* vmask, int32_t* starts,
     int32_t* long_lane, float* scratch, float* gw, float* gV, int64_t B,
-    int64_t C, int64_t U, int64_t k, void* stream) {
+    int64_t C, int64_t U, int64_t k, int64_t group, void* stream) {
+  // group: the caller's count of chunks a group (ops/fused.py
+  // CHUNK_GRAD_GROUP), refused unless it is this build's kS
+  if (group != kS) return static_cast<int>(cudaErrorInvalidValue);
   if (U <= 0) return 0;
   if (k <= 0 || B < 0 || C < 0 || B > INT32_MAX || C > INT32_MAX ||
       U >= INT32_MAX || k + 2 > kThreads * kColsPerThread)

@@ -16,9 +16,13 @@
   CUDA table both launch ``csrc/scatter_epilogue.cu`` (the port of the
   TPU kernel ``_scatter_epilogue``, difacto_tpu/ops/fused.py:337); on a
   CPU table they run :func:`fm_update_rows_ref` / :func:`scatter_rows_ref`.
+- :func:`fm_chunk_grad_cuda` — the chunked-run FM backward of a step
+  (``gw``, ``gV`` of the batch's lanes) as ``csrc/fm_chunk_grad.cu``,
+  which ports no TPU kernel (the JAX package's is jnp). The loss
+  (losses/fm.py) decides when it runs and keeps the plain version.
 
 There is no fallback between kernel and plain version: a CUDA table that
-a kernel cannot take raises. The three ``*_cuda`` entry points go through
+a kernel cannot take raises. The four ``*_cuda`` entry points go through
 ``utils/devtrace.kernel`` (the counterpart of ``jaxtrace.pallas_call``):
 the same functions with tracing off, launch-counting wrappers per entry
 point with it on.
@@ -39,13 +43,14 @@ configs load, and selects nothing here: the device of the table decides.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..obs import trace
 from ..utils import devtrace
 from . import build
+from .batch import CHUNK_L
 
 # ------------------------------------------------------------------ dedup
 def dedup_tokens(tok: torch.Tensor, u_cap: int, capacity: int):
@@ -420,3 +425,119 @@ scatter_rows_cuda.launches = 0
 fm_update_rows_cuda.launches = 0
 scatter_rows_cuda = devtrace.kernel(scatter_rows_cuda)
 fm_update_rows_cuda = devtrace.kernel(fm_update_rows_cuda)
+
+
+# ---------------------------------------------------- chunked backward
+# difacto_fm_chunk_grad(p, xv, ldx, chunk_idx, chunk_lane, chunk_vals, V,
+# ldv, v_bf16, vmask, starts, long_lane, scratch, gw, gV, B, C, U, k,
+# group, stream)
+CHUNK_GRAD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5
+                       + [ctypes.c_void_p])
+
+
+# the widest V the kernel sums (k + 2 columns over a block's threads)
+CHUNK_GRAD_MAX_K = 510
+# chunks a group (the kernel's kS: it refuses a launch that names another)
+CHUNK_GRAD_GROUP = 32
+
+
+def _chunk_grad_fn():
+    lib = build.library("fm_chunk_grad")
+    fn = lib.difacto_fm_chunk_grad
+    if fn.argtypes is None:
+        fn.argtypes = CHUNK_GRAD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fm_chunk_grad_cuda(p: torch.Tensor, xv: torch.Tensor,
+                       chunk_idx: torch.Tensor, chunk_lane: torch.Tensor,
+                       chunk_vals: Optional[torch.Tensor], V: torch.Tensor,
+                       v_mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/fm_chunk_grad.cu`` on the current stream: the
+    chunked-run backward with embeddings, (gw f32[U], gV f32[U, k]), both
+    contiguous. Takes p f32[B], xv f32[B, k], chunk_idx i32[C, 16] (pad
+    slots ``B``), chunk_lane i32[C] (ascending; pad chunks ``>= U``),
+    chunk_vals f32[C, 16] or None (a binary panel), V f32 or bf16 [U, k]
+    and v_mask f32[U]. xv and V may be row slices of wider tensors (the
+    forward's sums, the gathered fused rows): their columns must be
+    contiguous; every other tensor must be. Checks what the kernel assumes
+    and raises on anything else; allocates the outputs and the kernel's
+    scratch, never synchronises. ``fm_chunk_grad_cuda.launches`` counts
+    the calls (three kernel launches each)."""
+    name = "fm_chunk_grad_cuda"
+    dev = p.device
+    ts = [("p", p), ("xv", xv), ("chunk_idx", chunk_idx),
+          ("chunk_lane", chunk_lane), ("V", V), ("v_mask", v_mask)]
+    if chunk_vals is not None:
+        ts.append(("chunk_vals", chunk_vals))
+    if dev.type != "cuda" or any(t.device != dev for _, t in ts):
+        raise ValueError(f"{name}: " + ", ".join(
+            f"{n} on {t.device}" for n, t in ts)
+            + "; all must be on one CUDA device")
+    want = {"p": (torch.float32,), "xv": (torch.float32,),
+            "chunk_idx": (torch.int32,), "chunk_lane": (torch.int32,),
+            "V": (torch.float32, torch.bfloat16),
+            "v_mask": (torch.float32,), "chunk_vals": (torch.float32,)}
+    for n, t in ts:
+        if t.dtype not in want[n]:
+            raise TypeError(f"{name}: {n} must be "
+                            f"{' or '.join(map(str, want[n]))}, got "
+                            f"{t.dtype}")
+    B = p.shape[0] if p.dim() == 1 else -1
+    U, k = V.shape if V.dim() == 2 else (-1, -1)
+    C = chunk_lane.shape[0] if chunk_lane.dim() == 1 else -1
+    shapes = {"p": (B,), "xv": (B, k), "chunk_idx": (C, CHUNK_L),
+              "chunk_lane": (C,), "V": (U, k), "v_mask": (U,),
+              "chunk_vals": (C, CHUNK_L)}
+    if min(B, C, U) < 0 or not 1 <= k <= CHUNK_GRAD_MAX_K or any(
+            tuple(t.shape) != shapes[n] for n, t in ts):
+        raise ValueError(f"{name}: want p [B], xv [B, k], chunk_idx and "
+                         f"chunk_vals [C, {CHUNK_L}], chunk_lane [C], V "
+                         f"[U, k] (1 <= k <= {CHUNK_GRAD_MAX_K}) and v_mask "
+                         "[U], got " + ", ".join(
+                             f"{n} {tuple(t.shape)}" for n, t in ts))
+    for n, t in ts:
+        rows = n in ("xv", "V")
+        if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
+            raise ValueError(f"{name}: {n} must be "
+                             + ("row-major with contiguous columns"
+                                if rows else "contiguous"))
+    if chunk_idx.data_ptr() % 16 or (chunk_vals is not None
+                                     and chunk_vals.data_ptr() % 16):
+        raise ValueError(f"{name}: chunk_idx and chunk_vals must be "
+                         "16-byte aligned (a chunk is four 16-byte loads)")
+    if max(B, C, U + 1) >= 2 ** 31:
+        raise ValueError(f"{name}: B {B}, C {C} and U {U} must fit int32")
+    out = torch.empty(U * (k + 1), dtype=torch.float32, device=dev)
+    gV, gw = out[:U * k].view(U, k), out[U * k:]
+    if U == 0:
+        return gw, gV
+    # the kernel's scratch: partials [C, k + 2] (f32), then starts[U + 1]
+    # and a slot for each run of its chunk groups (fewer than C; int32)
+    scratch = torch.empty(C * (k + 2) + U + 1 + C, dtype=torch.float32,
+                          device=dev)
+    work = scratch[C * (k + 2):].view(torch.int32)
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        rc = _chunk_grad_fn()(
+            p.data_ptr(), xv.data_ptr(), xv.stride(0), chunk_idx.data_ptr(),
+            chunk_lane.data_ptr(),
+            None if chunk_vals is None else chunk_vals.data_ptr(),
+            V.data_ptr(), V.stride(0), int(V.dtype == torch.bfloat16),
+            v_mask.data_ptr(), work.data_ptr(), work[U + 1:].data_ptr(),
+            scratch.data_ptr(),
+            gw.data_ptr(), gV.data_ptr(), B, C, U, k, CHUNK_GRAD_GROUP,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fm_chunk_grad kernel launch failed: CUDA "
+                           f"error {rc}")
+    fm_chunk_grad_cuda.launches += 1
+    return gw, gV
+
+
+fm_chunk_grad_cuda.launches = 0
+fm_chunk_grad_cuda = devtrace.kernel(fm_chunk_grad_cuda)

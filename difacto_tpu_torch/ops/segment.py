@@ -37,7 +37,7 @@ Neither reduction uses ``index_add_``/``scatter_add_``: their order on
 the card is not deterministic.
 
 On the card the chunked backward of an FM with embeddings on one dp
-block does not come here: losses/fm.fm_chunk_grad_cuda
+block does not come here: ops/fused.fm_chunk_grad_cuda
 (``csrc/fm_chunk_grad.cu``) sums each chunk's tokens in slot order and
 each lane's chunks in chunk order in groups of 32 chunks counted from the
 lane's first, the groups' partials then in order, so that a skewed lane

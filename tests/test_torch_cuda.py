@@ -284,6 +284,7 @@ def test_chunk_layout_on_the_card_equals_the_cpu(cuda, binary):
 def test_chunked_backward_on_the_card_repeats(cuda, k):
     from difacto_tpu_torch.losses import FMParams
     from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops import fused
     from difacto_tpu_torch.ops.batch import PanelBatch, panel_chunk_tokens
     rng = np.random.RandomState(2)
     B, F, U = 1024, 39, 12288
@@ -302,10 +303,10 @@ def test_chunked_backward_on_the_card_repeats(cuda, k):
         v_mask=t((rng.rand(U) < 0.7).astype(np.float32)) if k else None)
     pred = t(rng.randn(B).astype(np.float32))
     xv = fm.fm_predict_panel_xv(params, pb)[1] if k else None
-    before = fm.fm_chunk_grad_cuda.launches
+    before = fused.fm_chunk_grad_cuda.launches
     runs = [fm.fm_grad_panel(params, pb, pred, xv) for _ in range(3)]
     # the kernel entry with embeddings; logistic loss keeps the plain one
-    assert fm.fm_chunk_grad_cuda.launches - before == (3 if k else 0)
+    assert fused.fm_chunk_grad_cuda.launches - before == (3 if k else 0)
     for gw, gV in runs[1:]:
         assert torch.equal(gw.view(torch.int32), runs[0][0].view(torch.int32))
         if k:
@@ -378,17 +379,17 @@ def test_chunk_grad_kernel_matches_plain_and_repeats(cuda, k, binary, data):
     2^-24 times that sum per add along its chain. Three runs equal bit
     for bit; one launch a call."""
     from difacto_tpu_torch.losses import fm
-    from difacto_tpu_torch.ops import build
+    from difacto_tpu_torch.ops import fused
     params, pb, p, xv = _chunk_grad_case(cuda, k, binary, data)
-    S = build.library("fm_chunk_grad").difacto_fm_chunk_grad_group()
+    S = fused.CHUNK_GRAD_GROUP
     cl = pb.chunk_lane.cpu().numpy()
     U = params.w.shape[0]
     lens = np.bincount(cl[cl < U], minlength=U)
     assert lens[0] > 3 * S and (cl == U).any() and (lens == 0).any()
     assert (pb.chunk_idx[pb.chunk_lane == 11500] < 2048).sum() == 1
-    before = fm.fm_chunk_grad_cuda.launches
+    before = fused.fm_chunk_grad_cuda.launches
     runs = [fm._fm_grad_panel_chunked(params, pb, p, xv) for _ in range(3)]
-    assert fm.fm_chunk_grad_cuda.launches - before == 3
+    assert fused.fm_chunk_grad_cuda.launches - before == 3
     want = fm.fm_grad_panel_chunked_ref(params, pb, p, xv)
     torch.cuda.synchronize()
     for gw, gV in runs[1:]:
@@ -416,8 +417,9 @@ def test_chunk_grad_kernel_takes_bf16_rows(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_chunk_grad_kernel_refuses_what_it_cannot_take(cuda):
+def test_chunk_grad_kernel_refuses_what_it_cannot_take(cuda, monkeypatch):
     from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops import fused
     params, pb, p, xv = _chunk_grad_case(cuda, 16, False, "random")
     args = dict(p=p, xv=xv, chunk_idx=pb.chunk_idx,
                 chunk_lane=pb.chunk_lane, chunk_vals=pb.chunk_vals,
@@ -439,21 +441,61 @@ def test_chunk_grad_kernel_refuses_what_it_cannot_take(cuda):
             C - 1, 16), chunk_lane=pb.chunk_lane[:C - 1],
             chunk_vals=pb.chunk_vals[:C - 1])),
     ]
-    before = fm.fm_chunk_grad_cuda.launches
+    before = fused.fm_chunk_grad_cuda.launches
     for err, over in bad:
         with pytest.raises(err):
-            fm.fm_chunk_grad_cuda(**{**args, **over})
+            fused.fm_chunk_grad_cuda(**{**args, **over})
     # V wider than a block's columns: refused, and the backward takes the
     # plain version
-    k = fm.CHUNK_GRAD_MAX_K + 1
+    k = fused.CHUNK_GRAD_MAX_K + 1
     wide = params._replace(V=torch.zeros((params.V.shape[0], k),
                                          device=cuda))
     xw = torch.zeros((p.shape[0], k), device=cuda)
     with pytest.raises(ValueError):
-        fm.fm_chunk_grad_cuda(**{**args, "V": wide.V, "xv": xw})
+        fused.fm_chunk_grad_cuda(**{**args, "V": wide.V, "xv": xw})
     got = fm._fm_grad_panel_chunked(wide, pb, p, xw)
     assert got[1].shape == (params.V.shape[0], k)
-    assert fm.fm_chunk_grad_cuda.launches == before
+    # the group size is the wrapper's constant and the kernel's: a launch
+    # naming another is refused by the library before any kernel runs
+    monkeypatch.setattr(fused, "CHUNK_GRAD_GROUP", fused.CHUNK_GRAD_GROUP // 2)
+    with pytest.raises(RuntimeError):
+        fused.fm_chunk_grad_cuda(**args)
+    assert fused.fm_chunk_grad_cuda.launches == before
+
+
+@pytest.mark.parametrize("case", ["dp2", "plane"])
+def test_chunk_grad_dp_blocks_on_the_card_take_the_plain_version(
+        cuda, case, monkeypatch):
+    """On the card, dp blocks (``dp=2``) and a data plane keep the plain
+    version, whose per-block partials are summed in dp order: the kernel
+    entry is never called, and the result is the plain version's bit for
+    bit."""
+    from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops import fused
+    params, pb, p, xv = _chunk_grad_case(cuda, 16, False, "random")
+
+    class OneProcess:
+        """A data plane of one process: the gather is its own partials."""
+
+        def gather(self, t):
+            return t[None]
+
+    def kernel(*a, **kw):
+        raise AssertionError("the kernel entry was called for dp blocks")
+
+    plain = []
+    real = fm.fm_grad_panel_chunked_ref
+
+    def ref(*a, **kw):
+        plain.append(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(fused, "fm_chunk_grad_cuda", kernel)
+    monkeypatch.setattr(fm, "fm_grad_panel_chunked_ref", ref)
+    dp, plane = (2, None) if case == "dp2" else (1, OneProcess())
+    got = fm._fm_grad_panel_chunked(params, pb, p, xv, dp=dp, plane=plane)
+    assert len(plain) == 1
+    want = real(params, pb, p, xv, dp=dp, plane=plane)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_replay_training_launches_the_chunk_grad_kernel(cuda, criteo_file):
@@ -462,7 +504,7 @@ def test_replay_training_launches_the_chunk_grad_kernel(cuda, criteo_file):
     kernel entry once; the run repeats bit for bit."""
     from difacto_tpu_torch.learners import sgd as tsgd
     from difacto_tpu_torch.learners.sgd import SGDLearner
-    from difacto_tpu_torch.losses import fm
+    from difacto_tpu_torch.ops import fused
     kw = [("data_in", criteo_file), ("data_format", "criteo"),
           ("V_dim", "4"), ("batch_size", "100"), ("hash_capacity", "4096"),
           ("num_jobs_per_epoch", "1"), ("max_num_epochs", "3"),
@@ -472,12 +514,12 @@ def test_replay_training_launches_the_chunk_grad_kernel(cuda, criteo_file):
     for _ in range(2):
         ln = SGDLearner(device="cuda")
         assert ln.init(kw) == []
-        before = fm.fm_chunk_grad_cuda.launches
+        before = fused.fm_chunk_grad_cuda.launches
         ln.run()
         staged = sum(len(items) for items in
                      ln._caches[tsgd.K_TRAINING].entries.values())
         assert staged == 15
-        assert fm.fm_chunk_grad_cuda.launches - before == 3 * staged
+        assert fused.fm_chunk_grad_cuda.launches - before == 3 * staged
         tables.append(ln.store.state.VVg.view(torch.int32).clone())
     assert torch.equal(tables[0], tables[1])
 

@@ -230,7 +230,7 @@ def test_chunked_backward_off_the_card_takes_the_plain_path(case,
         plain.append(a[5] if len(a) > 5 else kw.get("dp", 1))
         return real(*a, **kw)
     real = tfm.fm_grad_panel_chunked_ref
-    monkeypatch.setattr(tfm, "fm_chunk_grad_cuda", kernel)
+    monkeypatch.setattr(tfused, "fm_chunk_grad_cuda", kernel)
     monkeypatch.setattr(tfm, "fm_grad_panel_chunked_ref", ref)
     pr = torch.from_numpy(pred)
     gw, gV = tfm.fm_grad_panel(tp, tpb, pr, xv, dp=dp)
