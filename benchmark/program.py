@@ -35,6 +35,10 @@ SPAN_EVALUATE = "bench.learner.evaluate"
 SPAN_GATHER = "bench.kernels.gather"
 SPAN_PUSH = "bench.kernels.push"
 
+# the flat V_dim 0 table's columns that the check reads, in the order the
+# recorder copies them
+FLAT_COLS = ("w", "sqrt_g")
+
 
 class WindowClosed(Exception):
     """Raised from the epoch-end callback to end the learner's run."""
@@ -75,8 +79,10 @@ class Recorder:
     sync: before each followed step the rows of its slot vector, after
     the first those rows again, after the last the rows of every
     followed step. Once the window has closed, the copies are read
-    through the program's own logical view of its fused rows. The
-    wrapper takes itself off after the last followed step."""
+    through the program's own logical view of its fused rows, or at
+    ``V_dim`` 0, where the table is flat columns pushed in place, as the
+    columns w and sqrt_g side by side. The wrapper takes itself off after
+    the last followed step."""
 
     def __init__(self, learner, followed: List[int]):
         from difacto_tpu_torch.updaters import sgd_updater as su
@@ -84,6 +90,7 @@ class Recorder:
         self.learner = learner
         self.param = learner.store.param
         self.capacity = learner.store.state.capacity
+        self.flat = self.param.V_dim == 0
         self.followed = followed
         self.step = 0
         self.objv: List[torch.Tensor] = []
@@ -99,24 +106,36 @@ class Recorder:
         """The host buffers of the followed steps' copies, sized by the
         longest staged slot vector, pinned on the card's host so that the
         copies run on the side stream while the window runs on."""
-        table = self.learner.store.state.VVg
+        state = self.learner.store.state
+        if self.flat:
+            shape, dtype = (len(FLAT_COLS),), state.w.dtype
+        else:
+            shape, dtype = tuple(state.VVg.shape[1:]), state.VVg.dtype
         u = max(st.u_cap for c in self.learner._caches.values()
                 for v in c.entries.values() for st in v)
-        pin = table.is_cuda
+        pin = state.VVg.is_cuda
         self._bufs = [(torch.empty(u, dtype=torch.int64, pin_memory=pin),
-                       torch.empty((u,) + tuple(table.shape[1:]),
-                                   dtype=table.dtype, pin_memory=pin))
+                       torch.empty((u,) + shape, dtype=dtype,
+                                   pin_memory=pin))
                       for _ in range(2 * len(self.followed) + 1)]
         if pin:
-            self._side = torch.cuda.Stream(device=table.device)
+            self._side = torch.cuda.Stream(device=state.VVg.device)
 
-    def _copy(self, kind: str, table: torch.Tensor, idx: torch.Tensor
-              ) -> None:
-        """Enqueue rows ``idx`` of ``table`` (pads clamped in bounds,
-        dropped when read) and the ids for the host."""
+    def _rows(self, state, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` of the table (pads clamped in bounds, dropped
+        when read): the fused rows, or the flat columns side by side."""
+        idx = idx.clamp(0, self.capacity - 1)
+        if not self.flat:
+            return state.VVg.index_select(0, idx)
+        return torch.stack([getattr(state, c).index_select(0, idx)
+                            for c in FLAT_COLS], dim=1)
+
+    def _copy(self, kind: str, state, idx: torch.Tensor) -> None:
+        """Enqueue rows ``idx`` of ``state``'s table and the ids for the
+        host."""
         ids, rows_h = self._bufs.pop()
         n = idx.shape[0]
-        rows = table.index_select(0, idx.clamp(0, self.capacity - 1))
+        rows = self._rows(state, idx)
         ids, rows_h = ids[:n], rows_h[:n]
         if self._side is None:
             ids.copy_(idx)
@@ -140,15 +159,16 @@ class Recorder:
             self.objv.append(out[1])
             return out
         idx = slots.to(torch.int64)
-        self._copy("pre", state.VVg, idx)
+        self._copy("pre", state, idx)
         out = self._orig(state, batch, slots)
         self.objv.append(out[1])
         self._idx.append(idx)
+        # the push is in place: these copies queue behind its scatters
         if i == self.followed[0]:
-            self._copy("first", out[0].VVg, idx)
+            self._copy("first", out[0], idx)
         if i == self.followed[-1]:
             for j in self._idx:
-                self._copy("last", out[0].VVg, j)
+                self._copy("last", out[0], j)
             self._idx = []
             self.learner._train_step = self._orig
         return out
@@ -165,9 +185,14 @@ class Recorder:
         out = []
         for ids, rows in self.copies[kind]:
             keep = (ids >= 0) & (ids < self.capacity)
-            sub = state._replace(VVg=rows[keep].to(state.VVg.device))
-            w, _, sg, _, _ = su.scal_cols(self.param, sub, self.capacity)
-            V, Vg = su.emb_cols_f32(self.param, sub, self.capacity)
+            if self.flat:
+                w, sg = rows[keep].unbind(1)
+                V = Vg = torch.zeros((w.shape[0], 0), dtype=torch.float64)
+            else:
+                sub = state._replace(VVg=rows[keep].to(state.VVg.device))
+                w, _, sg, _, _ = su.scal_cols(self.param, sub,
+                                              self.capacity)
+                V, Vg = su.emb_cols_f32(self.param, sub, self.capacity)
             out.append((ids[keep].numpy(),
                         {k: v.to(torch.float64).cpu().numpy()
                          for k, v in (("w", w), ("sg", sg), ("V", V),

@@ -55,11 +55,14 @@ def forbidden_modules() -> list:
 def run_cell(cell: harness.Cell, seed: int, seconds: float, traced: bool,
              device: str, overrides: Optional[dict] = None,
              fault: Optional[Callable] = None,
-             t_start: float = T_PROCESS) -> dict:
+             t_start: float = T_PROCESS,
+             on_recorded: Optional[Callable] = None) -> dict:
     """One run of ``cell``; returns the result line's object.
     ``overrides`` changes configuration keys (the lower-precision
     control); ``fault(learner)`` breaks the program underneath (the
-    checks' tests)."""
+    checks' tests); ``on_recorded(rec, recorded)`` sees the recorder and
+    what it read before the program's state is freed (the calibration's
+    look at the control's table)."""
     tr = cell.traffic
     conf = {**cell.conf, **(overrides or {})}
     n = int(cell.cfg["epoch_rows"])
@@ -91,7 +94,10 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, traced: bool,
                               on_setup_done=setup_done)
         finally:
             rec.close()
-        prog = check.program(rec.results())
+        recorded = rec.results()
+        if on_recorded is not None:
+            on_recorded(rec, recorded)
+        prog = check.program(recorded)
         program.release(learner)
         del learner, rec
     ref = check.reference(rows, conf, seed, setup_epochs, followed, device)
